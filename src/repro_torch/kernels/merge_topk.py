@@ -1,0 +1,76 @@
+"""CUDA wrapper of ``csrc/merge_topk.cu``: the batched merged-stream pull.
+
+Counterpart of ``repro.kernels.merge_topk.merge_topk`` (which sorts with
+``repro.kernels.sortnet.bitonic_topk_desc``); the plain version is
+``kernels.ref.merge_topk`` and ``kernels.ops`` chooses between them by
+device. This wrapper takes CUDA tensors only.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.rank_join import _check, _check_cuda
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# Shared memory holds (score, index) for every padded slot: 16384 slots use
+# 128 KB of the 227 KB a block may have.
+MAX_PADDED = 16384
+
+
+def _fn():
+    fn = _build.load("merge_topk").merge_topk
+    fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def padded_len(n: int, block: int) -> int:
+    """Power-of-two slot count the bitonic sort runs over (≥ n, ≥ block)."""
+    return 1 << max(int(n - 1).bit_length(), int(block - 1).bit_length(), 3)
+
+
+def check_args(window_keys, window_scores, block: int):
+    """Dtype, shape and sizes the kernel takes → (G, n, padded)."""
+    if window_keys.dim() != 3:
+        raise ValueError("window_keys must be (G, R, W)")
+    G, R, W = window_keys.shape
+    n = R * W
+    _check("window_keys", window_keys, torch.int32, (G, R, W))
+    _check("window_scores", window_scores, torch.float32, (G, R, W))
+    if not 0 < block <= n:
+        raise ValueError(f"block {block} must be in [1, R*W = {n}]")
+    padded = padded_len(n, block)
+    if padded > MAX_PADDED:
+        raise ValueError(f"{n} window items exceed the kernel's "
+                         f"{MAX_PADDED}-slot shared-memory sort")
+    if not 0 < G <= 2**31 - 1:
+        raise ValueError(f"G = {G} groups out of range")
+    return G, n, padded
+
+
+def merge_topk(window_keys: torch.Tensor, window_scores: torch.Tensor,
+               block: int):
+    """(G, R, W) i32, (G, R, W) f32 → (keys (G, block) i32,
+    scores (G, block) f32, flat_idx (G, block) i32), on the card."""
+    G, n, padded = check_args(window_keys, window_scores, block)
+    _check_cuda(window_keys, window_scores)
+    fn = _fn()
+    dev = window_keys.device
+    keys = torch.empty((G, block), dtype=torch.int32, device=dev)
+    scores = torch.empty((G, block), dtype=torch.float32, device=dev)
+    idx = torch.empty((G, block), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(window_keys.data_ptr(), window_scores.data_ptr(),
+             keys.data_ptr(), scores.data_ptr(), idx.data_ptr(), G, n,
+             padded, block, stream)
+    if err:
+        raise RuntimeError(f"merge_topk launch failed: CUDA error {err}")
+    merge_topk.launches += 1
+    return keys, scores, idx
+
+
+merge_topk.launches = 0

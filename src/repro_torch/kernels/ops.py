@@ -1,0 +1,54 @@
+"""Dispatch between each kernel and its plain version, by device.
+
+A CPU tensor goes to the plain version (``kernels.ref``); a CUDA tensor goes
+to the hand-written CUDA kernel, or the call raises. ``impl="ref"`` forces
+the plain version on any device: it exists for ``chip_smoke.py`` and the
+tests, which hold the kernels against it; the engine never passes it.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import rank_join as _rank_join
+from repro_torch.kernels import merge_topk as _merge_topk
+
+KERNELS = {"rank_join_lookup": _rank_join.rank_join_lookup,
+           "merge_topk": _merge_topk.merge_topk}
+
+
+def _plain(t: torch.Tensor, impl: str) -> bool:
+    if impl not in ("auto", "ref"):
+        raise ValueError(f"impl must be 'auto' or 'ref', got {impl!r}")
+    if impl == "ref" or t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"no kernel for tensors on {t.device}")
+    return False
+
+
+def rank_join_lookup(seen_keys, seen_scores, probe_keys, seen_cnt,
+                     impl: str = "auto"):
+    """Batched probe: (G, N), (G, N), (G, B), (G,) → (G, B) scores, found."""
+    if _plain(seen_keys, impl):
+        return _ref.rank_join_lookup(seen_keys, seen_scores, probe_keys,
+                                     seen_cnt)
+    return _rank_join.rank_join_lookup(seen_keys, seen_scores, probe_keys,
+                                       seen_cnt)
+
+
+def merge_topk(window_keys, window_scores, block: int, impl: str = "auto"):
+    """Batched pull: (G, R, W) windows → (G, block) keys, scores, flat_idx."""
+    if _plain(window_keys, impl):
+        return _ref.merge_topk(window_keys, window_scores, block)
+    return _merge_topk.merge_topk(window_keys, window_scores, block)
+
+
+def launches() -> dict[str, int]:
+    """Kernel launches per kernel since the last ``reset_launches``."""
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launches() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
