@@ -7,23 +7,37 @@ Phases, each of which fails loudly (non-zero exit, no result line):
 
 1. print the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc;
-3. hold each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it (bit-equal), and time kernel, plain
-   version and, where one exists, a single PyTorch call computing the same
-   function (CUDA events, median);
-4. drive the main path at the kg-specqp geometry (``configs/kg_specqp``):
+3. hold the KG kernels against their plain PyTorch versions on the card,
+   at the shapes the KG path gives them (bit-equal), and time kernel,
+   plain version and, where one exists, a single PyTorch call computing
+   the same function (CUDA events, median);
+4. drive the KG path at the kg-specqp geometry (``configs/kg_specqp``):
    a 32-query xkg workload with lists of 8192 items, planned by PLANGEN
    and served through ``BatchExecutor`` (continuous refill, 8 lanes) in
    ``specqp`` and ``trinit`` modes, with the kernels' launch counters set to
    0 just before and read just after; check TriniT (rings uncapped)
    against the full-scan oracle on the card and two queries against the
    port on the CPU;
-5. print the kernel table as one JSON line, then the result line
+5. retrieval at the ``retrieval_cand`` shape of
+   ``configs/two_tower_retrieval``: ``topk_score_pruned`` held against its
+   plain version on a 1,048,576 x 256 norm-clustered corpus (Cauchy and
+   infinite bounds) and timed, then 32 queries through ``retrieve`` and the
+   score-everything baseline with the counters read around them, every
+   top-100 checked against the exact full scan;
+6. two-tower serving at the ``serve_p99`` shape: the full-width model
+   (two 20 M x 256 tables, about 41 GB) initialised on the card,
+   ``embedding_bag`` held against its plain version on its tables (also
+   at ids above 2**23) and timed, then, with the counters read around
+   them, the 1,048,576-item corpus built through the item tower and 16
+   batches of 512 users served through ``serve``; one batch checked
+   against a full-matrix top-k;
+7. print the kernel table as one JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 It exits non-zero without CUDA and when ``src/repro_torch`` is not beside
-it. It imports nothing of JAX. ``--profile`` adds a ``torch.profiler``
-window over one specqp serving pass (device busy share, time by kernel).
+it. It imports nothing of JAX. ``--profile`` adds ``torch.profiler``
+windows (device busy share, time by kernel) over one retrieval query in
+each mode, one serving batch and one specqp pass of the KG path.
 """
 from __future__ import annotations
 
@@ -45,6 +59,10 @@ FP32_OPS_PER_S = 67e12     # 32-bit operations outside the tensor cores
 LANES = 8
 N_QUERIES = 32
 SEED = 0
+# two-tower serving: the serve_p99 batch, batches timed, corpus build chunk
+SERVE_BATCH = 512
+SERVE_BATCHES = 16
+CORPUS_CHUNK = 65536
 
 
 def fail(msg: str) -> None:
@@ -235,8 +253,8 @@ def main_path(np, torch, dev):
               f"{r['plan_s']:.3f} s")
     print(f"main path launches: {launches} | peak device memory "
           f"{peak_mb:.1f} MiB")
-    if not all(v > 0 for v in launches.values()):
-        fail(f"a kernel of the main path was never launched: {launches}")
+    if not (launches["rank_join_lookup"] > 0 and launches["merge_topk"] > 0):
+        fail(f"a kernel of the KG path was never launched: {launches}")
 
     # Outputs are well formed.
     for m, res in served.items():
@@ -302,19 +320,18 @@ def main_path(np, torch, dev):
     return launches, report, (wl, queries, bcfg)
 
 
-def profile_main_path(np, torch, dev, wl, queries, bcfg) -> None:
-    """One specqp serving pass under torch.profiler: the device's busy
-    share of the wall time and the device time by kernel."""
+def profile_window(torch, label: str, fn) -> None:
+    """``fn`` under torch.profiler: the device's busy share of the wall
+    time and the device time by kernel. Only device-side events count: a
+    CPU-side op's self device time is that of the kernels it launched,
+    which the trace also holds as events of their own."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.configs import kg_specqp
-    from repro_torch.launch import batching
 
-    ex = batching.BatchExecutor(wl.store, wl.relax, kg_specqp.ENGINE,
-                                "specqp", bcfg, device=dev)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        ex.run(queries)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
@@ -322,16 +339,358 @@ def profile_main_path(np, torch, dev, wl, queries, bcfg) -> None:
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
 
-    events = [e for e in prof.key_averages() if dev_us(e) > 0]
+    events = [e for e in prof.key_averages()
+              if e.device_type != DeviceType.CPU and dev_us(e) > 0]
     busy = sum(dev_us(e) for e in events) / 1e6
     if not events:
-        print("profile: the trace holds no device time (not measured)")
+        print(f"profile ({label}): the trace holds no device time (not "
+              "measured)")
         return
-    print(f"profile (specqp pass, {wall:.3f} s wall under the profiler): "
+    print(f"profile ({label}, {wall:.4f} s wall under the profiler): "
           f"device busy {busy:.4f} s = {100 * busy / wall:.2f} % of wall")
     for e in sorted(events, key=dev_us, reverse=True)[:15]:
         print(f"  {dev_us(e) / 1e3:10.3f} ms  {e.count:7d} calls  "
               f"{e.key[:90]}")
+
+
+def profile_main_path(np, torch, dev, wl, queries, bcfg) -> None:
+    """One specqp serving pass of the KG path under torch.profiler."""
+    from repro_torch.configs import kg_specqp
+    from repro_torch.launch import batching
+
+    ex = batching.BatchExecutor(wl.store, wl.relax, kg_specqp.ENGINE,
+                                "specqp", bcfg, device=dev)
+    profile_window(torch, "specqp pass", lambda: ex.run(queries))
+
+
+def bound(nbytes: float, ops_count: float) -> tuple[float, str]:
+    """Least time in ms for the work, and what bounds it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops_count / FP32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def stable_topk(torch, scores, k: int):
+    """lax.top_k over the last axis by a full stable sort (the oracle)."""
+    s, i = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return s[..., :k + 1], i[..., :k + 1]
+
+
+def agrees_with_exact(torch, got_s, got_i, exact_s, exact_i, k: int):
+    """(scores within rtol 1e-5, indices equal at every place whose exact
+    score is more than 1e-5 relative from both neighbours, such places).
+    exact_* hold k + 1 places so the k-th place's lower neighbour is
+    known; a closer pair may swap when dots are summed in another order."""
+    if not torch.allclose(got_s, exact_s[..., :k], rtol=1e-5, atol=0.0):
+        return False, 0
+    gap = (exact_s[..., :-1] - exact_s[..., 1:]).abs() > (
+        1e-5 * exact_s[..., :-1].abs())
+    clear = gap[..., :k].clone()
+    clear[..., 1:] &= gap[..., :k - 1]
+    same = got_i.long() == exact_i[..., :k]
+    return bool((same | ~clear).all()), int(clear.sum())
+
+
+def clustered_corpus(np, torch, dev, gen, cfg):
+    """The retrieval_cand corpus: N_CAND rows of normal(D)·mag/√D, mag
+    geomspace(4.0, 0.1) over the full tiles and the remainder (blocks
+    norm-sorted as an ANN index lays them out), zero rows to N_CAND_PAD."""
+    from repro_torch.configs import two_tower_retrieval as tt
+
+    d, tile = cfg.embed_dim, tt.TILE
+    n_full, rem = divmod(tt.N_CAND, tile)
+    mags = torch.from_numpy(np.geomspace(4.0, 0.1, n_full + 1).astype(
+        np.float32)).to(dev)
+    per_row = torch.cat([mags[:n_full].repeat_interleave(tile),
+                         mags[n_full:].expand(rem)])
+    cand = torch.zeros((tt.N_CAND_PAD, d), device=dev)
+    cand[:tt.N_CAND] = torch.randn((tt.N_CAND, d), generator=gen,
+                                   device=dev)
+    cand[:tt.N_CAND] *= (per_row / math.sqrt(d))[:, None]
+    return cand
+
+
+def retrieval_path(np, torch, ops, dev, prof: bool = False):
+    """Phase 5: topk_score_pruned against its plain version at the
+    retrieval_cand shape, then 32 queries through ``retrieve`` (and the
+    score-everything baseline) with the launch counters read around them;
+    every top-100 is checked against the exact full scan."""
+    from repro_torch.configs import two_tower_retrieval as tt
+    from repro_torch.models import recsys
+
+    cfg = tt.config()
+    k, tile = tt.TOPK, tt.TILE
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    t0 = time.perf_counter()
+    cand = clustered_corpus(np, torch, dev, gen, cfg)
+    queries = torch.randn((N_QUERIES, cfg.embed_dim), generator=gen,
+                          device=dev)
+    torch.cuda.synchronize()
+    n_tiles = cand.shape[0] // tile
+    print(f"retrieval corpus: {cand.shape[0]} x {cand.shape[1]} f32 "
+          f"({cand.numel() * 4 / 1e9:.3f} GB, {n_tiles} tiles of {tile}), "
+          f"made on the card in {time.perf_counter() - t0:.2f} s")
+
+    # Kernel vs plain version on query 0, both bound modes.
+    q = queries[0]
+    cauchy = ops.block_bounds_cauchy(q, cand, tile)
+    modes = {"cauchy": cauchy, "inf": torch.full_like(cauchy, math.inf)}
+    err, timing = 0.0, {}
+    for mode, b in modes.items():
+        ks, ki, kn = ops.topk_score_pruned(q, cand, b, k, tile)
+        rs, ri, rn = ops.topk_score_pruned(q, cand, b, k, tile, impl="ref")
+        torch.cuda.synchronize()
+        if int(kn) != int(rn) or not torch.equal(ki, ri):
+            fail(f"topk_score_pruned ({mode} bounds) differs from its plain "
+                 f"version: {int(kn)} vs {int(rn)} tiles scored")
+        if not torch.allclose(ks, rs, rtol=1e-5, atol=0.0):
+            fail(f"topk_score_pruned ({mode} bounds) scores differ")
+        err = max(err, float((ks - rs).abs().max()))
+        scored = int(kn)
+        nbytes = scored * tile * cfg.embed_dim * 4 + n_tiles * 4 + (
+            cfg.embed_dim * 4 + k * 8 + 4)
+        timing[mode] = dict(
+            scored=scored,
+            ms=cuda_ms(torch, lambda: ops.topk_score_pruned(q, cand, b, k,
+                                                            tile),
+                       blocks=7, per_block=3),
+            plain_ms=cuda_ms(torch, lambda: ops.topk_score_pruned(
+                q, cand, b, k, tile, impl="ref"), blocks=3, per_block=1),
+            bound=bound(nbytes, scored * tile * 2 * cfg.embed_dim))
+        print(f"topk_score_pruned N={cand.shape[0]} D={cfg.embed_dim} "
+              f"tile={tile} k={k}, {mode} bounds: {scored}/{n_tiles} tiles "
+              f"scored, count and indices equal to plain, scores rtol 1e-5")
+    library_ms = cuda_ms(torch, lambda: torch.topk(cand @ q, k))
+    for mode, t in timing.items():
+        print(f"  {mode}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+              f"ms, bound {t['bound'][0]:.5f} ms ({t['bound'][1]}); library "
+              f"(matmul + topk, all tiles) {library_ms:.4f} ms")
+    row = dict(name="topk_score_pruned", route="cuda",
+               source="src/repro_torch/kernels/csrc/topk_score.cu",
+               replaces="src/repro/kernels/topk_score.py:63",
+               max_abs_err=err, ms=timing["cauchy"]["ms"],
+               plain_ms=timing["cauchy"]["plain_ms"],
+               bound_ms=timing["cauchy"]["bound"][0],
+               bound_by=timing["cauchy"]["bound"][1], library_ms=library_ms,
+               shape=f"N={cand.shape[0]} D={cfg.embed_dim} tile={tile} "
+                     f"k={k}, Cauchy bounds")
+
+    # The path: 32 queries, speculative and score-everything.
+    ops.reset_launches()
+    res = {"speculative": [], "baseline": []}
+    for qi in range(N_QUERIES):
+        q = queries[qi]
+        for mode in res:
+            t0 = time.perf_counter()
+            if mode == "speculative":
+                out = tt.retrieve(q, cand, k, tile)
+            else:
+                out = recsys.score_candidates(None, cfg, q, cand, k,
+                                              speculative=False)
+            torch.cuda.synchronize()
+            res[mode].append((*out, time.perf_counter() - t0))
+    launches = ops.launches()
+    print(f"retrieval path launches: {launches}")
+    if launches["topk_score_pruned"] != 2 * N_QUERIES:
+        fail(f"retrieval did not launch topk_score_pruned once a query "
+             f"and mode: {launches}")
+
+    clear_total = 0
+    for qi in range(N_QUERIES):
+        es, ei = stable_topk(torch, cand @ queries[qi], k)
+        for mode, r in res.items():
+            s, i, n, _ = r[qi]
+            ok, clear = agrees_with_exact(torch, s, i, es, ei, k)
+            if not ok:
+                fail(f"retrieval query {qi} ({mode}) differs from the exact "
+                     "top-100")
+            clear_total += clear
+        spec, base = res["speculative"][qi], res["baseline"][qi]
+        if not (torch.equal(spec[0], base[0]) and torch.equal(spec[1],
+                                                               base[1])):
+            fail(f"retrieval query {qi}: speculative and baseline differ")
+    for mode, r in res.items():
+        lat = np.array([x[3] for x in r]) * 1e3
+        tiles = np.array([int(x[2]) for x in r])
+        print(f"retrieval {mode}: mean tiles scored {tiles.mean():.2f} of "
+              f"{n_tiles} (min {tiles.min()}, max {tiles.max()}) | p50 "
+              f"{np.percentile(lat, 50):.3f} ms p99 "
+              f"{np.percentile(lat, 99):.3f} ms per query")
+    print(f"retrieval: all {N_QUERIES} queries' top-{k} equal the exact "
+          f"full scan in both modes (scores rtol 1e-5; indices equal at "
+          f"{clear_total} of {2 * N_QUERIES * k} places with no near-tie, "
+          f"the rest within rtol 1e-5); speculative == baseline bit for bit")
+    if prof:
+        profile_window(torch, "one speculative retrieval query",
+                       lambda: tt.retrieve(queries[0], cand, k, tile))
+        profile_window(torch, "one baseline retrieval query",
+                       lambda: recsys.score_candidates(
+                           None, cfg, queries[0], cand, k,
+                           speculative=False))
+    return row, launches
+
+
+def user_batch(torch, cfg, B, gen, dev):
+    """A serving batch: user ids uniform over the vocab, weights 1, dense
+    features normal (as the reference's smoke batch draws them)."""
+    return {"user_ids": torch.randint(0, cfg.user_vocab, (B, cfg.user_slots),
+                                      generator=gen, device=dev,
+                                      dtype=torch.int32),
+            "user_w": torch.ones((B, cfg.user_slots), device=dev),
+            "user_dense": torch.randn((B, cfg.n_dense_feat), generator=gen,
+                                      device=dev)}
+
+
+def check_embedding_bag(np, torch, ops, model, dev):
+    """embedding_bag against its plain version on the model's tables: the
+    user tower's (B=512, S=32) with a quarter of the slots -1, and
+    (B=4096, S=8) with every id above 2**23 (64-bit row offsets)."""
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(SEED + 1)
+    V, D = model.user.table.shape
+    rows = {}
+    for B, S, lo, tbl in ((512, 32, 0, model.user.table),
+                          (4096, 8, 2**23, model.item.table)):
+        ids_np = rng.integers(lo, V, (B, S)).astype(np.int32)
+        if lo == 0:
+            ids_np[rng.random((B, S)) < 0.25] = -1
+        ids = torch.from_numpy(ids_np).to(dev)
+        w = torch.from_numpy(rng.random((B, S)).astype(np.float32)).to(dev)
+        got = ops.embedding_bag(tbl, ids, w)
+        want = ops.embedding_bag(tbl, ids, w, impl="ref")
+        torch.cuda.synchronize()
+        if not torch.allclose(got, want, rtol=1e-6, atol=1e-6):
+            fail(f"embedding_bag differs from its plain version at B={B} "
+                 f"S={S} (ids from {lo})")
+        live = ids[ids >= 0]
+        n_rows = int(torch.unique(live).numel())
+        nbytes = n_rows * D * 4 + B * S * 8 + B * D * 4
+        safe = torch.where(ids >= 0, ids, 0)
+        w0 = torch.where(ids >= 0, w, 0.0)
+        rows[(B, S)] = dict(
+            max_abs_err=float((got - want).abs().max()),
+            ms=cuda_ms(torch, lambda: ops.embedding_bag(tbl, ids, w)),
+            plain_ms=cuda_ms(torch, lambda: ops.embedding_bag(
+                tbl, ids, w, impl="ref")),
+            library_ms=cuda_ms(torch, lambda: F.embedding_bag(
+                safe, tbl, mode="sum", per_sample_weights=w0)),
+            bound=bound(nbytes, 2 * int(live.numel()) * D))
+        r = rows[(B, S)]
+        print(f"embedding_bag V={V} D={D} B={B} S={S} (ids from {lo}, "
+              f"{int(live.numel())} live slots): within rtol/atol 1e-6 of "
+              f"plain (max abs err {r['max_abs_err']:.3g}); kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms']:.4f} ms, bound {r['bound'][0]:.5f} ms "
+              f"({r['bound'][1]})")
+    r = rows[(512, 32)]
+    return dict(name="embedding_bag", route="cuda",
+                source="src/repro_torch/kernels/csrc/embedding_bag.cu",
+                replaces="src/repro/kernels/embedding_bag.py:33",
+                max_abs_err=max(x["max_abs_err"] for x in rows.values()),
+                ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
+                bound_by=r["bound"][1], library_ms=r["library_ms"],
+                shape=f"V={V} D={D} B=512 S=32, a quarter of slots -1")
+
+
+def serving_path(np, torch, ops, dev, prof: bool = False):
+    """Phase 6: the full-width two-tower model on the card; embedding_bag
+    checked on its tables; then, with the launch counters read around it,
+    the 1,048,576-item corpus built through the item tower and 16 batches
+    of 512 users served; one batch checked against a full-matrix top-k."""
+    from repro_torch.configs import two_tower_retrieval as tt
+    from repro_torch.models import recsys
+
+    cfg = tt.config()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = recsys.init(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"two-tower model {cfg.name}: {n_bytes / 1e9:.3f} GB of f32 "
+          f"parameters initialised on the card in "
+          f"{time.perf_counter() - t0:.2f} s (embed_dim {cfg.embed_dim}, "
+          f"MLP {cfg.tower_mlp}, vocab {cfg.user_vocab} + {cfg.item_vocab})")
+    row = check_embedding_bag(np, torch, ops, model, dev)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 2)
+    batches = [user_batch(torch, cfg, SERVE_BATCH, gen, dev)
+               for _ in range(SERVE_BATCHES + 1)]
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    cand = torch.empty((tt.CORPUS, cfg.embed_dim), device=dev)
+    for c0 in range(0, tt.CORPUS, CORPUS_CHUNK):
+        n = min(CORPUS_CHUNK, tt.CORPUS - c0)
+        ids = torch.randint(0, cfg.item_vocab, (n, cfg.item_slots),
+                            generator=gen, device=dev, dtype=torch.int32)
+        dense = torch.randn((n, cfg.n_dense_feat), generator=gen,
+                            device=dev)
+        cand[c0:c0 + n] = recsys.tower(model.item, cfg, ids, torch.ones(
+            (n, cfg.item_slots), device=dev), dense)
+    torch.cuda.synchronize()
+    corpus_s = time.perf_counter() - t0
+    tt.serve(model, batches[0], cand, tt.TOPK)   # warm-up, off the clock
+    torch.cuda.synchronize()
+    # Per batch, what could make one slow: new device segments (cudaMalloc
+    # calls by the caching allocator) and rows of _top_k's full-sort
+    # fallback.
+    lat, results, segs, sorts = [], [], [], []
+    for b in batches[1:]:
+        seg0 = torch.cuda.memory_stats(dev).get("segment.all.allocated", 0)
+        sort0 = recsys._top_k.full_sorts
+        t0 = time.perf_counter()
+        results.append(tt.serve(model, b, cand, tt.TOPK))
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        segs.append(torch.cuda.memory_stats(dev).get(
+            "segment.all.allocated", 0) - seg0)
+        sorts.append(recsys._top_k.full_sorts - sort0)
+    launches = ops.launches()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    lat_ms = np.array(lat) * 1e3
+    print(f"serving: corpus of {tt.CORPUS} items built through the item "
+          f"tower in {corpus_s:.3f} s ({tt.CORPUS // CORPUS_CHUNK} chunks "
+          f"of {CORPUS_CHUNK})")
+    print(f"serving {SERVE_BATCHES} batches of {SERVE_BATCH} users, top-"
+          f"{tt.TOPK} of {tt.CORPUS}: p50 {np.percentile(lat_ms, 50):.3f} ms "
+          f"p99 {np.percentile(lat_ms, 99):.3f} ms per batch | "
+          f"{SERVE_BATCHES * SERVE_BATCH / sum(lat):.1f} users/s | peak "
+          f"allocated {peak_gb:.3f} GB")
+    print(f"serving batch latencies (ms, in order): "
+          f"{[round(x, 3) for x in lat_ms.tolist()]}")
+    print(f"serving new device segments per batch: {segs}; rows of "
+          f"_top_k's full-sort fallback per batch: {sorts}")
+    print(f"serving path launches: {launches}")
+    if launches["embedding_bag"] != tt.CORPUS // CORPUS_CHUNK + (
+            SERVE_BATCHES + 1):
+        fail(f"serving did not launch embedding_bag once a tower call: "
+             f"{launches}")
+
+    for (s, i) in results:
+        if s.shape != (SERVE_BATCH, tt.TOPK) or not torch.isfinite(s).all():
+            fail(f"serving result malformed: {tuple(s.shape)}")
+        if not ((i >= 0) & (i < tt.CORPUS)).all():
+            fail("serving returned an index outside the corpus")
+    b, (s, i) = batches[1], results[0]
+    u = recsys.tower(model.user, cfg, b["user_ids"], b["user_w"],
+                     b["user_dense"])
+    es, ei = stable_topk(torch, u @ cand.T, tt.TOPK)
+    ok, clear = agrees_with_exact(torch, s, i, es, ei, tt.TOPK)
+    if not ok:
+        fail("the hierarchical top-k differs from the full-matrix top-k")
+    print(f"serving: batch 0's hierarchical top-{tt.TOPK} equals the full "
+          f"u @ cand.T top-{tt.TOPK} (scores rtol 1e-5; indices equal at "
+          f"{clear} of {SERVE_BATCH * tt.TOPK} places with no near-tie; "
+          f"bit-equal: {torch.equal(s, es[:, :tt.TOPK])} and "
+          f"{torch.equal(i.long(), ei[:, :tt.TOPK])})")
+    if prof:
+        profile_window(torch, f"{SERVE_BATCHES} serving batches of "
+                       f"{SERVE_BATCH} users",
+                       lambda: [tt.serve(model, b, cand, tt.TOPK)
+                                for b in batches[1:]])
+    return row, launches
 
 
 def main() -> None:
@@ -374,10 +733,18 @@ def main() -> None:
     print(f"phase 4 done at {time.perf_counter() - t0:.1f} s")
     for name, row in rows.items():
         row["launches"] = launches[name]
-    kernels = [rows[n] for n in ("rank_join_lookup", "merge_topk")]
+    prof = "--profile" in sys.argv[1:]
+    for path in (retrieval_path, serving_path):
+        row, path_launches = path(np, torch, ops, dev, prof)
+        row["launches"] = path_launches[row["name"]]
+        rows[row["name"]] = row
+        torch.cuda.empty_cache()
+        print(f"{path.__name__} done at {time.perf_counter() - t0:.1f} s")
+    kernels = [rows[n] for n in ("rank_join_lookup", "merge_topk",
+                                 "topk_score_pruned", "embedding_bag")]
     for k in kernels:
-        print(f"{k['name']}: {k['launches']} launches on the main path")
-    if "--profile" in sys.argv[1:]:
+        print(f"{k['name']}: {k['launches']} launches on its path")
+    if prof:
         profile_main_path(np, torch, dev, *state)
     print(f"chip_smoke took {time.perf_counter() - T_START:.1f} s")
     print(smi)

@@ -1,0 +1,51 @@
+"""two-tower-retrieval [RecSys'19 (YouTube)]: embed_dim 256, tower MLP
+1024-512-256, dot interaction. Two 20 M-row × 256 tables (41 GB in f32)
+fit one 80 GB card whole.
+
+Counterpart of ``repro.configs.two_tower_retrieval``: the configuration,
+the serving constants, the online serving function (``serve``, the
+``serve_p99`` / ``serve_bulk`` shapes) and speculative retrieval over a
+candidate corpus (``retrieve``, the ``retrieval_cand`` shape). The sharded
+branch of ``retrieve`` and the training cell are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.kernels import ops as kops
+from repro_torch.models import recsys as model
+
+ARCH = "two-tower-retrieval"
+FAMILY = "recsys"
+
+CORPUS = 1_048_576          # cached item embeddings for the serve shapes
+N_CAND = 1_000_000          # retrieval_cand logical size
+N_CAND_PAD = 1_048_576      # padded with zero rows to whole tiles
+TOPK = 100
+TILE = 512                  # scoring tile
+
+
+def config() -> model.TwoTowerConfig:
+    return model.TwoTowerConfig(
+        name=ARCH, embed_dim=256, tower_mlp=(1024, 512, 256),
+        user_vocab=20_000_000, item_vocab=20_000_000,
+        user_slots=32, item_slots=8, n_dense_feat=16, topk_tile=TILE)
+
+
+def smoke_config() -> model.TwoTowerConfig:
+    return dataclasses.replace(
+        config(), embed_dim=32, tower_mlp=(64, 32), user_vocab=2000,
+        item_vocab=2000, user_slots=4, item_slots=2, n_dense_feat=4,
+        topk_tile=256)
+
+
+def serve(params: model.TwoTower, batch, cand_emb, k: int = TOPK):
+    """Top-k items of every user in ``batch`` against the cached corpus."""
+    return model.serve_batch(params, params.cfg, batch, cand_emb, k)
+
+
+def retrieve(query, cand_emb, k: int = TOPK, tile: int = TILE):
+    """Speculative top-k of one query over an unsharded corpus (N, D):
+    Cauchy–Schwarz tile bounds, then the pruned scoring kernel."""
+    bounds = kops.block_bounds_cauchy(query, cand_emb, tile)
+    return kops.topk_score_pruned(query, cand_emb, bounds, k, tile)

@@ -1,8 +1,10 @@
-"""Carry a store built elsewhere (e.g. by the JAX package) into the port.
+"""Carry a store or parameters built elsewhere (e.g. by the JAX package)
+into the port.
 
-The arguments are the ``TripleStore`` / ``RelaxTable`` fields as numpy
-arrays, the sketch as uint32 words; the results are the port's types on
-``device``. Both engines then read the very same store.
+The arguments are numpy arrays: the ``TripleStore`` / ``RelaxTable``
+fields (the sketch as uint32 words), or a two-tower parameter tree. The
+results are the port's types on ``device``, so both packages then read the
+very same data.
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ import torch
 
 from repro_torch.core import kg
 from repro_torch.core.types import TripleStore, RelaxTable, resolve_device
+from repro_torch.models import recsys
 
 
 def store_from_numpy(keys, scores, lengths, sorted_keys, stats, sketch,
@@ -31,3 +34,22 @@ def relax_from_numpy(ids, weights, device=None) -> RelaxTable:
         ids=torch.from_numpy(np.array(ids, dtype=np.int32)).to(dev),
         weights=torch.from_numpy(np.array(weights, dtype=np.float32)).to(dev))
 
+
+def two_tower_from_numpy(values, cfg: recsys.TwoTowerConfig,
+                         device=None) -> recsys.TwoTower:
+    """``values`` is ``{"user": {"table", "w0", …}, "item": {…}}`` of
+    arrays (the reference's ``recsys.init(...)[0]``)."""
+    dev = resolve_device(device)
+
+    def f32(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
+
+    def tower(v):
+        n = len(cfg.tower_mlp)
+        if set(v) != {"table"} | {f"w{i}" for i in range(n)}:
+            raise ValueError(f"tower keys {sorted(v)} do not match a "
+                             f"{n}-layer MLP")
+        return recsys.Tower(f32(v["table"]), [f32(v[f"w{i}"])
+                                              for i in range(n)])
+
+    return recsys.TwoTower(cfg, tower(values["user"]), tower(values["item"]))

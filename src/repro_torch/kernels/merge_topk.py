@@ -12,7 +12,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.rank_join import _check, _check_cuda
+from repro_torch.kernels._checks import check, check_cuda
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,8 +39,8 @@ def check_args(window_keys, window_scores, block: int):
         raise ValueError("window_keys must be (G, R, W)")
     G, R, W = window_keys.shape
     n = R * W
-    _check("window_keys", window_keys, torch.int32, (G, R, W))
-    _check("window_scores", window_scores, torch.float32, (G, R, W))
+    check("window_keys", window_keys, torch.int32, (G, R, W))
+    check("window_scores", window_scores, torch.float32, (G, R, W))
     if not 0 < block <= n:
         raise ValueError(f"block {block} must be in [1, R*W = {n}]")
     padded = padded_len(n, block)
@@ -57,7 +57,7 @@ def merge_topk(window_keys: torch.Tensor, window_scores: torch.Tensor,
     """(G, R, W) i32, (G, R, W) f32 → (keys (G, block) i32,
     scores (G, block) f32, flat_idx (G, block) i32), on the card."""
     G, n, padded = check_args(window_keys, window_scores, block)
-    _check_cuda(window_keys, window_scores)
+    check_cuda(window_keys, window_scores)
     fn = _fn()
     dev = window_keys.device
     keys = torch.empty((G, block), dtype=torch.int32, device=dev)

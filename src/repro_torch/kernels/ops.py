@@ -12,9 +12,13 @@ import torch
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import rank_join as _rank_join
 from repro_torch.kernels import merge_topk as _merge_topk
+from repro_torch.kernels import topk_score as _topk_score
+from repro_torch.kernels import embedding_bag as _embedding_bag
 
 KERNELS = {"rank_join_lookup": _rank_join.rank_join_lookup,
-           "merge_topk": _merge_topk.merge_topk}
+           "merge_topk": _merge_topk.merge_topk,
+           "topk_score_pruned": _topk_score.topk_score_pruned,
+           "embedding_bag": _embedding_bag.embedding_bag}
 
 
 def _plain(t: torch.Tensor, impl: str) -> bool:
@@ -42,6 +46,25 @@ def merge_topk(window_keys, window_scores, block: int, impl: str = "auto"):
     if _plain(window_keys, impl):
         return _ref.merge_topk(window_keys, window_scores, block)
     return _merge_topk.merge_topk(window_keys, window_scores, block)
+
+
+def topk_score_pruned(query, cands, block_bounds, k: int, tile: int = 512,
+                      impl: str = "auto"):
+    """Speculative top-k: (D,), (N, D), (N/tile,) → (k,) scores, (k,) idx,
+    () n_tiles_scored."""
+    if _plain(cands, impl):
+        return _ref.topk_score_pruned(query, cands, block_bounds, k, tile)
+    return _topk_score.topk_score_pruned(query, cands, block_bounds, k, tile)
+
+
+block_bounds_cauchy = _topk_score.block_bounds_cauchy
+
+
+def embedding_bag(table, ids, weights, impl: str = "auto"):
+    """Weighted bag: (V, D), (B, S), (B, S) → (B, D)."""
+    if _plain(table, impl):
+        return _ref.embedding_bag(table, ids, weights)
+    return _embedding_bag.embedding_bag(table, ids, weights)
 
 
 def launches() -> dict[str, int]:

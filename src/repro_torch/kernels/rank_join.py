@@ -11,6 +11,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._checks import check, check_cuda
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -23,35 +24,16 @@ def _fn():
     return fn
 
 
-def _check(name, t, dtype, shape):
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _check_cuda(*tensors):
-    devs = {t.device for t in tensors}
-    if len(devs) != 1:
-        raise ValueError(f"inputs on several devices: {devs}")
-    dev = devs.pop()
-    if dev.type != "cuda":
-        raise ValueError(f"the kernel takes CUDA tensors, got {dev}")
-
-
 def check_args(seen_keys, seen_scores, probe_keys, seen_cnt):
     """Dtype, shape and contiguity the kernel takes → (G, N, B)."""
     if seen_keys.dim() != 2 or probe_keys.dim() != 2:
         raise ValueError("seen_keys and probe_keys must be (G, N) and (G, B)")
     G, N = seen_keys.shape
     B = probe_keys.shape[1]
-    _check("seen_keys", seen_keys, torch.int32, (G, N))
-    _check("seen_scores", seen_scores, torch.float32, (G, N))
-    _check("probe_keys", probe_keys, torch.int32, (G, B))
-    _check("seen_cnt", seen_cnt, torch.int32, (G,))
+    check("seen_keys", seen_keys, torch.int32, (G, N))
+    check("seen_scores", seen_scores, torch.float32, (G, N))
+    check("probe_keys", probe_keys, torch.int32, (G, B))
+    check("seen_cnt", seen_cnt, torch.int32, (G,))
     if not 0 < G <= 65535:
         raise ValueError(f"G = {G} groups must be in [1, 65535]")
     return G, N, B
@@ -62,7 +44,7 @@ def rank_join_lookup(seen_keys: torch.Tensor, seen_scores: torch.Tensor,
     """(G, N) i32, (G, N) f32, (G, B) i32, (G,) i32 →
     (scores (G, B) f32, found (G, B) bool), on the card."""
     G, N, B = check_args(seen_keys, seen_scores, probe_keys, seen_cnt)
-    _check_cuda(seen_keys, seen_scores, probe_keys, seen_cnt)
+    check_cuda(seen_keys, seen_scores, probe_keys, seen_cnt)
     fn = _fn()
     scores = torch.empty((G, B), dtype=torch.float32, device=seen_keys.device)
     found = torch.empty((G, B), dtype=torch.bool, device=seen_keys.device)

@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the kernels (the correctness contracts).
 
-Each mirrors its CUDA kernel's semantics exactly, batched over a leading
-group axis G. The CPU path runs these, the CUDA kernels are held against
-them on the card, and the tests hold them against ``repro.kernels.ref``.
+Each mirrors its CUDA kernel's semantics exactly; the KG executor's two
+(``rank_join_lookup``, ``merge_topk``) are batched over a leading group
+axis G. The CPU path runs these, the CUDA kernels are held against them on
+the card, and the tests hold them against ``repro.kernels.ref``.
 """
 from __future__ import annotations
 
@@ -45,3 +46,57 @@ def merge_topk(window_keys: torch.Tensor, window_scores: torch.Tensor,
     top_s, top_i = top_s[:, :block], top_i[:, :block]
     return (flat_k.gather(1, top_i), top_s.contiguous(),
             top_i.to(torch.int32))
+
+
+def topk_score(query: torch.Tensor, cands: torch.Tensor, k: int):
+    """Full-scan oracle: dot-score one query against every candidate.
+
+    query (D,) f32, cands (N, D) f32. Returns (scores (k,) f32, idx (k,)
+    i32), ties to the lower index as ``lax.top_k`` orders them.
+    """
+    top_s, top_i = torch.sort(cands @ query, descending=True, stable=True)
+    return top_s[:k].contiguous(), top_i[:k].to(torch.int32)
+
+
+def topk_score_pruned(query: torch.Tensor, cands: torch.Tensor,
+                      block_bounds: torch.Tensor, k: int, tile: int):
+    """Speculative top-k: visit the tiles of ``cands`` in order and skip a
+    tile when its score upper bound is ≤ the running k-th score.
+
+    query (D,) f32, cands (N, D) f32 with N % tile == 0, block_bounds
+    (N/tile,) f32. The buffer goes before the tile in every merge and the
+    merge is a stable sort, so ties keep the lower index (``lax.top_k``'s
+    order). Returns (scores (k,) f32, idx (k,) i32 with -1 where fewer than
+    k were scored, n_tiles_scored () i32).
+    """
+    n, _ = cands.shape
+    if n % tile:
+        raise ValueError(f"N = {n} is not a multiple of tile = {tile}")
+    dev = cands.device
+    buf_s = torch.full((k,), float("-inf"), device=dev)
+    buf_i = torch.full((k,), -1, dtype=torch.int32, device=dev)
+    scored = torch.zeros((), dtype=torch.int32, device=dev)
+    offs = torch.arange(tile, dtype=torch.int32, device=dev)
+    for j in range(n // tile):
+        run = block_bounds[j] > buf_s[k - 1]
+        tile_s = cands[j * tile:(j + 1) * tile] @ query
+        tile_s = torch.where(run, tile_s, float("-inf"))
+        cat_s = torch.cat([buf_s, tile_s])
+        cat_i = torch.cat([buf_i, j * tile + offs])
+        top_s, top_j = torch.sort(cat_s, descending=True, stable=True)
+        buf_s, buf_i = top_s[:k], cat_i[top_j[:k]]
+        scored = scored + run.to(torch.int32)
+    return buf_s.contiguous(), buf_i, scored
+
+
+def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
+                  weights: torch.Tensor):
+    """Weighted multi-hot bag: out[b] = Σ_s w[b,s]·table[ids[b,s]].
+
+    table (V, D) f32, ids (B, S) i32 (negative = inactive slot), weights
+    (B, S) f32 → (B, D) f32.
+    """
+    ok = ids >= 0
+    gathered = table[torch.where(ok, ids, 0).long()]          # (B, S, D)
+    w = torch.where(ok, weights, 0.0)
+    return torch.einsum("bsd,bs->bd", gathered, w)

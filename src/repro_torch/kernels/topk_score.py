@@ -1,0 +1,98 @@
+"""CUDA wrapper of ``csrc/topk_score.cu``: Spec-QP speculative retrieval.
+
+Counterpart of ``repro.kernels.topk_score.topk_score_pruned``; the plain
+version is ``kernels.ref.topk_score_pruned`` and ``kernels.ops`` chooses
+between them by device. This wrapper takes CUDA tensors only.
+``block_bounds_cauchy`` is plain PyTorch on any device, as the reference's
+is plain jnp.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels._checks import check, check_cuda
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# Shared memory a block may have on Hopper (bytes).
+MAX_SMEM = 232448
+# Widest row the kernel scores (its templates cover 1 and 2 vectors of four
+# floats per lane).
+MAX_D = 256
+
+
+def _fn():
+    fn = _build.load("topk_score").topk_score_pruned
+    fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def sort_len(k: int, tile: int) -> int:
+    """Power-of-two slot count of the merge sort (≥ k + tile), as the
+    Pallas kernel pads it."""
+    return 1 << max(int(k + tile - 1).bit_length(), 3)
+
+
+def check_args(query, cands, block_bounds, k: int, tile: int):
+    """Dtype, shape, alignment and sizes the kernel takes →
+    (n_tiles, D, sort_len)."""
+    if cands.dim() != 2:
+        raise ValueError("cands must be (N, D)")
+    n, d = cands.shape
+    check("query", query, torch.float32, (d,))
+    check("cands", cands, torch.float32, (n, d))
+    if tile <= 0 or n % tile:
+        raise ValueError(f"N = {n} must be a positive multiple of "
+                         f"tile = {tile}")
+    check("block_bounds", block_bounds, torch.float32, (n // tile,))
+    if k <= 0:
+        raise ValueError(f"k = {k} must be positive")
+    if d % 4 or query.data_ptr() % 16 or cands.data_ptr() % 16:
+        raise ValueError("the kernel reads 16-byte vectors: D must be a "
+                         "multiple of 4 and query, cands 16-byte aligned")
+    if d > MAX_D:
+        raise ValueError(f"D = {d} exceeds the kernel's {MAX_D}")
+    if n >= 2**31 - 1:
+        raise ValueError(f"N = {n} candidates exceed 32-bit indices")
+    slots = sort_len(k, tile)
+    if slots * 8 > MAX_SMEM:
+        raise ValueError(f"k + tile = {k + tile} and D = {d} exceed the "
+                         "kernel's shared memory")
+    return n // tile, d, slots
+
+
+def topk_score_pruned(query: torch.Tensor, cands: torch.Tensor,
+                      block_bounds: torch.Tensor, k: int, tile: int):
+    """(D,) f32, (N, D) f32, (N/tile,) f32 → (scores (k,) f32, idx (k,)
+    i32, n_tiles_scored () i32), on the card."""
+    n_tiles, d, slots = check_args(query, cands, block_bounds, k, tile)
+    check_cuda(query, cands, block_bounds)
+    fn = _fn()
+    dev = cands.device
+    scores = torch.empty((k,), dtype=torch.float32, device=dev)
+    idx = torch.empty((k,), dtype=torch.int32, device=dev)
+    cnt = torch.empty((), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(query.data_ptr(), cands.data_ptr(), block_bounds.data_ptr(),
+             scores.data_ptr(), idx.data_ptr(), cnt.data_ptr(), n_tiles,
+             tile, d, k, slots, stream)
+    if err:
+        raise RuntimeError(f"topk_score_pruned launch failed: CUDA error "
+                           f"{err}")
+    topk_score_pruned.launches += 1
+    return scores, idx, cnt
+
+
+topk_score_pruned.launches = 0
+
+
+def block_bounds_cauchy(query: torch.Tensor, cands: torch.Tensor,
+                        tile: int) -> torch.Tensor:
+    """Cauchy–Schwarz per-tile bounds: ‖q‖ · max_i ‖c_i‖ within the tile."""
+    n = cands.shape[0]
+    norms = torch.linalg.vector_norm(cands, dim=1).reshape(n // tile, tile)
+    return norms.amax(dim=1) * torch.linalg.vector_norm(query)

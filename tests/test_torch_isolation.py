@@ -15,7 +15,11 @@ def _modules():
 
 def test_port_imports_no_jax_and_no_repro():
     mods = _modules()
-    assert "repro_torch.core.engine" in mods and len(mods) >= 18
+    assert "repro_torch.core.engine" in mods and len(mods) >= 23
+    for m in ("models.recsys", "configs.two_tower_retrieval",
+              "kernels.topk_score", "kernels.embedding_bag",
+              "examples.speculative_retrieval"):
+        assert f"repro_torch.{m}" in mods, m
     code = "\n".join(
         ["import importlib, sys"]
         + [f"importlib.import_module({m!r})" for m in mods]

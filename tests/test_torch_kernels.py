@@ -14,8 +14,11 @@ from hypothesis import given, settings, strategies as st
 
 from repro.kernels import ref as jref, rank_join as jrank_join
 from repro.kernels import merge_topk as jmerge_topk
+from repro.kernels import topk_score as jtopk_score
+from repro.kernels import embedding_bag as jembedding_bag
 from repro_torch.kernels import ops, ref, _build
 from repro_torch.kernels import rank_join, merge_topk
+from repro_torch.kernels import topk_score, embedding_bag
 
 # Small tensors: one intra-op thread per test worker keeps the workers of
 # a parallel test run from spinning on each other's cores.
@@ -35,6 +38,38 @@ def _lookup_case(rng, N, B, cnt, dup=False):
         rng.choice(keys[:max(live, 1)], B // 2),
         rng.choice(200000, B - B // 2 - 1), [-1]]).astype(np.int32)
     return keys, scores, probes, np.int32(cnt)
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.array(a)) for a in arrays]
+
+
+def _retrieval_case(rng, name):
+    """(query, cands, tile, k): the shapes of tests/test_kernels.py, its
+    norm-sorted case, and one-hot rows whose scores tie exactly (dots with
+    one non-zero term are exact in any summation order)."""
+    if name == "norm_sorted":
+        D, tile, k = 32, 256, 8
+        mags = np.repeat([4.0, 2.0, 1.0, 0.5], tile)
+        c = rng.standard_normal((4 * tile, D)) * mags[:, None] / np.sqrt(D)
+    elif name == "ties":
+        D, tile, k = 32, 256, 16
+        r = np.arange(4 * tile)
+        c = np.zeros((4 * tile, D))
+        c[r, r % 8] = 2.0 ** -(r // tile)
+    else:
+        N, D, k, tile = name
+        c = rng.standard_normal((N, D))
+    q = rng.standard_normal(D).astype(np.float32)
+    return q, c.astype(np.float32), tile, k
+
+
+def _bag_case(rng, V, D, B, S):
+    table = rng.standard_normal((V, D)).astype(np.float32)
+    ids = rng.integers(-1, V, (B, S)).astype(np.int32)
+    ids[::3, 0] = -1
+    w = rng.random((B, S)).astype(np.float32)
+    return table, ids, w
 
 
 def _port_lookup(keys, scores, probes, cnt):
@@ -158,6 +193,115 @@ def test_merge_topk_property(G, R, W, seed):
                                       wk[g].reshape(-1)[np.asarray(ji)])
 
 
+RETRIEVAL_CASES = [(2048, 64, 16, 512), (1024, 128, 8, 256), "norm_sorted",
+                   "ties"]
+
+
+@pytest.mark.parametrize("case", RETRIEVAL_CASES)
+def test_block_bounds_cauchy_matches_jax(case):
+    q, c, tile, _ = _retrieval_case(np.random.default_rng(7), case)
+    got = ops.block_bounds_cauchy(*_t(q, c), tile)
+    want = jtopk_score.block_bounds_cauchy(jnp.asarray(q), jnp.asarray(c),
+                                           tile)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+
+
+@pytest.mark.parametrize("speculative", [True, False])
+@pytest.mark.parametrize("case", RETRIEVAL_CASES)
+def test_topk_score_pruned_matches_jax(case, speculative):
+    """Scores rtol 1e-5 (dots summed in another order); indices and the
+    scored-tile count exact against the jnp oracle, and against the Pallas
+    kernel (interpret) where no scores tie: its bitonic network is not
+    stable, so on ties only its scores and count are compared."""
+    q, c, tile, k = _retrieval_case(np.random.default_rng(7), case)
+    n_tiles = c.shape[0] // tile
+    jq, jc = jnp.asarray(q), jnp.asarray(c)
+    jb = (jtopk_score.block_bounds_cauchy(jq, jc, tile) if speculative
+          else jnp.full((n_tiles,), jnp.inf, jnp.float32))
+    s, i, n = ops.topk_score_pruned(*_t(q, c, np.asarray(jb)), k, tile)
+    assert s.dtype == torch.float32 and i.dtype == torch.int32
+    rs, ri, rn = jref.topk_score_pruned_ref(jq, jc, jb, k, tile)
+    ps, pi, pn = jtopk_score.topk_score_pruned(jq, jc, jb, k, tile)
+    for js, jn in ((rs, rn), (ps, pn)):
+        np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=1e-5)
+        assert int(n) == int(jn)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ri))
+    if case != "ties":
+        np.testing.assert_array_equal(i.numpy(), np.asarray(pi))
+    if not speculative:
+        assert int(n) == n_tiles
+    elif case in ("norm_sorted", "ties"):
+        assert int(n) < n_tiles, "no tile was pruned"
+    # Sound bounds give the exact top-k (the full-scan oracle's).
+    es, ei = ref.topk_score(*_t(q, c), k)
+    np.testing.assert_allclose(s.numpy(), es.numpy(), rtol=1e-5)
+    js, ji = jref.topk_score_ref(jq, jc, k)
+    np.testing.assert_array_equal(ei.numpy(), np.asarray(ji))
+
+
+def test_topk_score_pruned_fewer_candidates_than_k():
+    """k above the candidate count: the tail keeps -inf and index -1, as
+    the reference's initial buffer does. Every candidate is in the top-k,
+    so some scores lie near 0: atol 1e-6 covers the rounding of a D = 8
+    dot summed in another order."""
+    q, c, tile, _ = _retrieval_case(np.random.default_rng(8),
+                                    (64, 8, 1, 32))
+    jb = jnp.full((2,), jnp.inf, jnp.float32)
+    s, i, n = ops.topk_score_pruned(*_t(q, c, np.asarray(jb)), 80, tile)
+    rs, ri, rn = jref.topk_score_pruned_ref(jnp.asarray(q), jnp.asarray(c),
+                                            jb, 80, tile)
+    np.testing.assert_allclose(s.numpy(), np.asarray(rs), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ri))
+    assert int(n) == int(rn) == 2 and (i.numpy()[64:] == -1).all()
+
+
+def test_topk_score_wrapper_checks():
+    q, c = torch.zeros(8), torch.zeros((1024, 8))
+    b = torch.zeros(2)
+    assert topk_score.check_args(q, c, b, 100, 512) == (2, 8, 1024)
+    assert topk_score.sort_len(8, 256) == 512
+    with pytest.raises(ValueError, match="multiple of tile"):
+        topk_score.check_args(q, c, b, 100, 300)
+    with pytest.raises(ValueError, match="16-byte"):
+        topk_score.check_args(torch.zeros(6), torch.zeros((1024, 6)), b,
+                              100, 512)
+    with pytest.raises(ValueError, match="exceeds"):
+        topk_score.check_args(torch.zeros(260), torch.zeros((1024, 260)),
+                              b, 100, 512)
+    with pytest.raises(ValueError, match="shared memory"):
+        topk_score.check_args(q, torch.zeros((65536, 8)),
+                              torch.zeros(2), 10, 32768)
+    with pytest.raises(TypeError):
+        topk_score.check_args(q.double(), c, b, 100, 512)
+
+
+@pytest.mark.parametrize("V,D,B,S", [(100, 32, 8, 4), (500, 64, 16, 8)])
+def test_embedding_bag_matches_jax(V, D, B, S):
+    """Against the jnp oracle and the Pallas kernel (interpret), with
+    inactive (-1) slots; rtol/atol 1e-6 as the sums run in another order."""
+    table, ids, w = _bag_case(np.random.default_rng(9), V, D, B, S)
+    out = ops.embedding_bag(*_t(table, ids, w))
+    assert out.shape == (B, D) and out.dtype == torch.float32
+    args = (jnp.asarray(table), jnp.asarray(ids), jnp.asarray(w))
+    for want in (jref.embedding_bag_ref(*args),
+                 jembedding_bag.embedding_bag(*args, interpret=True)):
+        np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=1e-6,
+                                   atol=1e-6)
+
+
+def test_embedding_bag_wrapper_checks():
+    table, w = torch.zeros((10, 8)), torch.zeros((3, 2))
+    ids = torch.zeros((3, 2), dtype=torch.int32)
+    assert embedding_bag.check_args(table, ids, w) == (3, 2, 8)
+    with pytest.raises(ValueError, match="16-byte"):
+        embedding_bag.check_args(torch.zeros((10, 6)), ids, w)
+    with pytest.raises(TypeError):
+        embedding_bag.check_args(table, ids.long(), w)
+    with pytest.raises(NotImplementedError):
+        embedding_bag.check_args(table.requires_grad_(), ids, w)
+
+
 def test_dispatch_and_wrapper_checks():
     """CPU tensors take the plain path without counting launches; the CUDA
     wrappers refuse CPU tensors; a bad impl raises."""
@@ -166,13 +310,23 @@ def test_dispatch_and_wrapper_checks():
     scores = torch.zeros((1, 8))
     probes = torch.zeros((1, 4), dtype=torch.int32)
     cnt = torch.zeros((1,), dtype=torch.int32)
+    cands = torch.ones((8, 4))
+    bounds = torch.full((2,), float("inf"))
     ops.rank_join_lookup(keys, scores, probes, cnt)
     ops.merge_topk(keys.view(1, 2, 4), scores.view(1, 2, 4), 4)
-    assert ops.launches() == {"rank_join_lookup": 0, "merge_topk": 0}
+    ops.topk_score_pruned(cands[0], cands, bounds, 2, 4)
+    ops.embedding_bag(cands, keys.view(2, 4), scores.view(2, 4))
+    assert ops.launches() == {"rank_join_lookup": 0, "merge_topk": 0,
+                              "topk_score_pruned": 0, "embedding_bag": 0}
     with pytest.raises(ValueError):
         rank_join.rank_join_lookup(keys, scores, probes, cnt)
     with pytest.raises(ValueError):
         merge_topk.merge_topk(keys.view(1, 2, 4), scores.view(1, 2, 4), 4)
+    with pytest.raises(ValueError):
+        topk_score.topk_score_pruned(cands[0], cands, bounds, 2, 4)
+    with pytest.raises(ValueError):
+        embedding_bag.embedding_bag(cands, keys.view(2, 4),
+                                    scores.view(2, 4))
     with pytest.raises(ValueError):
         ops.merge_topk(keys.view(1, 2, 4), scores.view(1, 2, 4), 4,
                        impl="cuda")
@@ -213,3 +367,45 @@ def test_cuda_kernels_match_plain_versions(cuda):
     for a, b in zip(ops.merge_topk(wk, ws, 256),
                     ops.merge_topk(wk, ws, 256, impl="ref")):
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_cuda_topk_score_matches_plain_version(cuda):
+    """On the card, at a tile and k of the retrieval path: count and indices
+    exact, scores rtol 1e-5; both bound modes; and the tie case."""
+    rng = np.random.default_rng(6)
+    D, tile, k, n_tiles = 256, 512, 100, 64
+    mags = np.repeat(np.geomspace(4.0, 0.1, n_tiles), tile)
+    c = (rng.standard_normal((n_tiles * tile, D)) * mags[:, None]
+         / np.sqrt(D)).astype(np.float32)
+    q = rng.standard_normal(D).astype(np.float32)
+    cases = [(q, c, tile, k), _retrieval_case(rng, "ties")]
+    for q, c, tile, k in cases:
+        q, c = (t.to(cuda) for t in _t(q, c))
+        cauchy = ops.block_bounds_cauchy(q, c, tile)
+        for b in (cauchy, torch.full_like(cauchy, float("inf"))):
+            s, i, n = ops.topk_score_pruned(q, c, b, k, tile)
+            rs, ri, rn = ops.topk_score_pruned(q, c, b, k, tile, impl="ref")
+            torch.testing.assert_close(s, rs, rtol=1e-5, atol=0)
+            assert torch.equal(i, ri) and int(n) == int(rn)
+
+
+@pytest.mark.gpu
+def test_cuda_embedding_bag_matches_plain_version(cuda):
+    """On the card, with -1 slots, S not a multiple of the kernel's unroll,
+    and rows past 2**23 of a table wider than 2**31 floats (64-bit
+    offsets): rtol/atol 1e-6."""
+    rng = np.random.default_rng(10)
+    case = _bag_case(rng, 1000, 256, 64, 7)
+    table, ids, w = (t.to(cuda) for t in _t(*case))
+    torch.testing.assert_close(ops.embedding_bag(table, ids, w),
+                               ops.embedding_bag(table, ids, w, impl="ref"),
+                               rtol=1e-6, atol=1e-6)
+    V = 2**23 + 4096
+    big = torch.empty((V, 256), device=cuda).normal_()
+    ids = torch.from_numpy(rng.integers(2**23, V, (32, 8)).astype(
+        np.int32)).to(cuda)
+    w = torch.rand((32, 8), device=cuda)
+    torch.testing.assert_close(ops.embedding_bag(big, ids, w),
+                               ops.embedding_bag(big, ids, w, impl="ref"),
+                               rtol=1e-6, atol=1e-6)
