@@ -31,13 +31,26 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    them, the 1,048,576-item corpus built through the item tower and 16
    batches of 512 users served through ``serve``; one batch checked
    against a full-matrix top-k;
-7. print the kernel table as one JSON line, then the result line
+7. LM serving at the full width of gemma2-2b (``configs/gemma2_2b``, 26
+   layers, bf16, random weights from a seed): ``flash_attention`` held
+   against its plain version (f32 math) at the global- and local-layer
+   shapes, Sq < Sk, non-causal, head_dim 128 and a ragged length, with
+   logits large enough that the softcap of 50 bends them (a control shows
+   the kernel without softcap fails the same check), and timed at B = 4
+   beside its bound, the plain version and
+   ``scaled_dot_product_attention``; then, with the counters read around
+   them, 3 prefills of 4 x 8192-token prompts (26 kernel launches each) and
+   32 greedy decode steps (none); at B = 1 the kernel path's last logits
+   held against those of the ``einsum`` attention, and one decode step
+   against the backbone over the extended prompt;
+8. print the kernel table as one JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 It exits non-zero without CUDA and when ``src/repro_torch`` is not beside
 it. It imports nothing of JAX. ``--profile`` adds ``torch.profiler``
 windows (device busy share, time by kernel) over one retrieval query in
-each mode, one serving batch and one specqp pass of the KG path.
+each mode, the serving batches, one LM prefill with 4 decode steps and
+one specqp pass of the KG path.
 """
 from __future__ import annotations
 
@@ -56,6 +69,7 @@ SRC = ROOT / "src"
 # H100 SXM peaks (NVIDIA data sheet) for the least-time bounds.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12     # 32-bit operations outside the tensor cores
+BF16_FLOP_PER_S = 989e12   # dense bf16 on the tensor cores
 LANES = 8
 N_QUERIES = 32
 SEED = 0
@@ -63,6 +77,18 @@ SEED = 0
 SERVE_BATCH = 512
 SERVE_BATCHES = 16
 CORPUS_CHUNK = 65536
+# LM serving: prompts, prompt length (cut from prefill_32k's 32 x 32768),
+# decode steps (cut from decode_32k's 128 x 32768), timed prefills
+LM_BATCH = 4
+LM_SEQ = 8192
+LM_DECODE = 32
+LM_PREFILLS = 3
+# Model-level checks: the logits may move this many of their std between
+# the kernel and the einsum attention (bf16 through 26 layers).
+LM_LOGIT_TOL_STD = 0.1
+# flash_attention checks: q is drawn N(0, 1) times this, k N(0, 1), so the
+# logits scale * q.k have this std and reach the softcap of 50.
+ATTN_LOGIT_STD = 25.0
 
 
 def fail(msg: str) -> None:
@@ -693,6 +719,277 @@ def serving_path(np, torch, ops, dev, prof: bool = False):
     return row, launches
 
 
+def live_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """Visible (query, key) pairs of one (batch, head): the work the
+    kernel must do for these shapes."""
+    import numpy as np
+
+    qp = Sk - Sq + np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(qp, Sk - 1) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(0, qp - window + 1) if window else np.zeros(Sq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def attn_bound(B, Hq, Hkv, Sq, Sk, D, causal, window) -> tuple[float, str]:
+    """Least time in ms: 4·D flops per visible pair and head at the bf16
+    tensor-core peak, against q, k, v read once and o written once."""
+    flops = 4 * D * B * Hq * live_pairs(Sq, Sk, causal, window)
+    nbytes = 2 * D * B * (2 * Hq * Sq + 2 * Hkv * Sk)
+    t_ops, t_bytes = flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def attn_inputs(torch, gen, dev, B, Hq, Hkv, Sq, Sk, D):
+    """bf16 q, k, v, normal; q × ATTN_LOGIT_STD, so that at scale D^-0.5
+    the logits have that std and the softcap bends them hard."""
+    def rnd(h, s, mul):
+        return (torch.randn((B, h, s, D), generator=gen, device=dev)
+                * mul).to(torch.bfloat16)
+    return rnd(Hq, Sq, ATTN_LOGIT_STD), rnd(Hkv, Sk, 1.0), rnd(Hkv, Sk, 1.0)
+
+
+def check_flash_attention(np, torch, ops, dev, cfg):
+    """flash_attention against its plain version (f32 math on the same
+    bf16 inputs; rtol / atol 2e-2) at the model's layer shapes and edge
+    cases, with logits of std ATTN_LOGIT_STD; a control shows that the
+    kernel without its softcap lies outside that tolerance. Then timed at
+    B = LM_BATCH beside its bound, the plain version and SDPA. Returns the
+    kernel row (launches filled in later)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 3)
+    Hq, Hkv, D, cap = cfg.n_heads, cfg.n_kv, cfg.head_dim, cfg.attn_softcap
+    local = max(cfg.window_pattern)
+    cases = [("global", 1, Hq, Hkv, LM_SEQ, LM_SEQ, D, True, 0, cap),
+             ("local", 1, Hq, Hkv, LM_SEQ, LM_SEQ, D, True, local, cap),
+             ("Sq<Sk", 2, Hq, Hkv, 100, 1000, D, True, 0, cap),
+             ("non-causal", 1, Hq, Hkv, 1024, 1024, D, False, 0, None),
+             ("D=128", 1, 24, 2, 2048, 2048, 128, True, 1024, None),
+             ("ragged", 1, Hq, Hkv, 8000, 8000, D, True, local, cap)]
+    err = 0.0
+    for name, B, hq, hkv, Sq, Sk, d, causal, win, c in cases:
+        q, k, v = attn_inputs(torch, gen, dev, B, hq, hkv, Sq, Sk, d)
+        kw = dict(causal=causal, window=win, softcap=c)
+        got = ops.flash_attention(q, k, v, **kw).float()
+        want = ops.flash_attention(q.float(), k.float(), v.float(),
+                                   impl="ref", **kw)
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max())
+        if not torch.allclose(got, want, rtol=2e-2, atol=2e-2):
+            fail(f"flash_attention ({name}: B={B} Hq={hq} Hkv={hkv} Sq={Sq} "
+                 f"Sk={Sk} D={d} causal={causal} window={win} softcap={c}) "
+                 f"differs from its plain version: max abs err {e:.4g}")
+        err = max(err, e)
+        print(f"flash_attention {name} (B={B} Hq={hq} Hkv={hkv} Sq={Sq} "
+              f"Sk={Sk} D={d} causal={causal} window={win} softcap={c}): "
+              f"within rtol/atol 2e-2 of plain (max abs err {e:.4g})")
+        if name == "global":
+            # Control: a kernel that dropped the softcap would fail above.
+            nocap = ops.flash_attention(q, k, v, causal=causal,
+                                        window=win).float()
+            torch.cuda.synchronize()
+            e = float((nocap - want).abs().max())
+            if torch.allclose(nocap, want, rtol=2e-2, atol=2e-2):
+                fail(f"flash_attention without its softcap is within rtol/"
+                     f"atol 2e-2 of the softcapped plain version (max abs "
+                     f"err {e:.4g}): the checks cannot see the softcap")
+            print(f"flash_attention control: the kernel without softcap is "
+                  f"outside rtol/atol 2e-2 of the softcapped plain version "
+                  f"(max abs err {e:.4g})")
+            del nocap
+        del q, k, v, got, want
+
+    B, S = LM_BATCH, LM_SEQ
+    q, k, v = attn_inputs(torch, gen, dev, B, Hq, Hkv, S, S, D)
+    times = {}
+    for name, win in (("global", 0), ("local", local)):
+        kw = dict(window=win, softcap=cap)
+        times[name] = dict(
+            ms=cuda_ms(torch, lambda: ops.flash_attention(q, k, v, **kw),
+                       blocks=5, per_block=2),
+            plain_ms=cuda_ms(torch, lambda: ops.flash_attention(
+                q, k, v, impl="ref", **kw), blocks=3, per_block=1),
+            bound=attn_bound(B, Hq, Hkv, S, S, D, True, win))
+        torch.cuda.empty_cache()
+    nocap_ms = cuda_ms(torch, lambda: ops.flash_attention(q, k, v),
+                       blocks=5, per_block=2)
+    try:
+        library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), blocks=5, per_block=2)
+    except RuntimeError as e:      # no SDPA backend for these inputs
+        print(f"scaled_dot_product_attention refused the inputs: {e}")
+        library_ms = None
+    for name, t in times.items():
+        b = t["bound"]
+        print(f"flash_attention {name} layer (B={B} Hq={Hq} Hkv={Hkv} S={S} "
+              f"D={D} softcap={cap}): kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, bound {b[0]:.4f} ms ({b[1]}), "
+              f"{100 * b[0] / t['ms']:.1f} % of the bound's rate")
+    print(f"flash_attention global layer without softcap: kernel "
+          f"{nocap_ms:.4f} ms; scaled_dot_product_attention(is_causal, "
+          f"enable_gqa) {library_ms} ms")
+    g, lo = times["global"], times["local"]
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:90",
+                max_abs_err=err, ms=g["ms"], plain_ms=g["plain_ms"],
+                bound_ms=g["bound"][0], bound_by=g["bound"][1],
+                library_ms=library_ms,
+                library_vs="the kernel without softcap, nocap_ms",
+                nocap_ms=nocap_ms, local_ms=lo["ms"],
+                local_plain_ms=lo["plain_ms"], local_bound_ms=lo["bound"][0],
+                shape=f"B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} softcap={cap}, "
+                      f"global layer")
+
+
+def lm_path(np, torch, ops, dev, prof: bool = False):
+    """Phase 7: gemma2-2b at full width on the card; flash_attention
+    checked and timed; then, with the launch counters read around them,
+    LM_PREFILLS prefills of LM_BATCH x LM_SEQ tokens and LM_DECODE greedy
+    decode steps; then the model-level checks at B = 1."""
+    import dataclasses as dc
+
+    from repro_torch.configs import gemma2_2b
+    from repro_torch.models import transformer as tf
+
+    cfg = gemma2_2b.config()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        model = tf.init(cfg, gen, dev)
+    torch.cuda.synchronize()
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"LM {cfg.name}: {n_params / 1e9:.3f} B parameters, "
+          f"{n_bytes / 1e9:.3f} GB, initialised on the card in "
+          f"{time.perf_counter() - t0:.2f} s ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv} heads of "
+          f"{cfg.head_dim}, windows {cfg.window_pattern}, softcap "
+          f"{cfg.attn_softcap})")
+    row = check_flash_attention(np, torch, ops, dev, cfg)
+    torch.cuda.empty_cache()
+
+    B, S, max_seq = LM_BATCH, LM_SEQ, LM_SEQ + LM_DECODE
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev,
+                         dtype=torch.int32)
+
+    def decode(caches, first, n, lat=None, host=None):
+        nxt = first
+        out = []
+        for i in range(n):
+            pos = torch.full((B,), S + i, dtype=torch.int32, device=dev)
+            t = time.perf_counter()
+            logits, caches = tf.decode_step(model, cfg, nxt, pos, caches,
+                                            S + i)
+            nxt = logits.argmax(-1).to(torch.int32)
+            if lat is not None:
+                # The host's time to issue the step, then the step's.
+                host.append(time.perf_counter() - t)
+                torch.cuda.synchronize()
+                lat.append(time.perf_counter() - t)
+            out.append(logits)
+        return out
+
+    with torch.no_grad():
+        # Warm-up (cuBLAS handles and plans, the allocator) off the clock.
+        logits, caches = tf.prefill(model, cfg, toks, max_seq)
+        decode(caches, logits[:, -1].argmax(-1).to(torch.int32), 2)
+        del logits, caches
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launches()
+        pf = []
+        for _ in range(LM_PREFILLS):
+            caches = None
+            t = time.perf_counter()
+            logits, caches = tf.prefill(model, cfg, toks, max_seq)
+            torch.cuda.synchronize()
+            pf.append(time.perf_counter() - t)
+        pf_launches = ops.launches()
+        ops.reset_launches()
+        lat, host = [], []
+        first = logits[:, -1].argmax(-1).to(torch.int32)
+        steps = decode(caches, first, LM_DECODE, lat, host)
+        dec_launches = ops.launches()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    pf_ms, dec_ms, host_ms = (np.array(a) * 1e3 for a in (pf, lat, host))
+    print(f"LM prefill of {B} x {S} tokens: {[round(x, 3) for x in pf_ms]} ms"
+          f" | median {np.median(pf_ms):.3f} ms | "
+          f"{B * S / np.median(pf) :.1f} tokens/s")
+    print(f"LM decode, {LM_DECODE} greedy steps of {B}: p50 "
+          f"{np.percentile(dec_ms, 50):.3f} ms p99 "
+          f"{np.percentile(dec_ms, 99):.3f} ms per step | "
+          f"{B * LM_DECODE / sum(lat):.1f} tokens/s | host issue time p50 "
+          f"{np.percentile(host_ms, 50):.3f} ms p99 "
+          f"{np.percentile(host_ms, 99):.3f} ms per step | peak allocated "
+          f"{peak_gb:.3f} GB")
+    print(f"LM launches: {LM_PREFILLS} prefills {pf_launches}; "
+          f"{LM_DECODE} decode steps {dec_launches}")
+    if pf_launches["flash_attention"] != LM_PREFILLS * cfg.n_layers:
+        fail(f"prefill did not launch flash_attention once a layer: "
+             f"{pf_launches}")
+    if dec_launches["flash_attention"] != 0:
+        fail(f"decode launched flash_attention: {dec_launches}")
+    if logits.shape != (B, 1, cfg.vocab) or not torch.isfinite(logits).all():
+        fail(f"prefill logits malformed: {tuple(logits.shape)}")
+    for lg in steps:
+        if lg.shape != (B, cfg.vocab) or not torch.isfinite(lg).all():
+            fail(f"decode logits malformed: {tuple(lg.shape)}")
+    del caches, steps, logits
+    torch.cuda.empty_cache()
+
+    # At B = 1: the kernel path against the plain einsum attention, and a
+    # decode step against the backbone over the extended prompt.
+    with torch.no_grad():
+        one = toks[:1]
+        lk, caches = tf.prefill(model, cfg, one, S + 1)
+        lr, _ = tf.prefill(model, dc.replace(cfg, attn_impl="einsum"), one,
+                           S + 1)
+        lk, lr = lk[0, -1].float(), lr[0, -1].float()
+        tol = LM_LOGIT_TOL_STD * float(lr.std())
+        diff = float((lk - lr).abs().max())
+        top2 = lr.topk(2).values
+        margin = float(top2[0] - top2[1])
+        same = int(lk.argmax()) == int(lr.argmax())
+        print(f"LM B=1 prefill, kernel vs einsum attention: last logits max "
+              f"abs diff {diff:.4g} = {diff / float(lr.std()):.4f} std "
+              f"(tolerance {LM_LOGIT_TOL_STD} std = {tol:.4g}); greedy token "
+              f"{'equal' if same else 'differs'}, top-2 margin {margin:.4g}")
+        if diff > tol or (margin > tol and not same):
+            fail("the kernel path's logits differ from the einsum "
+                 "attention's")
+        nxt = lk.argmax().view(1).to(torch.int32)
+        ld, _ = tf.decode_step(model, cfg, nxt, torch.full(
+            (1,), S, dtype=torch.int32, device=dev), caches, S)
+        x, _ = tf.backbone(model, cfg, torch.cat([one, nxt[:, None]], 1))
+        lf = tf.logits_from_hidden(model, cfg, x[:, -1])[0].float()
+        ld = ld[0].float()
+        tol = LM_LOGIT_TOL_STD * float(lf.std())
+        diff = float((ld - lf).abs().max())
+        print(f"LM B=1 decode step vs backbone over {S + 1} tokens: max abs "
+              f"diff {diff:.4g} = {diff / float(lf.std()):.4f} std "
+              f"(tolerance {LM_LOGIT_TOL_STD} std = {tol:.4g}); greedy token "
+              f"{'equal' if int(ld.argmax()) == int(lf.argmax()) else 'differs'}")
+        if diff > tol:
+            fail("the decode step differs from the backbone")
+        del caches, x
+    torch.cuda.empty_cache()
+    if prof:
+        with torch.no_grad():
+            out = []
+            profile_window(torch, f"one LM prefill of {B} x {S}",
+                           lambda: out.extend(tf.prefill(model, cfg, toks,
+                                                         max_seq)))
+            logits, caches = out
+            profile_window(torch, f"4 LM decode steps of {B}",
+                           lambda: decode(caches, logits[:, -1].argmax(
+                               -1).to(torch.int32), 4))
+    return row, pf_launches
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {pathlib.Path(__file__).name}: run "
@@ -734,14 +1031,15 @@ def main() -> None:
     for name, row in rows.items():
         row["launches"] = launches[name]
     prof = "--profile" in sys.argv[1:]
-    for path in (retrieval_path, serving_path):
+    for path in (retrieval_path, serving_path, lm_path):
         row, path_launches = path(np, torch, ops, dev, prof)
         row["launches"] = path_launches[row["name"]]
         rows[row["name"]] = row
         torch.cuda.empty_cache()
         print(f"{path.__name__} done at {time.perf_counter() - t0:.1f} s")
     kernels = [rows[n] for n in ("rank_join_lookup", "merge_topk",
-                                 "topk_score_pruned", "embedding_bag")]
+                                 "topk_score_pruned", "embedding_bag",
+                                 "flash_attention")]
     for k in kernels:
         print(f"{k['name']}: {k['launches']} launches on its path")
     if prof:

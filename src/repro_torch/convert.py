@@ -2,9 +2,9 @@
 into the port.
 
 The arguments are numpy arrays: the ``TripleStore`` / ``RelaxTable``
-fields (the sketch as uint32 words), or a two-tower parameter tree. The
-results are the port's types on ``device``, so both packages then read the
-very same data.
+fields (the sketch as uint32 words), a two-tower parameter tree or an LM
+parameter tree. The results are the port's types on ``device``, so both
+packages then read the very same data.
 """
 from __future__ import annotations
 
@@ -13,7 +13,10 @@ import torch
 
 from repro_torch.core import kg
 from repro_torch.core.types import TripleStore, RelaxTable, resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models import moe
 from repro_torch.models import recsys
+from repro_torch.models import transformer as tf
 
 
 def store_from_numpy(keys, scores, lengths, sorted_keys, stats, sketch,
@@ -53,3 +56,59 @@ def two_tower_from_numpy(values, cfg: recsys.TwoTowerConfig,
                                               for i in range(n)])
 
     return recsys.TwoTower(cfg, tower(values["user"]), tower(values["item"]))
+
+
+def _tensor(a, dev) -> torch.Tensor:
+    """numpy → torch, bit for bit. A bfloat16 array (ml_dtypes, what
+    ``np.asarray`` gives for a JAX bf16 array) goes through its int16
+    view, which ``torch.from_numpy`` takes."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(a).to(dev)
+
+
+def _keys(name, tree, want):
+    if set(tree) != set(want):
+        raise ValueError(f"{name} keys {sorted(tree)} do not match the "
+                         f"config's {sorted(want)}")
+
+
+def lm_from_numpy(values, cfg: tf.LMConfig, device=None) -> tf.LM:
+    """``values`` is the reference's ``transformer.init(...)[0]`` as numpy
+    arrays: ``embed``, ``final_norm``, optional ``lm_head`` and one
+    ``stack_<i>`` per layer group, each array with a leading layers axis.
+    Raises where the key set does not match ``cfg``."""
+    tf._check_supported(cfg)
+    dev = resolve_device(device)
+    stacks = cfg.stacks()
+    _keys("top-level", values,
+          {"embed", "final_norm"} | {f"stack_{i}" for i in range(len(stacks))}
+          | (set() if cfg.tie_embeddings else {"lm_head"}))
+    layer_keys = {"attn_norm", "attn", "ffn_norm", "ffn"} | (
+        {"attn_post", "ffn_post"} if cfg.post_norms else set())
+    layers = []
+    for si, (dense, _, count) in enumerate(stacks):
+        st = values[f"stack_{si}"]
+        _keys(f"stack_{si}", st, layer_keys)
+        _keys(f"stack_{si}.attn", st["attn"], {"wq", "wk", "wv", "wo"})
+        _keys(f"stack_{si}.ffn", st["ffn"], {"w_in", "w_out"} | (
+            {"w_gate"} if cfg.gated_ffn else set()))
+        for i in range(count):
+            a, f = st["attn"], st["ffn"]
+            layers.append(tf.Layer(
+                _tensor(st["attn_norm"][i], dev),
+                attn.GQA(*(_tensor(a[n][i], dev)
+                           for n in ("wq", "wk", "wv", "wo"))),
+                _tensor(st["ffn_norm"][i], dev),
+                moe.DenseFFN(_tensor(f["w_in"][i], dev),
+                             _tensor(f["w_out"][i], dev),
+                             _tensor(f["w_gate"][i], dev)
+                             if cfg.gated_ffn else None),
+                *((_tensor(st["attn_post"][i], dev),
+                   _tensor(st["ffn_post"][i], dev)) if cfg.post_norms
+                  else ())))
+    return tf.LM(_tensor(values["embed"], dev),
+                 _tensor(values["final_norm"], dev), layers,
+                 None if cfg.tie_embeddings
+                 else _tensor(values["lm_head"], dev))

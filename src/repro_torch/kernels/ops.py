@@ -14,11 +14,13 @@ from repro_torch.kernels import rank_join as _rank_join
 from repro_torch.kernels import merge_topk as _merge_topk
 from repro_torch.kernels import topk_score as _topk_score
 from repro_torch.kernels import embedding_bag as _embedding_bag
+from repro_torch.kernels import flash_attention as _flash_attention
 
 KERNELS = {"rank_join_lookup": _rank_join.rank_join_lookup,
            "merge_topk": _merge_topk.merge_topk,
            "topk_score_pruned": _topk_score.topk_score_pruned,
-           "embedding_bag": _embedding_bag.embedding_bag}
+           "embedding_bag": _embedding_bag.embedding_bag,
+           "flash_attention": _flash_attention.flash_attention}
 
 
 def _plain(t: torch.Tensor, impl: str) -> bool:
@@ -65,6 +67,16 @@ def embedding_bag(table, ids, weights, impl: str = "auto"):
     if _plain(table, impl):
         return _ref.embedding_bag(table, ids, weights)
     return _embedding_bag.embedding_bag(table, ids, weights)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=None,
+                    softcap=None, scale=None, impl: str = "auto"):
+    """Attention forward: (B, Hq, Sq, D), (B, Hkv, Sk, D) ×2 → (B, Hq, Sq,
+    D); window 0 / None is global, softcap 0 / None is none."""
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+    if _plain(q, impl):
+        return _ref.flash_attention(q, k, v, **kw)
+    return _flash_attention.flash_attention(q, k, v, **kw)
 
 
 def launches() -> dict[str, int]:

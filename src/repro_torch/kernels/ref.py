@@ -100,3 +100,37 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
     gathered = table[torch.where(ok, ids, 0).long()]          # (B, S, D)
     w = torch.where(ok, weights, 0.0)
     return torch.einsum("bsd,bs->bd", gathered, w)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    softcap: float | None = None,
+                    scale: float | None = None) -> torch.Tensor:
+    """Attention with GQA, a causal mask, a sliding window and a softcap.
+
+    q (B, Hq, Sq, D); k, v (B, Hkv, Sk, D) with Hq % Hkv == 0. Query i
+    sits at key position Sk − Sq + i; with ``window`` W it sees the keys
+    in (pos − W, pos]. The logits are scaled, then softcapped. Computed in
+    f32 (``repro.kernels.ref.flash_attention_ref``'s math), returned in
+    q's dtype; a row with no visible key gives 0.
+    """
+    dt = q.dtype
+    Hq, Sq, D = q.shape[1:]
+    Sk = k.shape[2]
+    g = Hq // k.shape[1]
+    scale = D ** -0.5 if scale is None else scale
+    kk = k.float().repeat_interleave(g, dim=1)
+    vv = v.float().repeat_interleave(g, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk).mul_(scale)
+    if softcap:
+        logits = logits.div_(softcap).tanh_().mul_(softcap)
+    qpos = Sk - Sq + torch.arange(Sq, device=q.device)
+    kpos = torch.arange(Sk, device=q.device)
+    m = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        m &= kpos[None, :] <= qpos[:, None]
+    if window:
+        m &= kpos[None, :] > qpos[:, None] - window
+    p = torch.softmax(logits.masked_fill_(~m, float("-inf")), dim=-1)
+    p = p.nan_to_num_(nan=0.0)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vv).to(dt)

@@ -1,0 +1,267 @@
+"""Decoder-only LM serving (counterpart of ``repro.models.transformer``):
+the dense configurations (gemma2 / gemma3: local:global alternation,
+softcaps, GeGLU, sandwich norms; starcoder2: sliding window, plain GELU).
+
+Layers are an ``nn.ModuleList`` walked in order, where the reference scans
+stacked layers. ``prefill`` runs a batch of prompts and builds one KV cache
+per layer (a W-slot ring for a window-W layer, ``max_seq`` slots for a
+global one); ``caches_by_run`` regroups them into the reference's runs.
+``decode_step`` writes the caches in place. Training (``loss_fn``), MTP,
+MLA and MoE are not ported yet and raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+from torch import nn
+
+from repro_torch.core.types import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models import common as cm
+from repro_torch.models import moe as ffnlib
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv: int
+    head_dim: int
+    d_ff: int
+    vocab: int
+    rope_theta: float = 10_000.0
+    window_pattern: tuple[int, ...] = (0,)   # cycled; 0 = global attention
+    attn_softcap: float | None = None
+    logit_softcap: float | None = None
+    gated_ffn: bool = True
+    ffn_act: str = "silu"
+    post_norms: bool = False                 # gemma2/3 sandwich norms
+    embed_scale: bool = False                # gemma: x *= sqrt(D)
+    tie_embeddings: bool = True
+    mla: attn.MLAConfig | None = None
+    moe: ffnlib.MoEConfig | None = None
+    first_dense_layers: int = 0              # deepseek: dense-FFN prefix
+    mtp_depth: int = 0
+    aux_loss_weight: float = 0.01
+    mtp_loss_weight: float = 0.3
+    norm_eps: float = 1e-6
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    attn_impl: str = "blocked_causal"
+    attn_chunk_q: int = 512
+    attn_chunk_k: int = 1024
+    remat: str = "full"                      # none | full | dots
+    moe_chunk: int = 4096
+
+    @property
+    def pdtype(self) -> torch.dtype:
+        return _DTYPES[self.param_dtype]
+
+    @property
+    def cdtype(self) -> torch.dtype:
+        return _DTYPES[self.compute_dtype]
+
+    def windows(self) -> tuple[int, ...]:
+        pat = self.window_pattern
+        return tuple(pat[i % len(pat)] for i in range(self.n_layers))
+
+    def attn_cfg(self) -> attn.AttnConfig:
+        return attn.AttnConfig(
+            d_model=self.d_model, n_heads=self.n_heads, n_kv=self.n_kv,
+            head_dim=self.head_dim, rope_theta=self.rope_theta,
+            softcap=self.attn_softcap, mla=self.mla,
+            attn_chunk_q=self.attn_chunk_q, attn_chunk_k=self.attn_chunk_k)
+
+    def ffn_cfg(self, dense: bool) -> ffnlib.FFNConfig:
+        return ffnlib.FFNConfig(
+            d_model=self.d_model, d_ff=self.d_ff, gated=self.gated_ffn,
+            act=self.ffn_act,
+            moe=None if dense else self.moe and dataclasses.replace(
+                self.moe, chunk=self.moe_chunk))
+
+    def stacks(self) -> list[tuple[bool, int, int]]:
+        """[(is_dense_ffn, start_layer, n_layers)] — uniform layer groups."""
+        if self.moe is None:
+            return [(True, 0, self.n_layers)]
+        out = []
+        if self.first_dense_layers:
+            out.append((True, 0, self.first_dense_layers))
+        out.append((False, self.first_dense_layers,
+                    self.n_layers - self.first_dense_layers))
+        return out
+
+    def dense_layers(self) -> list[bool]:
+        return [d for d, _, n in self.stacks() for _ in range(n)]
+
+
+class Layer(nn.Module):
+    """One block: ``attn_norm``, ``attn``, ``ffn_norm``, ``ffn`` and, with
+    ``post_norms``, ``attn_post`` and ``ffn_post``."""
+
+    def __init__(self, attn_norm, attn_p, ffn_norm, ffn_p, attn_post=None,
+                 ffn_post=None):
+        super().__init__()
+        self.attn, self.ffn = attn_p, ffn_p
+        for name, w in (("attn_norm", attn_norm), ("ffn_norm", ffn_norm),
+                        ("attn_post", attn_post), ("ffn_post", ffn_post)):
+            setattr(self, name, None if w is None
+                    else nn.Parameter(w, requires_grad=False))
+
+
+class LM(nn.Module):
+    """``embed`` (V, D), ``final_norm`` (D,), optional ``lm_head`` (D, V)
+    and the blocks in order."""
+
+    def __init__(self, embed, final_norm, layers, lm_head=None):
+        super().__init__()
+        self.embed = nn.Parameter(embed, requires_grad=False)
+        self.final_norm = nn.Parameter(final_norm, requires_grad=False)
+        self.lm_head = (None if lm_head is None
+                        else nn.Parameter(lm_head, requires_grad=False))
+        self.layers = nn.ModuleList(layers)
+
+
+def _check_supported(cfg: LMConfig):
+    if cfg.mla or cfg.moe or cfg.mtp_depth:
+        raise NotImplementedError(
+            f"{cfg.name}: MLA, MoE and MTP are not ported yet")
+
+
+def init(cfg: LMConfig, generator: torch.Generator, device=None) -> LM:
+    """Random parameters drawn in place on ``device`` (CUDA by default)
+    with the reference's distributions: normal × 1/√shape[0], the
+    embedding normal × 1, norms zero. The numbers differ from
+    ``jax.random``'s."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    D, pdt = cfg.d_model, cfg.pdtype
+
+    def zeros():
+        return torch.zeros((D,), device=dev)
+
+    embed = ffnlib.normal_((cfg.vocab, D), generator, dev, pdt, scale=1.0)
+    lm_head = (None if cfg.tie_embeddings
+               else ffnlib.normal_((D, cfg.vocab), generator, dev, pdt))
+    layers = []
+    for dense in cfg.dense_layers():
+        layers.append(Layer(
+            zeros(), attn.init(cfg.attn_cfg(), generator, dev, pdt),
+            zeros(), ffnlib.init_ffn(cfg.ffn_cfg(dense), generator, dev, pdt),
+            zeros() if cfg.post_norms else None,
+            zeros() if cfg.post_norms else None))
+    return LM(embed, zeros(), layers, lm_head)
+
+
+def _embed(params: LM, cfg: LMConfig, tokens):
+    x = params.embed[tokens.long()].to(cfg.cdtype)
+    if cfg.embed_scale:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.cdtype)
+    return x
+
+
+def _layer_fwd(lp: Layer, cfg: LMConfig, dense: bool, x, attend):
+    """One block → (x, aux, cache); ``attend(h)`` is the block's attention
+    on the normed input → (h, the layer's KV cache or None)."""
+    h, cache = attend(cm.rms_norm(x, lp.attn_norm, cfg.norm_eps))
+    if cfg.post_norms:
+        h = cm.rms_norm(h, lp.attn_post, cfg.norm_eps)
+    x = x + h
+    h = cm.rms_norm(x, lp.ffn_norm, cfg.norm_eps)
+    h, aux = ffnlib.ffn(lp.ffn, cfg.ffn_cfg(dense), h)
+    if cfg.post_norms:
+        h = cm.rms_norm(h, lp.ffn_post, cfg.norm_eps)
+    return x + h, aux, cache
+
+
+def _positions(tokens):
+    B, S = tokens.shape
+    return torch.arange(S, dtype=torch.int32,
+                        device=tokens.device).expand(B, S)
+
+
+def backbone(params: LM, cfg: LMConfig, tokens):
+    """tokens (B, S) → final hidden states (B, S, D), aux loss."""
+    _check_supported(cfg)
+    x = _embed(params, cfg, tokens)
+    positions = _positions(tokens)
+    aux_total = 0.0
+    for lp, dense, w in zip(params.layers, cfg.dense_layers(),
+                            cfg.windows()):
+        x, aux, _ = _layer_fwd(lp, cfg, dense, x, lambda h: (attn.forward(
+            lp.attn, cfg.attn_cfg(), h, positions, w, cfg.attn_impl), None))
+        aux_total += aux
+    return x, aux_total
+
+
+def logits_from_hidden(params: LM, cfg: LMConfig, x):
+    """Logits in the hidden states' dtype. No logit softcap here: the
+    reference applies it in the loss only."""
+    x = cm.rms_norm(x, params.final_norm, cfg.norm_eps)
+    head = params.embed.T if cfg.tie_embeddings else params.lm_head
+    return x @ head.to(x.dtype)
+
+
+def _runs(cfg: LMConfig, max_seq: int):
+    """RLE runs of (stack_idx, local_start, count, window, cache_len)."""
+    wins = cfg.windows()
+    runs = []
+    for si, (dense, start, count) in enumerate(cfg.stacks()):
+        i = 0
+        while i < count:
+            w = wins[start + i]
+            j = i
+            while j < count and wins[start + j] == w:
+                j += 1
+            cache_len = min(w, max_seq) if w > 0 else max_seq
+            runs.append((si, i, j - i, w, cache_len))
+            i = j
+    return runs
+
+
+def caches_by_run(cfg: LMConfig, caches: list[dict]) -> list[dict]:
+    """Per-layer caches → the reference's per-run caches, each array with
+    a leading layers axis (the layout of ``repro``'s ``prefill``)."""
+    stacks = cfg.stacks()
+    out = []
+    for si, lo, n, _, _ in _runs(cfg, 1):
+        first = stacks[si][1] + lo
+        layer = caches[first:first + n]
+        out.append({key: torch.stack([c[key] for c in layer])
+                    for key in layer[0]})
+    return out
+
+
+def prefill(params: LM, cfg: LMConfig, tokens, max_seq: int):
+    """Run the prompt, build per-layer caches. Returns (last_logits
+    (B, 1, V), caches)."""
+    _check_supported(cfg)
+    x = _embed(params, cfg, tokens)
+    positions = _positions(tokens)
+    caches = []
+    for lp, dense, w in zip(params.layers, cfg.dense_layers(),
+                            cfg.windows()):
+        clen = min(w, max_seq) if w > 0 else max_seq
+        x, _, cache = _layer_fwd(lp, cfg, dense, x, lambda h: attn.prefill(
+            lp.attn, cfg.attn_cfg(), h, positions, w, cfg.attn_impl, clen))
+        caches.append(cache)
+    return logits_from_hidden(params, cfg, x[:, -1:]), caches
+
+
+def decode_step(params: LM, cfg: LMConfig, token, pos, caches, step: int):
+    """One decode step. token: (B,) int; pos: (B,) abs position; step: the
+    ring-write counter. Writes ``caches`` in place; returns (logits (B, V),
+    caches)."""
+    _check_supported(cfg)
+    x = _embed(params, cfg, token)[:, None]
+    for lp, dense, w, cache in zip(params.layers, cfg.dense_layers(),
+                                   cfg.windows(), caches):
+        x, _, _ = _layer_fwd(lp, cfg, dense, x, lambda h: attn.decode(
+            lp.attn, cfg.attn_cfg(), h, pos, w, cache, step))
+    return logits_from_hidden(params, cfg, x)[:, 0], caches

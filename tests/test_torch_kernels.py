@@ -16,9 +16,10 @@ from repro.kernels import ref as jref, rank_join as jrank_join
 from repro.kernels import merge_topk as jmerge_topk
 from repro.kernels import topk_score as jtopk_score
 from repro.kernels import embedding_bag as jembedding_bag
+from repro.kernels import flash_attention as jflash_attention
 from repro_torch.kernels import ops, ref, _build
 from repro_torch.kernels import rank_join, merge_topk
-from repro_torch.kernels import topk_score, embedding_bag
+from repro_torch.kernels import topk_score, embedding_bag, flash_attention
 
 # Small tensors: one intra-op thread per test worker keeps the workers of
 # a parallel test run from spinning on each other's cores.
@@ -316,8 +317,11 @@ def test_dispatch_and_wrapper_checks():
     ops.merge_topk(keys.view(1, 2, 4), scores.view(1, 2, 4), 4)
     ops.topk_score_pruned(cands[0], cands, bounds, 2, 4)
     ops.embedding_bag(cands, keys.view(2, 4), scores.view(2, 4))
+    qkv = torch.zeros((1, 2, 4, 128), dtype=torch.bfloat16)
+    ops.flash_attention(qkv, qkv, qkv)
     assert ops.launches() == {"rank_join_lookup": 0, "merge_topk": 0,
-                              "topk_score_pruned": 0, "embedding_bag": 0}
+                              "topk_score_pruned": 0, "embedding_bag": 0,
+                              "flash_attention": 0}
     with pytest.raises(ValueError):
         rank_join.rank_join_lookup(keys, scores, probes, cnt)
     with pytest.raises(ValueError):
@@ -327,6 +331,8 @@ def test_dispatch_and_wrapper_checks():
     with pytest.raises(ValueError):
         embedding_bag.embedding_bag(cands, keys.view(2, 4),
                                     scores.view(2, 4))
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention(qkv, qkv, qkv)
     with pytest.raises(ValueError):
         ops.merge_topk(keys.view(1, 2, 4), scores.view(1, 2, 4), 4,
                        impl="cuda")
@@ -340,6 +346,91 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc"):
         _build._nvcc()
+
+
+FLASH_CASES = [  # tests/test_kernels.py's five cases
+    (1, 4, 2, 128, 128, 64, True, None, None, np.float32),
+    (2, 2, 2, 128, 256, 32, True, 64, None, np.float32),
+    (1, 4, 1, 64, 64, 64, True, None, 30.0, np.float32),
+    (1, 2, 2, 128, 128, 32, False, None, None, np.float32),
+    (1, 2, 1, 128, 128, 32, True, None, None, np.dtype("bfloat16"))]
+
+
+def _flash_case(rng, B, Hq, Hkv, Sq, Sk, D, dtype):
+    q = (rng.standard_normal((B, Hq, Sq, D)) * 0.3).astype(dtype)
+    k = (rng.standard_normal((B, Hkv, Sk, D)) * 0.3).astype(dtype)
+    v = rng.standard_normal((B, Hkv, Sk, D)).astype(dtype)
+    return q, k, v
+
+
+def _torch_from(a):
+    """numpy (bf16 through its int16 view) → torch, bit for bit."""
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,causal,win,cap,dtype",
+                         FLASH_CASES)
+def test_flash_attention_matches_jax(B, Hq, Hkv, Sq, Sk, D, causal, win,
+                                     cap, dtype):
+    """The plain version against the Pallas kernel (interpret mode) and
+    the jnp oracle, on the same inputs: GQA, Sq < Sk, window, softcap,
+    non-causal, bf16. Tolerance 2e-4 in f32, 2e-2 in bf16 (as
+    tests/test_kernels.py holds the Pallas kernel)."""
+    q, k, v = _flash_case(np.random.default_rng(11), B, Hq, Hkv, Sq, Sk,
+                          D, dtype)
+    kw = dict(causal=causal, window=win, softcap=cap)
+    pallas = jflash_attention.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), tile_q=64,
+        tile_k=64, **kw)
+    oracle = jref.flash_attention_ref(
+        *(jnp.asarray(a, jnp.float32) for a in (q, k, v)), **kw)
+    got = ops.flash_attention(*(_torch_from(a) for a in (q, k, v)), **kw)
+    assert got.dtype == (torch.bfloat16 if dtype != np.float32
+                         else torch.float32)
+    tol = 2e-4 if dtype == np.float32 else 2e-2
+    for want in (pallas, oracle):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32), rtol=tol,
+                                   atol=tol)
+
+
+def test_flash_attention_edges():
+    """Rows with no visible key give 0 (Sq > Sk, causal: the first rows
+    sit before every key); window 0 and softcap 0 mean none."""
+    rng = np.random.default_rng(12)
+    q, k, v = (_torch_from(a) for a in _flash_case(rng, 1, 2, 1, 8, 4, 16,
+                                                    np.float32))
+    out = ops.flash_attention(q, k, v)
+    assert torch.equal(out[:, :, :4], torch.zeros_like(out[:, :, :4]))
+    assert out[:, :, 4:].abs().sum() > 0
+    torch.testing.assert_close(
+        ops.flash_attention(q, k, v, window=0, softcap=0.0),
+        ops.flash_attention(q, k, v, window=None, softcap=None),
+        rtol=0, atol=0)
+
+
+def test_flash_attention_wrapper_checks():
+    """What the CUDA wrapper refuses, before it reaches the card."""
+    bf = torch.bfloat16
+    q = torch.zeros((2, 8, 40, 256), dtype=bf)
+    k = torch.zeros((2, 4, 48, 256), dtype=bf)
+    assert flash_attention.check_args(q, k, k) == (2, 8, 4, 40, 48, 256)
+    # (B, S, H, D) activations seen as (B, H, S, D) are taken as they are.
+    qs = torch.zeros((2, 40, 8, 128), dtype=bf).transpose(1, 2)
+    ks = torch.zeros((2, 48, 4, 128), dtype=bf).transpose(1, 2)
+    assert flash_attention.check_args(qs, ks, ks)[-1] == 128
+    with pytest.raises(TypeError):
+        flash_attention.check_args(q.float(), k.float(), k.float())
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention.check_args(q[..., :64], k[..., :64], k[..., :64])
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attention.check_args(q[:, :6], k[:, :4], k[:, :4])
+    with pytest.raises(ValueError, match="strides"):
+        flash_attention.check_args(q[..., ::2], k[..., ::2], k[..., ::2])
+    with pytest.raises(ValueError):
+        flash_attention.check_args(q, k, k[:, :, :40])
 
 
 @pytest.fixture
@@ -409,3 +500,50 @@ def test_cuda_embedding_bag_matches_plain_version(cuda):
     torch.testing.assert_close(ops.embedding_bag(big, ids, w),
                                ops.embedding_bag(big, ids, w, impl="ref"),
                                rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_matches_plain_version(cuda):
+    """On the card, bf16: the kernel against its plain version (f32 math)
+    within rtol / atol 2e-2 — GQA with window and softcap, Sq < Sk, a
+    ragged length, non-causal, head_dim 128 and 256, and (B, S, H, D)
+    activations passed through their strides."""
+    rng = np.random.default_rng(13)
+    cases = [(2, 8, 4, 300, 300, 256, True, 128, 50.0),
+             (1, 8, 4, 70, 333, 256, True, None, None),
+             (1, 4, 2, 200, 200, 128, False, None, 30.0),
+             (1, 4, 1, 129, 129, 128, True, 64, None)]
+    for B, Hq, Hkv, Sq, Sk, D, causal, win, cap in cases:
+        q, k, v = (t.to(cuda) for t in _t(*_flash_case(
+            rng, B, Hq, Hkv, Sq, Sk, D, np.float32)))
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        kw = dict(causal=causal, window=win, softcap=cap)
+        torch.testing.assert_close(
+            ops.flash_attention(q, k, v, **kw).float(),
+            ops.flash_attention(q, k, v, impl="ref", **kw).float(),
+            rtol=2e-2, atol=2e-2)
+    q = torch.randn((2, 96, 8, 256), device=cuda, dtype=torch.bfloat16)
+    kv = torch.randn((2, 96, 4, 256), device=cuda, dtype=torch.bfloat16)
+    out = ops.flash_attention(q.transpose(1, 2), kv.transpose(1, 2),
+                              kv.transpose(1, 2), softcap=50.0)
+    assert out.transpose(1, 2).is_contiguous()
+    torch.testing.assert_close(
+        out.float(), ops.flash_attention(
+            q.transpose(1, 2), kv.transpose(1, 2), kv.transpose(1, 2),
+            softcap=50.0, impl="ref").float(), rtol=2e-2, atol=2e-2)
+    # Logits of std 25 at D = 256, which the softcap of 50 bends hard: the
+    # kernel agrees with the softcapped plain version, and the kernel
+    # without softcap does not (so the check above can see the softcap).
+    q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in (
+        rng.standard_normal((1, 8, 512, 256), np.float32) * 25,
+        rng.standard_normal((1, 4, 512, 256), np.float32),
+        rng.standard_normal((1, 4, 512, 256), np.float32)))
+    for win in (None, 128):
+        want = ops.flash_attention(q, k, v, window=win, softcap=50.0,
+                                   impl="ref").float()
+        torch.testing.assert_close(
+            ops.flash_attention(q, k, v, window=win, softcap=50.0).float(),
+            want, rtol=2e-2, atol=2e-2)
+        assert not torch.allclose(
+            ops.flash_attention(q, k, v, window=win).float(), want,
+            rtol=2e-2, atol=2e-2)
