@@ -43,14 +43,32 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    32 greedy decode steps (none); at B = 1 the kernel path's last logits
    held against those of the ``einsum`` attention, and one decode step
    against the backbone over the extended prompt;
-8. print the kernel table as one JSON line, then the result line
+8. GNN inference at the ``ogb_products`` shape (ogbn-products: 2,449,029
+   nodes, 61,859,140 edges, 100 features, 47 classes) with gat-cora's
+   widths (2 layers, 8 heads, hidden 8): ``neigh_softmax_agg`` held
+   against its plain version at the reference's test shapes, the GAT
+   layer shapes, ragged and odd shapes, rows with no live slot, NaN
+   features in masked slots (which it never reads) and more than 2**31
+   feature floats, and timed beside its bound (live slots' features
+   only), the plain version and ``torch.softmax`` + ``torch.bmm``; the graph made by
+   ``graph_synth.random_graph`` and 3 forwards through ``gat.apply`` timed
+   with the counters read around them (0 launches: the reference's GAT
+   never calls the kernel); then per layer the kernel driven over every
+   node on the layer's own logits and features in the padded-degree
+   layout, held against its plain version and the layer's segment-op
+   aggregation, and the layer's output against a float64 oracle at 4,096
+   sampled nodes;
+9. print the kernel table as one JSON line (``launches``: each kernel's
+   count on its own path, so 0 for ``neigh_softmax_agg`` on
+   ``gat.apply``; its ``check_launches`` are those of the drive over the
+   layers' data), then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 It exits non-zero without CUDA and when ``src/repro_torch`` is not beside
 it. It imports nothing of JAX. ``--profile`` adds ``torch.profiler``
 windows (device busy share, time by kernel) over one retrieval query in
-each mode, the serving batches, one LM prefill with 4 decode steps and
-one specqp pass of the KG path.
+each mode, the serving batches, one LM prefill with 4 decode steps, one
+GAT forward and one specqp pass of the KG path.
 """
 from __future__ import annotations
 
@@ -89,6 +107,26 @@ LM_LOGIT_TOL_STD = 0.1
 # flash_attention checks: q is drawn N(0, 1) times this, k N(0, 1), so the
 # logits scale * q.k have this std and reach the softcap of 50.
 ATTN_LOGIT_STD = 25.0
+# GNN inference: gat-cora's widths at this shape, timed forwards, the node
+# chunk of the kernel's drive over each layer's own data, and the
+# destination nodes the float64 oracle recomputes per layer
+GNN_SHAPE = "ogb_products"
+GNN_FORWARDS = 3
+GNN_NODE_CHUNK = 65536
+GNN_ORACLE_NODES = 4096
+# neigh_softmax_agg and GAT checks: the reference's bar for the Pallas
+# kernel (tests/test_kernels.py)
+AGG_RTOL, AGG_ATOL = 1e-4, 1e-5
+# (name, R, MAXD, D): the reference's test shapes, the GAT layer shapes
+# (a node chunk x 8 heads, MAXD 56 as the ogb_products graph gives it),
+# ragged and odd shapes, and more than 2**31 feature floats (8.6 GB)
+AGG_CASES = [("test", 64, 16, 32), ("test", 130, 8, 64),
+             ("layer 0", GNN_NODE_CHUNK * 8, 56, 8),
+             ("layer 1", GNN_NODE_CHUNK * 8, 56, 47),
+             ("ragged", 100_003, 56, 47), ("ragged", 100_003, 56, 8),
+             ("odd", 777, 33, 10), ("wide", 1000, 100, 100),
+             ("D=1", 513, 3, 1), ("no rows", 0, 56, 47),
+             ("2**31+", 820_000, 56, 47)]
 
 
 def fail(msg: str) -> None:
@@ -821,6 +859,18 @@ def check_flash_attention(np, torch, ops, dev, cfg):
     except RuntimeError as e:      # no SDPA backend for these inputs
         print(f"scaled_dot_product_attention refused the inputs: {e}")
         library_ms = None
+    # A masked slot's features are never read: NaN there must not reach
+    # the output (the plain version, as the reference, gives NaN).
+    logits = torch.randn((130, 56), generator=gen, device=dev) * 3.0
+    feats = torch.randn((130, 56, 47), generator=gen, device=dev)
+    mask = torch.rand((130, 56), generator=gen, device=dev) < 0.45
+    got = ops.neigh_softmax_agg(
+        logits, feats.masked_fill(~mask[..., None], float("nan")), mask)
+    want = ops.neigh_softmax_agg(logits, feats, mask, impl="ref")
+    if not torch.allclose(got, want, rtol=AGG_RTOL, atol=AGG_ATOL):
+        fail("neigh_softmax_agg lets NaN features of masked slots through")
+    print("neigh_softmax_agg: NaN features in masked slots do not reach the "
+          "output")
     for name, t in times.items():
         b = t["bound"]
         print(f"flash_attention {name} layer (B={B} Hq={Hq} Hkv={Hkv} S={S} "
@@ -990,6 +1040,254 @@ def lm_path(np, torch, ops, dev, prof: bool = False):
     return row, pf_launches
 
 
+def agg_bound(R: int, MAXD: int, D: int, live: int) -> tuple[float, str]:
+    """Least time in ms: the logits and mask read once, the features of the
+    ``live`` slots only (a masked slot has weight 0) and the output written
+    once, against an exp and 2 · D flops a live slot."""
+    nbytes = R * MAXD * (4 + 1) + live * D * 4 + R * D * 4
+    return bound(nbytes, live * (2 * D + 4))
+
+
+def check_neigh_agg(np, torch, ops, dev):
+    """neigh_softmax_agg against its plain version (rtol AGG_RTOL, atol
+    AGG_ATOL): the reference's test shapes, the GAT layer shapes at
+    GNN_NODE_CHUNK nodes x 8 heads, ragged and odd shapes and one case of
+    more than 2**31 feature floats; every 7th row has no live slot and must
+    give exactly 0. Then timed at the layer shapes beside its bound, the
+    plain version and torch.softmax + torch.bmm."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 4)
+    err, times = 0.0, {}
+    for name, r, maxd, d in AGG_CASES:
+        logits = torch.randn((r, maxd), generator=gen, device=dev) * 3.0
+        feats = torch.randn((r, maxd, d), generator=gen, device=dev)
+        mask = torch.rand((r, maxd), generator=gen, device=dev) < 0.45
+        mask[::7] = False
+        got = ops.neigh_softmax_agg(logits, feats, mask)
+        want = ops.neigh_softmax_agg(logits, feats, mask, impl="ref")
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max()) if r else 0.0
+        if got.shape != (r, d) or not torch.allclose(
+                got, want, rtol=AGG_RTOL, atol=AGG_ATOL):
+            fail(f"neigh_softmax_agg ({name}: R={r} MAXD={maxd} D={d}) "
+                 f"differs from its plain version: max abs err {e:.4g}")
+        if not torch.equal(got[::7], torch.zeros_like(got[::7])):
+            fail(f"neigh_softmax_agg ({name}) gives non-zero rows where no "
+                 "slot is live")
+        err = max(err, e)
+        print(f"neigh_softmax_agg {name} (R={r} MAXD={maxd} D={d}, "
+              f"{r * maxd * d} feature floats): within rtol {AGG_RTOL} atol "
+              f"{AGG_ATOL} of plain (max abs err {e:.3g}); empty rows 0")
+        if name.startswith("layer"):
+            ml = logits.masked_fill(~mask, float("-inf"))
+            times[name] = dict(
+                shape=f"R={r} MAXD={maxd} D={d}",
+                ms=cuda_ms(torch, lambda: ops.neigh_softmax_agg(
+                    logits, feats, mask)),
+                plain_ms=cuda_ms(torch, lambda: ops.neigh_softmax_agg(
+                    logits, feats, mask, impl="ref"), blocks=5, per_block=2),
+                library_ms=cuda_ms(torch, lambda: torch.bmm(torch.softmax(
+                    ml, dim=1)[:, None, :], feats), blocks=5, per_block=2),
+                bound=agg_bound(r, maxd, d, int(mask.sum())))
+            del ml
+        del logits, feats, mask, got, want
+        torch.cuda.empty_cache()
+    # A masked slot's features are never read: NaN there must not reach
+    # the output (the plain version, as the reference, gives NaN).
+    logits = torch.randn((130, 56), generator=gen, device=dev) * 3.0
+    feats = torch.randn((130, 56, 47), generator=gen, device=dev)
+    mask = torch.rand((130, 56), generator=gen, device=dev) < 0.45
+    got = ops.neigh_softmax_agg(
+        logits, feats.masked_fill(~mask[..., None], float("nan")), mask)
+    want = ops.neigh_softmax_agg(logits, feats, mask, impl="ref")
+    if not torch.allclose(got, want, rtol=AGG_RTOL, atol=AGG_ATOL):
+        fail("neigh_softmax_agg lets NaN features of masked slots through")
+    print("neigh_softmax_agg: NaN features in masked slots do not reach the "
+          "output")
+    for name, t in times.items():
+        b = t["bound"]
+        print(f"neigh_softmax_agg {name} shape ({t['shape']}): kernel "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, softmax + "
+              f"bmm {t['library_ms']:.4f} ms, bound {b[0]:.4f} ms ({b[1]}), "
+              f"{100 * b[0] / t['ms']:.1f} % of the bound's rate")
+    t1, t0 = times["layer 1"], times["layer 0"]
+    return dict(name="neigh_softmax_agg", route="cuda",
+                source="src/repro_torch/kernels/csrc/neigh_agg.cu",
+                replaces="src/repro/kernels/neigh_agg.py:41",
+                max_abs_err=err, ms=t1["ms"], plain_ms=t1["plain_ms"],
+                bound_ms=t1["bound"][0], bound_by=t1["bound"][1],
+                library_ms=t1["library_ms"],
+                library_vs="torch.softmax over the masked logits + "
+                           "torch.bmm: two calls, no single one computes it",
+                layer0_ms=t0["ms"], layer0_plain_ms=t0["plain_ms"],
+                layer0_bound_ms=t0["bound"][0],
+                layer0_library_ms=t0["library_ms"],
+                shape=f"{t1['shape']} (GAT layer 1, {GNN_NODE_CHUNK} nodes "
+                      f"x 8 heads); layer 0 {t0['shape']}")
+
+
+def gat_oracle(np, torch, g, h, lp, slope: float, nodes, concat: bool):
+    """One GAT layer's output at ``nodes`` (sorted, unique), recomputed in
+    float64 with numpy from their valid in-edges, given the layer input
+    ``h`` from the card: logits, a softmax per node (reduceat over the
+    edges sorted by dst) and the weighted sum."""
+    n = h.shape[0]
+    pick = torch.zeros(n, dtype=torch.bool, device=h.device)
+    pick[nodes] = True
+    e = torch.nonzero((g.edge_src >= 0) & pick[g.edge_dst.long()]).squeeze(1)
+    ed = g.edge_dst[e].cpu().numpy().astype(np.int64)
+    order = np.argsort(ed, kind="stable")
+    ed, e = ed[order], e[torch.from_numpy(order).to(e.device)]
+    hs = h[g.edge_src[e].long()].double().cpu().numpy()
+    w, a_s, a_d = (lp[k].double().cpu().numpy()
+                   for k in ("w", "a_src", "a_dst"))
+    nodes_np = nodes.cpu().numpy()
+    hv = h[nodes].double().cpu().numpy()
+    hw_s = np.einsum("ef,fhd->ehd", hs, w)
+    hw_v = np.einsum("nf,fhd->nhd", hv, w)
+    pos = np.searchsorted(nodes_np, ed)
+    lg = (hw_s * a_s).sum(-1) + (hw_v * a_d).sum(-1)[pos]
+    lg = np.where(lg >= 0, lg, slope * lg)
+    counts = np.bincount(pos, minlength=len(nodes_np))
+    live = counts > 0
+    starts = (np.cumsum(counts) - counts)[live]
+    seg = np.repeat(np.arange(int(live.sum())), counts[live])
+    mx = np.maximum.reduceat(lg, starts, axis=0)
+    ex = np.exp(lg - mx[seg])
+    alpha = ex / np.add.reduceat(ex, starts, axis=0)[seg]
+    agg = np.zeros(hv.shape[:1] + hw_s.shape[1:])
+    agg[live] = np.add.reduceat(alpha[..., None] * hw_s, starts, axis=0)
+    if concat:
+        flat = agg.reshape(len(nodes_np), -1)
+        return np.where(flat > 0, flat, np.expm1(flat))
+    return agg.mean(axis=1)
+
+
+def gnn_path(np, torch, ops, dev, prof: bool = False):
+    """Phase 8: neigh_softmax_agg checked and timed; gat-cora at the
+    ogb_products shape on the card, GNN_FORWARDS timed forwards through
+    gat.apply (which launches the kernel 0 times, as the reference's GAT
+    never calls it); then per layer the kernel driven over every node on
+    the layer's own data in the padded-degree layout, held against its
+    plain version and the layer's segment-op aggregation, and the layer's
+    output against a float64 oracle at GNN_ORACLE_NODES nodes."""
+    from repro_torch.configs import gat_cora, gnn_common
+    from repro_torch.data import graph_synth
+    from repro_torch.models.gnn import gat, graph as G, padded
+
+    row = check_neigh_agg(np, torch, ops, dev)
+    sh = gnn_common.GNN_SHAPES[GNN_SHAPE]
+    cfg = gnn_common.shape_config(gat_cora.config(), GNN_SHAPE)
+    n = sh["n_nodes"]
+    t0 = time.perf_counter()
+    g = graph_synth.random_graph(n, sh["n_edges"], sh["d_feat"],
+                                 n_classes=sh["n_classes"], seed=SEED,
+                                 geometric=gat_cora.GEOMETRIC, device=dev)
+    torch.cuda.synchronize()
+    print(f"GNN graph {GNN_SHAPE}: {n} nodes, {sh['n_edges']} edges, "
+          f"{sh['d_feat']} features, {sh['n_classes']} classes, made on "
+          f"the host and moved to the card in {time.perf_counter() - t0:.2f}"
+          f" s")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params = gat.init(cfg, gen, dev)
+    print(f"GAT {cfg.name}: {cfg.n_layers} layers, {cfg.n_heads} heads, "
+          f"hidden {cfg.d_hidden}, d_in {cfg.d_in}, {cfg.n_classes} classes,"
+          f" edge chunk {gat.EDGE_CHUNK}")
+    out = gat.apply(params, cfg, g)           # warm-up, off the clock
+    torch.cuda.synchronize()
+    del out
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    fwd = []
+    for _ in range(GNN_FORWARDS):
+        t = time.perf_counter()
+        out = gat.apply(params, cfg, g)
+        torch.cuda.synchronize()
+        fwd.append(time.perf_counter() - t)
+    apply_launches = ops.launches()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    fwd_ms = np.array(fwd) * 1e3
+    print(f"GAT forward over {n} nodes: "
+          f"{[round(x, 3) for x in fwd_ms.tolist()]} ms | median "
+          f"{np.median(fwd_ms):.3f} ms | {n / np.median(fwd):.1f} nodes/s | "
+          f"peak allocated {peak_gb:.3f} GB")
+    print(f"GAT forward launches ({GNN_FORWARDS} forwards): "
+          f"{apply_launches}")
+    if any(apply_launches.values()):
+        fail(f"gat.apply launched a kernel: {apply_launches}")
+    if out.shape != (n, cfg.n_classes) or not torch.isfinite(out).all():
+        fail(f"GAT output malformed: {tuple(out.shape)}")
+
+    slots = padded.padded_layout(g, n)
+    deg = (slots >= 0).sum(1)
+    print(f"padded-degree layout: MAXD {slots.shape[1]}, in-degree mean "
+          f"{float(deg.float().mean()):.2f}, min {int(deg.min())}")
+    nodes = torch.from_numpy(np.sort(np.random.default_rng(SEED).choice(
+        n, GNN_ORACLE_NODES, replace=False))).to(dev)
+    ops.reset_launches()
+    h = g.node_feat
+    for i in range(cfg.n_layers):
+        lp, concat = params[f"layer_{i}"], i < cfg.n_layers - 1
+        with torch.no_grad():
+            hw, logits = gat.layer_logits(lp, cfg, g, h)
+            agg = gat.aggregate(g, G.edge_softmax(g, logits, n), hw, n)
+            e_plain = e_seg = 0.0
+            for lo in range(0, n, GNN_NODE_CHUNK):
+                hi = min(n, lo + GNN_NODE_CHUNK)
+                lg, ft, mk = padded.agg_rows(g, slots, logits, hw, lo, hi)
+                got = ops.neigh_softmax_agg(lg, ft, mk)
+                want = ops.neigh_softmax_agg(lg, ft, mk, impl="ref")
+                seg = agg[lo:hi].reshape(got.shape)
+                if not (torch.allclose(got, want, rtol=AGG_RTOL,
+                                       atol=AGG_ATOL)
+                        and torch.allclose(got, seg, rtol=AGG_RTOL,
+                                           atol=AGG_ATOL)):
+                    fail(f"neigh_softmax_agg on GAT layer {i}, nodes "
+                         f"[{lo}, {hi}): off its plain version by "
+                         f"{float((got - want).abs().max()):.4g}, off the "
+                         f"segment aggregation by "
+                         f"{float((got - seg).abs().max()):.4g}")
+                e_plain = max(e_plain, float((got - want).abs().max()))
+                e_seg = max(e_seg, float((got - seg).abs().max()))
+                del lg, ft, mk, got, want
+            h_next = gat.finish_layer(agg, concat)
+            del hw, logits, agg
+        ref = gat_oracle(np, torch, g, h, lp, cfg.negative_slope, nodes,
+                         concat)
+        mine = (h_next if concat else out)[nodes].double().cpu().numpy()
+        e_or = float(np.abs(mine - ref).max())
+        if not np.allclose(mine, ref, rtol=AGG_RTOL, atol=AGG_ATOL):
+            fail(f"GAT layer {i} differs from the float64 oracle at "
+                 f"{GNN_ORACLE_NODES} nodes: max abs err {e_or:.4g}")
+        print(f"GAT layer {i}: neigh_softmax_agg over all {n} nodes x "
+              f"{cfg.n_heads} heads in chunks of {GNN_NODE_CHUNK} nodes "
+              f"within rtol {AGG_RTOL} atol {AGG_ATOL} of its plain version "
+              f"(max abs err {e_plain:.3g}) and of the layer's segment-op "
+              f"aggregation ({e_seg:.3g}); "
+              f"{'the layer' if concat else 'apply'}'s output within the "
+              f"same of the float64 oracle at {GNN_ORACLE_NODES} nodes "
+              f"({e_or:.3g})")
+        h = h_next
+    e_out = float((h - out).abs().max())
+    if not torch.allclose(h, out, rtol=AGG_RTOL, atol=AGG_ATOL):
+        fail(f"the layer-by-layer GAT differs from gat.apply by {e_out:.4g}")
+    launches = ops.launches()
+    print(f"GAT kernel drive launches: {launches}")
+    if launches["neigh_softmax_agg"] != cfg.n_layers * -(-n // GNN_NODE_CHUNK):
+        fail(f"the kernel drive did not launch neigh_softmax_agg once a "
+             f"chunk: {launches}")
+    row["check_launches"] = launches["neigh_softmax_agg"]
+    del h, slots, deg, nodes
+    torch.cuda.empty_cache()
+    if prof:
+        profile_window(torch, f"one GAT forward over {n} nodes",
+                       lambda: gat.apply(params, cfg, g))
+    del g, params, out
+    torch.cuda.empty_cache()
+    return row, apply_launches
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {pathlib.Path(__file__).name}: run "
@@ -1031,7 +1329,7 @@ def main() -> None:
     for name, row in rows.items():
         row["launches"] = launches[name]
     prof = "--profile" in sys.argv[1:]
-    for path in (retrieval_path, serving_path, lm_path):
+    for path in (retrieval_path, serving_path, lm_path, gnn_path):
         row, path_launches = path(np, torch, ops, dev, prof)
         row["launches"] = path_launches[row["name"]]
         rows[row["name"]] = row
@@ -1039,7 +1337,7 @@ def main() -> None:
         print(f"{path.__name__} done at {time.perf_counter() - t0:.1f} s")
     kernels = [rows[n] for n in ("rank_join_lookup", "merge_topk",
                                  "topk_score_pruned", "embedding_bag",
-                                 "flash_attention")]
+                                 "flash_attention", "neigh_softmax_agg")]
     for k in kernels:
         print(f"{k['name']}: {k['launches']} launches on its path")
     if prof:

@@ -2,8 +2,8 @@
 into the port.
 
 The arguments are numpy arrays: the ``TripleStore`` / ``RelaxTable``
-fields (the sketch as uint32 words), a two-tower parameter tree or an LM
-parameter tree. The results are the port's types on ``device``, so both
+fields (the sketch as uint32 words), a two-tower, LM or GAT parameter
+tree. The results are the port's types on ``device``, so both
 packages then read the very same data.
 """
 from __future__ import annotations
@@ -17,6 +17,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe
 from repro_torch.models import recsys
 from repro_torch.models import transformer as tf
+from repro_torch.models.gnn import gat
 
 
 def store_from_numpy(keys, scores, lengths, sorted_keys, stats, sketch,
@@ -112,3 +113,23 @@ def lm_from_numpy(values, cfg: tf.LMConfig, device=None) -> tf.LM:
                  _tensor(values["final_norm"], dev), layers,
                  None if cfg.tie_embeddings
                  else _tensor(values["lm_head"], dev))
+
+
+def gat_from_numpy(values, cfg: gat.GATConfig, device=None):
+    """``values`` is the reference's ``gat.init(...)[0]`` as numpy arrays:
+    ``{"layer_i": {"w", "a_src", "a_dst"}}``. Raises where a key set or a
+    shape does not match ``cfg``."""
+    dev = resolve_device(device)
+    shapes = gat.layer_shapes(cfg)
+    _keys("top-level", values, shapes)
+    params = {}
+    for name, layer in shapes.items():
+        _keys(name, values[name], layer)
+        params[name] = {}
+        for k, shape in layer.items():
+            a = np.asarray(values[name][k], dtype=np.float32)
+            if a.shape != shape:
+                raise ValueError(f"{name}.{k} has shape {a.shape}, the "
+                                 f"config's is {shape}")
+            params[name][k] = _tensor(a, dev)
+    return params

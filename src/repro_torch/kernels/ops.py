@@ -15,12 +15,14 @@ from repro_torch.kernels import merge_topk as _merge_topk
 from repro_torch.kernels import topk_score as _topk_score
 from repro_torch.kernels import embedding_bag as _embedding_bag
 from repro_torch.kernels import flash_attention as _flash_attention
+from repro_torch.kernels import neigh_agg as _neigh_agg
 
 KERNELS = {"rank_join_lookup": _rank_join.rank_join_lookup,
            "merge_topk": _merge_topk.merge_topk,
            "topk_score_pruned": _topk_score.topk_score_pruned,
            "embedding_bag": _embedding_bag.embedding_bag,
-           "flash_attention": _flash_attention.flash_attention}
+           "flash_attention": _flash_attention.flash_attention,
+           "neigh_softmax_agg": _neigh_agg.neigh_softmax_agg}
 
 
 def _plain(t: torch.Tensor, impl: str) -> bool:
@@ -77,6 +79,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     if _plain(q, impl):
         return _ref.flash_attention(q, k, v, **kw)
     return _flash_attention.flash_attention(q, k, v, **kw)
+
+
+def neigh_softmax_agg(logits, feats, mask, impl: str = "auto"):
+    """Masked softmax over each row's slots, then the weighted sum of its
+    features: (R, MAXD) f32, (R, MAXD, D) f32, (R, MAXD) bool → (R, D)."""
+    if _plain(logits, impl):
+        return _ref.neigh_softmax_agg(logits, feats, mask)
+    return _neigh_agg.neigh_softmax_agg(logits, feats, mask)
 
 
 def launches() -> dict[str, int]:

@@ -102,6 +102,24 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
     return torch.einsum("bsd,bs->bd", gathered, w)
 
 
+def neigh_softmax_agg(logits: torch.Tensor, feats: torch.Tensor,
+                      mask: torch.Tensor) -> torch.Tensor:
+    """Fused edge softmax + neighbourhood aggregation (the GAT hot loop)
+    on the padded-degree layout.
+
+    logits (R, MAXD) f32, feats (R, MAXD, D) f32, mask (R, MAXD) bool →
+    (R, D) f32: Σ_j softmax_j(logits[r] over the live slots) · feats[r, j].
+    A row with no live slot gives 0.
+    """
+    ml = torch.where(mask, logits, float("-inf"))
+    mx = ml.max(dim=1, keepdim=True).values
+    mx = torch.where(torch.isfinite(mx), mx, 0.0)
+    ex = torch.where(mask, torch.exp(ml - mx), 0.0)
+    den = ex.sum(dim=1, keepdim=True)
+    w = ex / torch.clamp(den, min=1e-30)
+    return torch.einsum("nd,ndk->nk", w, feats)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     softcap: float | None = None,

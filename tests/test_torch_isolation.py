@@ -15,13 +15,16 @@ def _modules():
 
 def test_port_imports_no_jax_and_no_repro():
     mods = _modules()
-    assert "repro_torch.core.engine" in mods and len(mods) >= 32
+    assert "repro_torch.core.engine" in mods and len(mods) >= 38
     for m in ("models.recsys", "configs.two_tower_retrieval",
               "kernels.topk_score", "kernels.embedding_bag",
               "examples.speculative_retrieval", "models.common",
               "models.attention", "models.moe", "models.transformer",
               "kernels.flash_attention", "configs.lm_common",
-              "configs.gemma2_2b", "configs.starcoder2_3b"):
+              "configs.gemma2_2b", "configs.starcoder2_3b",
+              "data.graph_synth", "models.gnn.graph", "models.gnn.gat",
+              "models.gnn.padded",
+              "kernels.neigh_agg", "configs.gnn_common", "configs.gat_cora"):
         assert f"repro_torch.{m}" in mods, m
     code = "\n".join(
         ["import importlib, sys"]

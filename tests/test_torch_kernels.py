@@ -17,9 +17,11 @@ from repro.kernels import merge_topk as jmerge_topk
 from repro.kernels import topk_score as jtopk_score
 from repro.kernels import embedding_bag as jembedding_bag
 from repro.kernels import flash_attention as jflash_attention
+from repro.kernels import neigh_agg as jneigh_agg
 from repro_torch.kernels import ops, ref, _build
 from repro_torch.kernels import rank_join, merge_topk
 from repro_torch.kernels import topk_score, embedding_bag, flash_attention
+from repro_torch.kernels import neigh_agg
 
 # Small tensors: one intra-op thread per test worker keeps the workers of
 # a parallel test run from spinning on each other's cores.
@@ -319,9 +321,10 @@ def test_dispatch_and_wrapper_checks():
     ops.embedding_bag(cands, keys.view(2, 4), scores.view(2, 4))
     qkv = torch.zeros((1, 2, 4, 128), dtype=torch.bfloat16)
     ops.flash_attention(qkv, qkv, qkv)
+    ops.neigh_softmax_agg(cands, cands[..., None], cands > 0)
     assert ops.launches() == {"rank_join_lookup": 0, "merge_topk": 0,
                               "topk_score_pruned": 0, "embedding_bag": 0,
-                              "flash_attention": 0}
+                              "flash_attention": 0, "neigh_softmax_agg": 0}
     with pytest.raises(ValueError):
         rank_join.rank_join_lookup(keys, scores, probes, cnt)
     with pytest.raises(ValueError):
@@ -333,6 +336,8 @@ def test_dispatch_and_wrapper_checks():
                                     scores.view(2, 4))
     with pytest.raises(ValueError):
         flash_attention.flash_attention(qkv, qkv, qkv)
+    with pytest.raises(ValueError):
+        neigh_agg.neigh_softmax_agg(cands, cands[..., None], cands > 0)
     with pytest.raises(ValueError):
         ops.merge_topk(keys.view(1, 2, 4), scores.view(1, 2, 4), 4,
                        impl="cuda")
@@ -431,6 +436,60 @@ def test_flash_attention_wrapper_checks():
         flash_attention.check_args(q[..., ::2], k[..., ::2], k[..., ::2])
     with pytest.raises(ValueError):
         flash_attention.check_args(q, k, k[:, :, :40])
+
+
+def _agg_case(rng, N, MAXD, D):
+    """tests/test_kernels.py's draw, with row 0 and every 5th row empty."""
+    lg = (rng.standard_normal((N, MAXD)) * 3).astype(np.float32)
+    ft = rng.standard_normal((N, MAXD, D)).astype(np.float32)
+    mk = rng.random((N, MAXD)) > 0.3
+    mk[::5] = False
+    return lg, ft, mk
+
+
+@pytest.mark.parametrize("N,MAXD,D", [(64, 16, 32), (130, 8, 64),
+                                      (257, 56, 47), (100, 8, 8)])
+def test_neigh_softmax_agg_matches_jax(N, MAXD, D):
+    """The plain version against the Pallas kernel (interpret, tile_n 64)
+    and the jnp oracle on the same inputs, within rtol 1e-4 atol 1e-5 (the
+    reference's own bar); rows with no live slot give exactly 0."""
+    lg, ft, mk = _agg_case(np.random.default_rng(14), N, MAXD, D)
+    got = ops.neigh_softmax_agg(*_t(lg, ft, mk))
+    assert got.shape == (N, D) and got.dtype == torch.float32
+    assert torch.equal(got[::5], torch.zeros_like(got[::5]))
+    args = (jnp.asarray(lg), jnp.asarray(ft), jnp.asarray(mk))
+    for want in (jneigh_agg.neigh_softmax_agg(*args, tile_n=64),
+                 jref.neigh_softmax_agg_ref(*args)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                                   atol=1e-5)
+
+
+def test_neigh_softmax_agg_wrapper_checks():
+    """What the CUDA wrapper refuses, before it reaches the card."""
+    lg, ft = torch.zeros((6, 5)), torch.zeros((6, 5, 3))
+    mk = torch.ones((6, 5), dtype=torch.bool)
+    assert neigh_agg.check_args(lg, ft, mk) == (6, 5, 3)
+    with pytest.raises(TypeError):
+        neigh_agg.check_args(lg.double(), ft.double(), mk)
+    with pytest.raises(TypeError):
+        neigh_agg.check_args(lg, ft, mk.int())
+    with pytest.raises(TypeError):
+        neigh_agg.check_args(lg.half(), ft, mk)
+    with pytest.raises(ValueError, match="shape"):
+        neigh_agg.check_args(lg, ft[:5], mk)
+    with pytest.raises(ValueError, match="shape"):
+        neigh_agg.check_args(lg, ft, mk[:, :4])
+    with pytest.raises(ValueError, match="contiguous"):
+        neigh_agg.check_args(lg, ft.transpose(0, 1).contiguous().transpose(
+            0, 1), mk)
+    with pytest.raises(ValueError, match="MAXD"):
+        neigh_agg.check_args(lg[:, :0], ft[:, :0], mk[:, :0])
+    with pytest.raises(ValueError):
+        neigh_agg.check_args(lg[0], ft, mk)
+    with pytest.raises(NotImplementedError):
+        neigh_agg.check_args(lg.requires_grad_(), ft, mk)
+    with pytest.raises(ValueError, match="CUDA"):
+        neigh_agg.neigh_softmax_agg(lg.detach(), ft, mk)
 
 
 @pytest.fixture
@@ -547,3 +606,26 @@ def test_cuda_flash_attention_matches_plain_version(cuda):
         assert not torch.allclose(
             ops.flash_attention(q, k, v, window=win).float(), want,
             rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.gpu
+def test_cuda_neigh_softmax_agg_matches_plain_version(cuda):
+    """On the card: the kernel against its plain version within rtol 1e-4
+    atol 1e-5 at the reference's shapes, GAT's widths (D = 8 and 47, MAXD
+    56), MAXD above 32 and D above 64 (several slot chunks and column
+    tiles), D = 1, a D that 32 does not divide, and no rows; empty rows
+    give exactly 0, and NaN features in masked slots, which the kernel
+    never reads, do not reach the output."""
+    rng = np.random.default_rng(15)
+    for N, MAXD, D in [(64, 16, 32), (130, 8, 64), (257, 56, 47),
+                       (100, 56, 8), (300, 100, 130), (65, 3, 1),
+                       (99, 33, 10), (0, 56, 47)]:
+        lg, ft, mk = (t.to(cuda) for t in _t(*_agg_case(rng, N, MAXD, D)))
+        got = ops.neigh_softmax_agg(lg, ft, mk)
+        torch.testing.assert_close(
+            got, ops.neigh_softmax_agg(lg, ft, mk, impl="ref"), rtol=1e-4,
+            atol=1e-5)
+        assert torch.equal(got[::5], torch.zeros_like(got[::5]))
+        hidden = ft.masked_fill(~mk[..., None], float("nan"))
+        torch.testing.assert_close(ops.neigh_softmax_agg(lg, hidden, mk), got,
+                                   rtol=0, atol=0)
