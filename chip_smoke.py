@@ -20,10 +20,13 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    port on the CPU;
 5. retrieval at the ``retrieval_cand`` shape of
    ``configs/two_tower_retrieval``: ``topk_score_pruned`` held against its
-   plain version on a 1,048,576 x 256 norm-clustered corpus (Cauchy and
-   infinite bounds) and timed, then 32 queries through ``retrieve`` and the
-   score-everything baseline with the counters read around them, every
-   top-100 checked against the exact full scan;
+   plain version on a 1,048,576 x 256 norm-clustered corpus (Cauchy,
+   infinite and unsound bounds, and the corpus's tiles in shuffled norm
+   order), run twice for bit-equality, its tiles read printed beside those
+   counted, and timed beside ``block_bounds_cauchy`` alone; then 32 queries
+   through ``retrieve`` and the score-everything baseline with the counters
+   read around them, every top-100 checked against the exact full scan and
+   every query's tiles scored against the plain version's;
 6. two-tower serving at the ``serve_p99`` shape: the full-width model
    (two 20 M x 256 tables, about 41 GB) initialised on the card,
    ``embedding_bag`` held against its plain version on its tables (also
@@ -455,6 +458,16 @@ def agrees_with_exact(torch, got_s, got_i, exact_s, exact_i, k: int):
     return bool((same | ~clear).all()), int(clear.sum())
 
 
+def tiles_read(dev):
+    """Tiles the last ``topk_score_pruned`` kernel launch read (None on the
+    CPU, whose plain version reads every tile it counts)."""
+    from repro_torch.kernels import topk_score
+
+    if dev.type != "cuda":
+        return None
+    return int(topk_score.topk_score_pruned.last_tiles_read)
+
+
 def clustered_corpus(np, torch, dev, gen, cfg):
     """The retrieval_cand corpus: N_CAND rows of normal(D)·mag/√D, mag
     geomspace(4.0, 0.1) over the full tiles and the remainder (blocks
@@ -476,9 +489,10 @@ def clustered_corpus(np, torch, dev, gen, cfg):
 
 def retrieval_path(np, torch, ops, dev, prof: bool = False):
     """Phase 5: topk_score_pruned against its plain version at the
-    retrieval_cand shape, then 32 queries through ``retrieve`` (and the
-    score-everything baseline) with the launch counters read around them;
-    every top-100 is checked against the exact full scan."""
+    retrieval_cand shape (Cauchy, infinite, unsound and shuffled-tile
+    cases), then 32 queries through ``retrieve`` (and the score-everything
+    baseline) with the launch counters read around them; every top-100 is
+    checked against the exact full scan."""
     from repro_torch.configs import two_tower_retrieval as tt
     from repro_torch.models import recsys
 
@@ -496,40 +510,64 @@ def retrieval_path(np, torch, ops, dev, prof: bool = False):
           f"({cand.numel() * 4 / 1e9:.3f} GB, {n_tiles} tiles of {tile}), "
           f"made on the card in {time.perf_counter() - t0:.2f} s")
 
-    # Kernel vs plain version on query 0, both bound modes.
+    # Kernel vs plain version on query 0: Cauchy and infinite bounds,
+    # unsound ones (Cauchy x 0.25) and the corpus's tiles in shuffled norm
+    # order (Cauchy bounds of that corpus); then a second run, bit-equal.
     q = queries[0]
     cauchy = ops.block_bounds_cauchy(q, cand, tile)
-    modes = {"cauchy": cauchy, "inf": torch.full_like(cauchy, math.inf)}
+    perm = torch.randperm(n_tiles, generator=gen, device=dev)
+    shuffled = cand.view(n_tiles, tile, -1)[perm].reshape(cand.shape)
+    modes = {"cauchy": (cand, cauchy),
+             "inf": (cand, torch.full_like(cauchy, math.inf)),
+             "unsound": (cand, cauchy * 0.25),
+             "shuffled": (shuffled, ops.block_bounds_cauchy(q, shuffled,
+                                                            tile))}
     err, timing = 0.0, {}
-    for mode, b in modes.items():
-        ks, ki, kn = ops.topk_score_pruned(q, cand, b, k, tile)
-        rs, ri, rn = ops.topk_score_pruned(q, cand, b, k, tile, impl="ref")
+    for mode, (c, b) in modes.items():
+        ks, ki, kn = ops.topk_score_pruned(q, c, b, k, tile)
+        read = tiles_read(dev)
+        ks2, ki2, kn2 = ops.topk_score_pruned(q, c, b, k, tile)
+        rs, ri, rn = ops.topk_score_pruned(q, c, b, k, tile, impl="ref")
         torch.cuda.synchronize()
         if int(kn) != int(rn) or not torch.equal(ki, ri):
             fail(f"topk_score_pruned ({mode} bounds) differs from its plain "
                  f"version: {int(kn)} vs {int(rn)} tiles scored")
         if not torch.allclose(ks, rs, rtol=1e-5, atol=0.0):
             fail(f"topk_score_pruned ({mode} bounds) scores differ")
+        if not (torch.equal(ks, ks2) and torch.equal(ki, ki2)
+                and int(kn) == int(kn2)):
+            fail(f"topk_score_pruned ({mode} bounds): two runs differ")
         err = max(err, float((ks - rs).abs().max()))
         scored = int(kn)
         nbytes = scored * tile * cfg.embed_dim * 4 + n_tiles * 4 + (
             cfg.embed_dim * 4 + k * 8 + 4)
         timing[mode] = dict(
-            scored=scored,
-            ms=cuda_ms(torch, lambda: ops.topk_score_pruned(q, cand, b, k,
+            scored=scored, read=read,
+            ms=cuda_ms(torch, lambda: ops.topk_score_pruned(q, c, b, k,
                                                             tile),
                        blocks=7, per_block=3),
-            plain_ms=cuda_ms(torch, lambda: ops.topk_score_pruned(
-                q, cand, b, k, tile, impl="ref"), blocks=3, per_block=1),
             bound=bound(nbytes, scored * tile * 2 * cfg.embed_dim))
+        if mode in ("cauchy", "inf"):
+            timing[mode]["plain_ms"] = cuda_ms(
+                torch, lambda: ops.topk_score_pruned(q, c, b, k, tile,
+                                                     impl="ref"),
+                blocks=3, per_block=1)
         print(f"topk_score_pruned N={cand.shape[0]} D={cfg.embed_dim} "
               f"tile={tile} k={k}, {mode} bounds: {scored}/{n_tiles} tiles "
-              f"scored, count and indices equal to plain, scores rtol 1e-5")
+              f"counted, {read} read; count and indices equal to plain, "
+              f"scores rtol 1e-5; a second run bit-equal")
+    del shuffled, modes
     library_ms = cuda_ms(torch, lambda: torch.topk(cand @ q, k))
+    bounds_ms = cuda_ms(torch, lambda: ops.block_bounds_cauchy(q, cand,
+                                                               tile))
     for mode, t in timing.items():
-        print(f"  {mode}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
-              f"ms, bound {t['bound'][0]:.5f} ms ({t['bound'][1]}); library "
+        plain = (f"plain {t['plain_ms']:.4f} ms, " if "plain_ms" in t
+                 else "")
+        print(f"  {mode}: kernel {t['ms']:.4f} ms, {plain}bound "
+              f"{t['bound'][0]:.5f} ms ({t['bound'][1]}, "
+              f"{100 * t['bound'][0] / t['ms']:.1f} % of it); library "
               f"(matmul + topk, all tiles) {library_ms:.4f} ms")
+    print(f"  block_bounds_cauchy alone: {bounds_ms:.4f} ms")
     row = dict(name="topk_score_pruned", route="cuda",
                source="src/repro_torch/kernels/csrc/topk_score.cu",
                replaces="src/repro/kernels/topk_score.py:63",
@@ -537,6 +575,10 @@ def retrieval_path(np, torch, ops, dev, prof: bool = False):
                plain_ms=timing["cauchy"]["plain_ms"],
                bound_ms=timing["cauchy"]["bound"][0],
                bound_by=timing["cauchy"]["bound"][1], library_ms=library_ms,
+               tiles_read=timing["cauchy"]["read"],
+               inf_ms=timing["inf"]["ms"],
+               inf_bound_ms=timing["inf"]["bound"][0],
+               block_bounds_cauchy_ms=bounds_ms,
                shape=f"N={cand.shape[0]} D={cfg.embed_dim} tile={tile} "
                      f"k={k}, Cauchy bounds")
 
@@ -570,10 +612,18 @@ def retrieval_path(np, torch, ops, dev, prof: bool = False):
                 fail(f"retrieval query {qi} ({mode}) differs from the exact "
                      "top-100")
             clear_total += clear
+        cnt = ops.topk_score_pruned(
+            queries[qi], cand, ops.block_bounds_cauchy(queries[qi], cand,
+                                                       tile),
+            k, tile, impl="ref")[2]
+        if int(cnt) != int(res["speculative"][qi][2]):
+            fail(f"retrieval query {qi}: {int(res['speculative'][qi][2])} "
+                 f"tiles scored, the plain version {int(cnt)}")
         spec, base = res["speculative"][qi], res["baseline"][qi]
         if not (torch.equal(spec[0], base[0]) and torch.equal(spec[1],
                                                                base[1])):
             fail(f"retrieval query {qi}: speculative and baseline differ")
+    spec_lat = np.array([x[3] for x in res["speculative"]]) * 1e3
     for mode, r in res.items():
         lat = np.array([x[3] for x in r]) * 1e3
         tiles = np.array([int(x[2]) for x in r])
@@ -584,7 +634,11 @@ def retrieval_path(np, torch, ops, dev, prof: bool = False):
     print(f"retrieval: all {N_QUERIES} queries' top-{k} equal the exact "
           f"full scan in both modes (scores rtol 1e-5; indices equal at "
           f"{clear_total} of {2 * N_QUERIES * k} places with no near-tie, "
-          f"the rest within rtol 1e-5); speculative == baseline bit for bit")
+          f"the rest within rtol 1e-5); speculative == baseline bit for "
+          f"bit; every query's tiles scored equal the plain version's")
+    print(f"retrieval query p50 {np.percentile(spec_lat, 50):.3f} ms beside "
+          f"the kernel's {row['ms']:.4f} ms and block_bounds_cauchy's "
+          f"{bounds_ms:.4f} ms")
     if prof:
         profile_window(torch, "one speculative retrieval query",
                        lambda: tt.retrieve(queries[0], cand, k, tile))

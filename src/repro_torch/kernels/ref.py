@@ -89,6 +89,159 @@ def topk_score_pruned(query: torch.Tensor, cands: torch.Tensor,
     return buf_s.contiguous(), buf_i, scored
 
 
+def _merge(buf_s, buf_i, list_s, list_i, k: int):
+    """Top-k of the buffer and one or more lists by (score desc, index
+    asc); the buffer's empty slots (-inf, -1) come before any list entry."""
+    cat_s, cat_i = torch.cat([buf_s, list_s]), torch.cat([buf_i, list_i])
+    by_i = torch.sort(cat_i, stable=True).indices
+    by_s = torch.sort(cat_s[by_i], descending=True, stable=True).indices
+    top = by_i[by_s[:k]]
+    return cat_s[top], cat_i[top]
+
+
+def topk_score_pruned_speculative(query: torch.Tensor, cands: torch.Tensor,
+                                  block_bounds: torch.Tensor, k: int,
+                                  tile: int, wave: int,
+                                  room: int | None = None,
+                                  probe: int | None = None):
+    """The CUDA kernel's schedule of ``topk_score_pruned``, in waves of
+    ``wave`` tiles (a model for the tests; it returns what the sequential
+    version does).
+
+    Each wave reads, in any order, the tiles whose bound beats the k-th
+    the replay had published when the wave began (a kth_i with i ≤ j, so
+    no tile the sequential order scores is left unread). A read tile keeps
+    its top min(k, tile) dots above that k-th, sorted by (score desc, index
+    asc). Then the replay visits the wave's tiles in order: a read tile
+    counts when bound > the running k-th, and only then is its list merged,
+    when its first entry beats the k-th.
+
+    ``probe`` bounds each list's live entries as the kernel does: when a
+    wave's replay begins, a list longer than ``probe`` whose entry at
+    ``probe`` is at or below the k-th keeps its first ``probe`` entries
+    (the others cannot enter).
+
+    ``room`` (list entries) turns on the kernel's batch merges: from the
+    next tile to merge, ``at``, the following tiles join while the batch's
+    lists hold at most ``room`` entries; a read tile whose bound beats the
+    current k-th counts and merges as above, the others are neither; the
+    batch ends after its last list. It merges all its lists at once and
+    holds if each tile after ``at`` that counts has bound > the merged
+    k-th. Where ``at``'s list is shorter than k, a list joins only if, with
+    C the batch's list entries up to it, C < k and those tiles' bounds beat
+    the buffer's (k - C)-th score, an upper bound of the merged k-th: the
+    batch holds. Otherwise, if it does not hold, it is planned again up to
+    its first tile with bound ≤ the merged k-th, and that batch holds; so
+    does every later batch inside the failed one's tiles, planned with that
+    k-th as the limit. (The kernel merges a batch of fewer than four lists
+    list by list: the same result.)
+
+    Returns (scores (k,), idx (k,), n_tiles_scored () i32, tiles read).
+    """
+    n, _ = cands.shape
+    if n % tile:
+        raise ValueError(f"N = {n} is not a multiple of tile = {tile}")
+    dev = cands.device
+    buf_s = torch.full((k,), float("-inf"), device=dev)
+    buf_i = torch.full((k,), -1, dtype=torch.int32, device=dev)
+    scored, read, m = 0, 0, min(k, tile)
+    n_tiles = n // tile
+    for w0 in range(0, n_tiles, wave):
+        w1 = min(w0 + wave, n_tiles)
+        published = buf_s[k - 1]
+        lists = {}
+        for j in range(w0, w1):
+            if not block_bounds[j] > published:
+                continue
+            read += 1
+            tile_s = cands[j * tile:(j + 1) * tile] @ query
+            top_s, top_j = torch.sort(tile_s, descending=True, stable=True)
+            keep = top_s[:m] > published
+            lists[j] = (top_s[:m][keep],
+                        (j * tile + top_j[:m][keep]).to(torch.int32))
+
+        kth0 = buf_s[k - 1]
+        for j, (list_s, list_i) in lists.items():
+            if probe is not None and len(list_s) > probe and not (
+                    list_s[probe] > kth0):
+                lists[j] = (list_s[:probe], list_i[:probe])
+
+        def counted(j, kth):
+            return j in lists and bool(block_bounds[j] > kth)
+
+        def merges(j, kth):
+            return (counted(j, kth) and len(lists[j][0]) > 0
+                    and bool(lists[j][0][0] > kth))
+
+        def plan(at, kth, limit, sure, cap):
+            """(tiles to merge, tiles after ``at`` that count, their least
+            bound, end) of the batch from ``at``, before tile ``cap``."""
+            batch, n_after, least, end = [at], 0, float("inf"), at + 1
+            pend_n, pend_least = 0, float("inf")
+            entries = len(lists[at][0])
+            for j in range(at + 1, cap):
+                if entries >= room or (not sure and counted(j, kth)
+                                       and not block_bounds[j] > limit):
+                    break
+                if merges(j, kth):
+                    low = min(least, pend_least, float(block_bounds[j]))
+                    more = entries + len(lists[j][0])
+                    if more > room or sure and not (
+                            more < k and low > buf_s[k - 1 - more]):
+                        break
+                    batch.append(j)
+                    entries = more
+                    n_after += pend_n + 1
+                    least, pend_n, pend_least, end = low, 0, float("inf"), j + 1
+                elif counted(j, kth):
+                    pend_n += 1
+                    pend_least = min(pend_least, float(block_bounds[j]))
+            return batch, n_after, least, end
+
+        def merge_batch(batch, kth):
+            keep = [lists[j][0] > kth for j in batch]
+            return _merge(
+                buf_s, buf_i,
+                torch.cat([lists[j][0][c] for j, c in zip(batch, keep)]),
+                torch.cat([lists[j][1][c] for j, c in zip(batch, keep)]), k)
+
+        pos, fail_end, fail_kth = w0, w0, None
+        while pos < w1:
+            kth = buf_s[k - 1]
+            at = next((j for j in range(pos, w1) if merges(j, kth)), w1)
+            scored += sum(counted(j, kth) for j in range(pos, at))
+            if at == w1:
+                break
+            scored += 1
+            sure = len(lists[at][0]) < k and at >= fail_end
+            if not room:
+                batch, n_after, least, end = [at], 0, 0.0, at + 1
+            elif at < fail_end:
+                batch, n_after, least, end = plan(at, kth, fail_kth, False,
+                                                  fail_end)
+            else:
+                batch, n_after, least, end = plan(at, kth, kth, sure, w1)
+            if len(batch) > 1:
+                new_s, new_i = merge_batch(batch, kth)
+                if not least > new_s[k - 1]:
+                    assert not sure and at >= fail_end
+                    fail_end, fail_kth = end, new_s[k - 1]
+                    batch, n_after, least, end = plan(at, kth, fail_kth,
+                                                      False, w1)
+                    if len(batch) > 1:
+                        new_s, new_i = merge_batch(batch, kth)
+                        assert least > new_s[k - 1]
+            if len(batch) > 1:
+                buf_s, buf_i = new_s, new_i
+                scored += n_after
+                pos = end
+            else:
+                buf_s, buf_i = _merge(buf_s, buf_i, *lists[at], k)
+                pos = at + 1
+    return (buf_s.contiguous(), buf_i,
+            torch.tensor(scored, dtype=torch.int32, device=dev), read)
+
+
 def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
                   weights: torch.Tensor):
     """Weighted multi-hot bag: out[b] = Σ_s w[b,s]·table[ids[b,s]].

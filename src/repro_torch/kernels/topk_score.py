@@ -17,8 +17,10 @@ from repro_torch.kernels._checks import check, check_cuda
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# Shared memory a block may have on Hopper (bytes).
-MAX_SMEM = 232448
+# Shared memory a block may have on Hopper (bytes), less the kernel's static
+# shared memory (the replay's window of 512 tiles' flags, bounds, first
+# scores and batch plan).
+MAX_SMEM = 232448 - 16384
 # Widest row the kernel scores (its templates cover 1 and 2 vectors of four
 # floats per lane).
 MAX_D = 256
@@ -26,20 +28,36 @@ MAX_D = 256
 
 def _fn():
     fn = _build.load("topk_score").topk_score_pruned
-    fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+    fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
     fn.restype = ctypes.c_int
     return fn
 
 
-def sort_len(k: int, tile: int) -> int:
-    """Power-of-two slot count of the merge sort (≥ k + tile), as the
-    Pallas kernel pads it."""
-    return 1 << max(int(k + tile - 1).bit_length(), 3)
+def _pow2(n: int) -> int:
+    return 1 << max(int(n - 1).bit_length(), 1)
+
+
+# The replay's batch merges gather up to this many entries (the buffer's
+# and the batch's lists'), a power of two; behind the buffer they take
+# twice that, less k (staged lists, gathered entries).
+BATCH_GATHER = 4096
+
+
+def smem_slots(k: int, tile: int) -> int:
+    """(score, index) slots of the kernel's shared memory, the largest of:
+    the replay's top-k buffer and a tile it scores itself (k + the tile's
+    sort, padded to a power of two); the bitonic merge of the buffer with
+    one tile's min(k, tile)-entry list; and, where a batch can gather the
+    buffer and two lists, the batch merge's."""
+    one = _pow2(k + min(k, tile))
+    batch = (2 * BATCH_GATHER if BATCH_GATHER - k >= 2 * min(k, tile)
+             else 0)
+    return max(k + _pow2(tile), one, batch)
 
 
 def check_args(query, cands, block_bounds, k: int, tile: int):
     """Dtype, shape, alignment and sizes the kernel takes →
-    (n_tiles, D, sort_len)."""
+    (n_tiles, D, smem slots)."""
     if cands.dim() != 2:
         raise ValueError("cands must be (N, D)")
     n, d = cands.shape
@@ -58,17 +76,20 @@ def check_args(query, cands, block_bounds, k: int, tile: int):
         raise ValueError(f"D = {d} exceeds the kernel's {MAX_D}")
     if n >= 2**31 - 1:
         raise ValueError(f"N = {n} candidates exceed 32-bit indices")
-    slots = sort_len(k, tile)
+    slots = smem_slots(k, tile)
     if slots * 8 > MAX_SMEM:
-        raise ValueError(f"k + tile = {k + tile} and D = {d} exceed the "
-                         "kernel's shared memory")
+        raise ValueError(f"k = {k} and tile = {tile} exceed the kernel's "
+                         "shared memory")
     return n // tile, d, slots
 
 
 def topk_score_pruned(query: torch.Tensor, cands: torch.Tensor,
                       block_bounds: torch.Tensor, k: int, tile: int):
     """(D,) f32, (N, D) f32, (N/tile,) f32 → (scores (k,) f32, idx (k,)
-    i32, n_tiles_scored () i32), on the card."""
+    i32, n_tiles_scored () i32), on the card. One launch; its workspace
+    (control words, one flag a tile, one list of min(k, tile) entries a
+    tile) is allocated here. ``topk_score_pruned.last_tiles_read`` is then
+    the tiles the launch read, counted or not (a () i32 on the card)."""
     n_tiles, d, slots = check_args(query, cands, block_bounds, k, tile)
     check_cuda(query, cands, block_bounds)
     fn = _fn()
@@ -76,18 +97,22 @@ def topk_score_pruned(query: torch.Tensor, cands: torch.Tensor,
     scores = torch.empty((k,), dtype=torch.float32, device=dev)
     idx = torch.empty((k,), dtype=torch.int32, device=dev)
     cnt = torch.empty((), dtype=torch.int32, device=dev)
+    work = torch.empty((4 + 2 * n_tiles + 2 * n_tiles * min(k, tile),),
+                       dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(query.data_ptr(), cands.data_ptr(), block_bounds.data_ptr(),
-             scores.data_ptr(), idx.data_ptr(), cnt.data_ptr(), n_tiles,
-             tile, d, k, slots, stream)
+             scores.data_ptr(), idx.data_ptr(), cnt.data_ptr(),
+             work.data_ptr(), n_tiles, tile, d, k, slots, stream)
     if err:
         raise RuntimeError(f"topk_score_pruned launch failed: CUDA error "
                            f"{err}")
     topk_score_pruned.launches += 1
+    topk_score_pruned.last_tiles_read = work[2]
     return scores, idx, cnt
 
 
 topk_score_pruned.launches = 0
+topk_score_pruned.last_tiles_read = None
 
 
 def block_bounds_cauchy(query: torch.Tensor, cands: torch.Tensor,

@@ -5,6 +5,8 @@ these are held bit for bit against the JAX package's Pallas kernels (in
 interpret mode) and its jnp oracles. The CUDA kernels themselves run only
 on a card: the ``gpu`` tests hold them against the plain versions there.
 """
+import functools
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -262,8 +264,10 @@ def test_topk_score_pruned_fewer_candidates_than_k():
 def test_topk_score_wrapper_checks():
     q, c = torch.zeros(8), torch.zeros((1024, 8))
     b = torch.zeros(2)
-    assert topk_score.check_args(q, c, b, 100, 512) == (2, 8, 1024)
-    assert topk_score.sort_len(8, 256) == 512
+    assert topk_score.check_args(q, c, b, 100, 512) == (2, 8, 8192)
+    assert topk_score.smem_slots(8, 256) == 8192
+    assert topk_score.smem_slots(4000, 256) == 8192
+    assert topk_score.smem_slots(8191, 8193) == 8191 + 16384
     with pytest.raises(ValueError, match="multiple of tile"):
         topk_score.check_args(q, c, b, 100, 300)
     with pytest.raises(ValueError, match="16-byte"):
@@ -277,6 +281,144 @@ def test_topk_score_wrapper_checks():
                               torch.zeros(2), 10, 32768)
     with pytest.raises(TypeError):
         topk_score.check_args(q.double(), c, b, 100, 512)
+
+
+SPECULATION_CASES = ["cauchy", "unsound", "permuted", "nan_inf", "ties",
+                     "k>tile", "k>N"]
+
+
+def _exact_corpus(rng, n_tiles, tile, D):
+    """Norm-sorted rows and a query on coarse dyadic grids (eighths and
+    quarters of a few bits), so every dot is exact in f32 in any summation
+    order and JAX and PyTorch agree bit for bit; some scores tie."""
+    mags = np.repeat(np.geomspace(4.0, 0.1, n_tiles), tile)
+    c = np.round(rng.standard_normal((n_tiles * tile, D)) * mags[:, None]
+                 * 8) / 8
+    q = np.round(rng.standard_normal(D) * 4) / 4
+    return q.astype(np.float32), c.astype(np.float32)
+
+
+def _speculation_case(name):
+    """(query, cands, bounds, k, tile), numpy f32: sound Cauchy bounds,
+    unsound ones (Cauchy x 0.25; Cauchy permuted across tiles), bounds
+    holding NaN, -inf and inf, exact ties, k > tile and k > N."""
+    rng = np.random.default_rng(11)
+    if name == "ties":
+        q, c, tile, k = _retrieval_case(rng, "ties")
+    elif name == "k>N":
+        tile, k = 8, 64
+        c = rng.integers(-3, 4, (48, 8)).astype(np.float32)
+        q = rng.integers(-3, 4, 8).astype(np.float32)
+    elif name == "k>tile":
+        tile, k = 8, 20
+        q, c = _exact_corpus(rng, 16, tile, 8)
+    else:
+        tile, k = 32, 8
+        q, c = _exact_corpus(rng, 24, tile, 16)
+    b = ops.block_bounds_cauchy(*_t(q, c), tile).numpy()
+    if name == "unsound":
+        b = b * np.float32(0.25)
+    elif name == "permuted":
+        b = b[rng.permutation(len(b))]
+    elif name == "nan_inf":
+        b[[1, 5, 9, 14]] = [np.nan, -np.inf, np.inf, np.nan]
+    elif name == "k>N":
+        b[2] = np.nan
+    return q, c, b.astype(np.float32), k, tile
+
+
+@functools.lru_cache(maxsize=None)
+def _speculation_want(name):
+    """The sequential plain version's and JAX's answers for a case."""
+    q, c, b, k, tile = _speculation_case(name)
+    rs, ri, rn = ref.topk_score_pruned(*_t(q, c, b), k, tile)
+    js, ji, jn = jref.topk_score_pruned_ref(jnp.asarray(q), jnp.asarray(c),
+                                            jnp.asarray(b), k, tile)
+    return ((rs.numpy(), ri.numpy(), int(rn)),
+            (np.asarray(js), np.asarray(ji), int(jn)))
+
+
+@pytest.mark.parametrize("room,probe", [(None, None), (12, 3), (4000, 15)])
+@pytest.mark.parametrize("wave", [1, 2, 3, 7, "all"])
+@pytest.mark.parametrize("case", SPECULATION_CASES)
+def test_topk_score_pruned_speculative_matches_sequential(case, wave, room,
+                                                          probe):
+    """The kernel's schedule (threshold a wave at a time, speculative reads,
+    in-order replay, per-tile lists; one list a merge, or batches of lists
+    of up to 12 or 4000 entries, with lists cut at a probe) gives the
+    sequential answer: count and
+    indices exact, scores rtol 1e-6, against the plain version and JAX's
+    oracle. It reads every tile it counts, and with waves of one tile
+    nothing more."""
+    q, c, b, k, tile = _speculation_case(case)
+    n_tiles = len(b)
+    s, i, n, read = ref.topk_score_pruned_speculative(
+        *_t(q, c, b), k, tile, n_tiles if wave == "all" else wave, room,
+        probe)
+    assert s.dtype == torch.float32 and i.dtype == torch.int32
+    for ws, wi, wn in _speculation_want(case):
+        assert int(n) == wn
+        np.testing.assert_array_equal(i.numpy(), wi)
+        np.testing.assert_allclose(s.numpy(), ws, rtol=1e-6)
+    assert int(n) <= read <= n_tiles
+    if wave == 1:
+        assert read == int(n)
+    if case == "cauchy":
+        assert int(n) < n_tiles, "no tile was pruned"
+    if case == "unsound" and wave == "all":
+        assert read > int(n), "no tile was read speculatively"
+    if case == "k>N":
+        assert (i.numpy()[len(c):] == -1).all()
+        assert np.isneginf(s.numpy()[len(c):]).all()
+
+
+# (n_tiles, tile, k, wave, room, scale, permute, odd, seed)
+SCHEDULE_EDGES = [(12, 7, 24, 6, 20, 0.25, True, True, 44331),
+                  (12, 11, 24, 2, 20, 0.25, True, False, 12582),
+                  (11, 12, 28, 13, 4000, 0.25, False, False, 10986),
+                  (11, 5, 12, 7, 5, 0.25, True, True, 10775)]
+
+
+def _check_schedule(n_tiles, tile, k, wave, room, scale, permute, odd,
+                    seed, probe=None):
+    rng = np.random.default_rng(seed)
+    c = rng.integers(-3, 4, (n_tiles * tile, 4)).astype(np.float32)
+    q = rng.integers(-3, 4, 4).astype(np.float32)
+    b = ops.block_bounds_cauchy(*_t(q, c), tile).numpy() * np.float32(scale)
+    if permute:
+        b = b[rng.permutation(n_tiles)]
+    if odd:
+        b[rng.integers(0, n_tiles, 2)] = rng.choice([np.nan, np.inf,
+                                                     -np.inf], 2)
+    args = (*_t(q, c, b.astype(np.float32)), k, tile)
+    s, i, n, read = ref.topk_score_pruned_speculative(*args, wave, room,
+                                                      probe)
+    rs, ri, rn = ref.topk_score_pruned(*args)
+    assert torch.equal(s, rs) and torch.equal(i, ri) and int(n) == int(rn)
+    assert int(n) <= read <= n_tiles
+
+
+@given(st.integers(1, 12), st.integers(1, 16), st.integers(1, 40),
+       st.integers(1, 13), st.sampled_from([None, 1, 5, 20, 4000]),
+       st.sampled_from([1.0, 0.25, 2.0]), st.booleans(), st.booleans(),
+       st.integers(0, 2**16), st.sampled_from([None, 1, 4, 15]))
+@settings(max_examples=60, deadline=None)
+def test_topk_score_pruned_speculative_property(n_tiles, tile, k, wave, room,
+                                                scale, permute, odd, seed,
+                                                probe):
+    """Any sizes, wave, batch size, probe and bounds (scaled, permuted, with
+    NaN / ±inf): the schedule equals the sequential plain version bit for
+    bit. Integer rows tie often; ties go to the lower index in both."""
+    _check_schedule(n_tiles, tile, k, wave, room, scale, permute, odd, seed,
+                    probe)
+
+
+@pytest.mark.parametrize("args", SCHEDULE_EDGES)
+def test_topk_score_pruned_speculative_edges(args):
+    """Fixed draws of the property test on which a batch's sure-to-hold
+    bound (the buffer's (k - C)-th score) is tight: planned with the
+    buffer's k-th instead, the batch would not hold."""
+    _check_schedule(*args)
 
 
 @pytest.mark.parametrize("V,D,B,S", [(100, 32, 8, 4), (500, 64, 16, 8)])
@@ -522,22 +664,50 @@ def test_cuda_kernels_match_plain_versions(cuda):
 @pytest.mark.gpu
 def test_cuda_topk_score_matches_plain_version(cuda):
     """On the card, at a tile and k of the retrieval path: count and indices
-    exact, scores rtol 1e-5; both bound modes; and the tie case."""
+    exact, scores rtol 1e-5; both bound modes; the tie case; the schedule
+    tests' adversarial bounds; more tiles (4096 of 64 rows at D = 32) than
+    the persistent grid has blocks; k in the thousands; no candidates. A
+    second run is bit-equal to the first, and the kernel reads every tile
+    it counts."""
     rng = np.random.default_rng(6)
     D, tile, k, n_tiles = 256, 512, 100, 64
     mags = np.repeat(np.geomspace(4.0, 0.1, n_tiles), tile)
     c = (rng.standard_normal((n_tiles * tile, D)) * mags[:, None]
          / np.sqrt(D)).astype(np.float32)
     q = rng.standard_normal(D).astype(np.float32)
-    cases = [(q, c, tile, k), _retrieval_case(rng, "ties")]
-    for q, c, tile, k in cases:
+    mags = np.repeat(np.geomspace(4.0, 0.1, 4096), 64)
+    c_many = (rng.standard_normal((4096 * 64, 32)) * mags[:, None]
+              / np.sqrt(32)).astype(np.float32)
+    q_many = rng.standard_normal(32).astype(np.float32)
+    cases = []
+    for q, c, tile, k in [(q, c, tile, k), _retrieval_case(rng, "ties"),
+                          (q_many, c_many, 64, 100)]:
         q, c = (t.to(cuda) for t in _t(q, c))
         cauchy = ops.block_bounds_cauchy(q, c, tile)
-        for b in (cauchy, torch.full_like(cauchy, float("inf"))):
-            s, i, n = ops.topk_score_pruned(q, c, b, k, tile)
-            rs, ri, rn = ops.topk_score_pruned(q, c, b, k, tile, impl="ref")
-            torch.testing.assert_close(s, rs, rtol=1e-5, atol=0)
-            assert torch.equal(i, ri) and int(n) == int(rn)
+        perm = torch.randperm(len(cauchy), device="cpu").to(cuda)
+        cases += [(q, c, b, k, tile) for b in (
+            cauchy, torch.full_like(cauchy, float("inf")), cauchy * 0.25,
+            cauchy[perm])]
+    for name in SPECULATION_CASES:
+        q, c, b, k, tile = _speculation_case(name)
+        cases.append((*(t.to(cuda) for t in _t(q, c, b)), k, tile))
+    # k in the thousands (batch merges of a few lists; none at k = 5000),
+    # and no candidates at all.
+    for k, tile in ((3000, 256), (5000, 512)):
+        q, c = (t.to(cuda) for t in _t(*_exact_corpus(rng, 48, tile, 16)))
+        cases.append((q, c, ops.block_bounds_cauchy(q, c, tile), k, tile))
+    q = torch.zeros(16, device=cuda)
+    cases.append((q, torch.zeros((0, 16), device=cuda),
+                  torch.zeros(0, device=cuda), 10, 8))
+    for q, c, b, k, tile in cases:
+        s, i, n = ops.topk_score_pruned(q, c, b, k, tile)
+        read = int(topk_score.topk_score_pruned.last_tiles_read)
+        s2, i2, n2 = ops.topk_score_pruned(q, c, b, k, tile)
+        rs, ri, rn = ops.topk_score_pruned(q, c, b, k, tile, impl="ref")
+        torch.testing.assert_close(s, rs, rtol=1e-5, atol=0)
+        assert torch.equal(i, ri) and int(n) == int(rn)
+        assert torch.equal(s, s2) and torch.equal(i, i2) and int(n2) == int(n)
+        assert int(n) <= read <= len(b)
 
 
 @pytest.mark.gpu
