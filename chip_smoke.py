@@ -68,7 +68,9 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    ``{"ok": true, "device": {...}}`` last.
 
 It exits non-zero without CUDA and when ``src/repro_torch`` is not beside
-it. It imports nothing of JAX. ``--profile`` adds ``torch.profiler``
+it. It imports nothing of JAX. ``--attention-only`` runs phases 1-2 and
+phase 7's ``flash_attention`` checks and timings, then stops without the
+result line. ``--profile`` adds ``torch.profiler``
 windows (device busy share, time by kernel) over one retrieval query in
 each mode, the serving batches, one LM prefill with 4 decode steps, one
 GAT forward and one specqp pass of the KG path.
@@ -1372,6 +1374,15 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
+    if "--attention-only" in sys.argv[1:]:
+        # Phases 1-2 and phase 7's flash_attention checks and timings
+        # alone, without the model: a quick run while the kernel changes.
+        from repro_torch.configs import gemma2_2b
+        row = check_flash_attention(np, torch, ops, dev, gemma2_2b.config())
+        print(json.dumps(row))
+        print(f"chip_smoke --attention-only took "
+              f"{time.perf_counter() - T_START:.1f} s")
+        return
     rows = check_kernels(np, torch, ops, dev)
     for k in rows.values():
         print(f"{k['name']} ({k['shape']}): kernel {k['ms']:.4f} ms, plain "

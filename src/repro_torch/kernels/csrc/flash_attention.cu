@@ -63,6 +63,18 @@ __device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float tanh_fast(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -153,6 +165,9 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.0f, 0.0f};
   const int qpos0 = off + q0 + r0;
+  constexpr float LOG2E = 1.4426950408889634f;
+  const float c1 = cap > 0.0f ? scale / cap : scale * LOG2E;
+  const float c2 = cap * LOG2E;
 
   for (int kt = t_lo; kt <= t_hi; ++kt) {
     const int k0 = kt * BN;
@@ -190,8 +205,9 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
     for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = s[j][e] * scale;
-        if (cap > 0.0f) x = cap * tanhf(x / cap);
+        // x = log2(e) * logit: the scale and log2(e) in one multiply.
+        const float x0 = s[j][e];
+        float x = cap > 0.0f ? tanh_fast(x0 * c1) * c2 : x0 * c1;
         if (edge) {
           const int key = k0 + j * 8 + tig * 2 + (e & 1);
           const int qpos = qpos0 + (e >> 1) * 8;
@@ -218,7 +234,7 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
       const float m_new = fmaxf(m[r], mx[r]);
       m_safe[r] = m_new == -INFINITY ? 0.0f : m_new;
-      alpha[r] = m[r] == -INFINITY ? 0.0f : __expf(m[r] - m_safe[r]);
+      alpha[r] = m[r] == -INFINITY ? 0.0f : ex2(m[r] - m_safe[r]);
       m[r] = m_new;
     }
     float rs[2] = {0.0f, 0.0f};
@@ -226,7 +242,7 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
     for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        s[j][e] = __expf(s[j][e] - m_safe[e >> 1]);
+        s[j][e] = ex2(s[j][e] - m_safe[e >> 1]);
         rs[e >> 1] += s[j][e];
       }
     }
