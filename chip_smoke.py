@@ -845,40 +845,75 @@ def attn_inputs(torch, gen, dev, B, Hq, Hkv, Sq, Sk, D):
 
 def check_flash_attention(np, torch, ops, dev, cfg):
     """flash_attention against its plain version (f32 math on the same
-    bf16 inputs; rtol / atol 2e-2) at the model's layer shapes and edge
-    cases, with logits of std ATTN_LOGIT_STD; a control shows that the
-    kernel without its softcap lies outside that tolerance. Then timed at
-    B = LM_BATCH beside its bound, the plain version and SDPA. Returns the
-    kernel row (launches filled in later)."""
+    bf16 inputs; rtol / atol 2e-2) at the model's layer shapes and at the
+    kernel's edges, with logits of std ATTN_LOGIT_STD; every case run twice
+    and bit-equal; a control shows that the kernel without its softcap lies
+    outside that tolerance. Then timed at B = LM_BATCH beside its bound,
+    the plain version and SDPA, and at starcoder2-3b's layer shape beside
+    its bound and SDPA. Returns the kernel row (launches filled in
+    later)."""
     import torch.nn.functional as F
+
+    from repro_torch.configs import starcoder2_3b
+    from repro_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 3)
     Hq, Hkv, D, cap = cfg.n_heads, cfg.n_kv, cfg.head_dim, cfg.attn_softcap
     local = max(cfg.window_pattern)
-    cases = [("global", 1, Hq, Hkv, LM_SEQ, LM_SEQ, D, True, 0, cap),
-             ("local", 1, Hq, Hkv, LM_SEQ, LM_SEQ, D, True, local, cap),
-             ("Sq<Sk", 2, Hq, Hkv, 100, 1000, D, True, 0, cap),
-             ("non-causal", 1, Hq, Hkv, 1024, 1024, D, False, 0, None),
-             ("D=128", 1, 24, 2, 2048, 2048, 128, True, 1024, None),
-             ("ragged", 1, Hq, Hkv, 8000, 8000, D, True, local, cap)]
+    bn, bn128 = fa.TILE_N[D], fa.TILE_N[128]
+    # (name, B, Hq, Hkv, Sq, Sk, D, causal, window, softcap, layout); the
+    # layout "bshd" passes (B, S, H, D) activations as the model does.
+    cases = [("global", 1, Hq, Hkv, LM_SEQ, LM_SEQ, D, True, 0, cap, ""),
+             ("local", 1, Hq, Hkv, LM_SEQ, LM_SEQ, D, True, local, cap, ""),
+             ("Sq<Sk", 2, Hq, Hkv, 100, 1000, D, True, 0, cap, ""),
+             ("non-causal", 1, Hq, Hkv, 1024, 1024, D, False, 0, None, ""),
+             ("D=128", 1, 24, 2, 2048, 2048, 128, True, 1024, None, ""),
+             ("ragged", 1, Hq, Hkv, 8000, 8000, D, True, local, cap, ""),
+             ("Sq, Sk off the tiles", 1, Hq, Hkv, 1000, 1234, D, True, 300,
+              cap, ""),
+             ("Sq=1", 2, Hq, Hkv, 1, 777, D, True, 0, cap, ""),
+             ("Sq=17", 1, Hq, Hkv, 17, 500, D, True, 0, cap, ""),
+             ("Sq=17, D=128", 1, 24, 2, 17, 300, 128, True, 0, None, ""),
+             ("Sq>Sk", 1, Hq, Hkv, 700, 300, D, True, 0, cap, ""),
+             ("Sq>Sk, D=128", 1, 4, 2, 500, 129, 128, True, 0, None, ""),
+             *((f"window {w}", 1, Hq, Hkv, 600, 600, D, True, w, cap, "")
+               for w in (1, bn - 1, bn, bn + 1)),
+             *((f"window {w}, D=128", 1, 4, 2, 600, 600, 128, True, w, None,
+                "") for w in (1, bn128 - 1, bn128, bn128 + 1)),
+             ("GQA 1", 1, 4, 4, 700, 700, D, True, 0, cap, ""),
+             ("GQA 12", 1, 24, 2, 700, 700, D, True, 0, cap, ""),
+             ("GQA 12, D=128", 1, 24, 2, 700, 700, 128, True, 0, None, ""),
+             ("(B, S, H, D)", 2, Hq, Hkv, 500, 500, D, True, 0, cap, "bshd"),
+             ("(B, S, H, D), D=128", 2, 24, 2, 500, 500, 128, True, 64, None,
+              "bshd")]
     err = 0.0
-    for name, B, hq, hkv, Sq, Sk, d, causal, win, c in cases:
+    for name, B, hq, hkv, Sq, Sk, d, causal, win, c, layout in cases:
         q, k, v = attn_inputs(torch, gen, dev, B, hq, hkv, Sq, Sk, d)
+        if layout == "bshd":
+            q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                       for t in (q, k, v))
         kw = dict(causal=causal, window=win, softcap=c)
-        got = ops.flash_attention(q, k, v, **kw).float()
+        got = ops.flash_attention(q, k, v, **kw)
+        again = ops.flash_attention(q, k, v, **kw)
         want = ops.flash_attention(q.float(), k.float(), v.float(),
                                    impl="ref", **kw)
         torch.cuda.synchronize()
-        e = float((got - want).abs().max())
-        if not torch.allclose(got, want, rtol=2e-2, atol=2e-2):
-            fail(f"flash_attention ({name}: B={B} Hq={hq} Hkv={hkv} Sq={Sq} "
-                 f"Sk={Sk} D={d} causal={causal} window={win} softcap={c}) "
-                 f"differs from its plain version: max abs err {e:.4g}")
+        shape = (f"B={B} Hq={hq} Hkv={hkv} Sq={Sq} Sk={Sk} D={d} causal="
+                 f"{causal} window={win} softcap={c} {layout}").strip()
+        e = float((got.float() - want).abs().max())
+        if not torch.allclose(got.float(), want, rtol=2e-2, atol=2e-2):
+            fail(f"flash_attention ({name}: {shape}) differs from its plain "
+                 f"version: max abs err {e:.4g}")
+        if not torch.equal(got, again):
+            fail(f"flash_attention ({name}: {shape}): two runs differ")
+        if Sq > Sk and got[:, :, :Sq - Sk].abs().max() != 0:
+            fail(f"flash_attention ({name}): a row with no visible key is "
+                 f"not exactly 0")
         err = max(err, e)
-        print(f"flash_attention {name} (B={B} Hq={hq} Hkv={hkv} Sq={Sq} "
-              f"Sk={Sk} D={d} causal={causal} window={win} softcap={c}): "
-              f"within rtol/atol 2e-2 of plain (max abs err {e:.4g})")
+        print(f"flash_attention {name} ({shape}): within rtol/atol 2e-2 of "
+              f"plain (max abs err {e:.4g}), two runs bit-equal"
+              + (", rows with no key exactly 0" if Sq > Sk else ""))
         if name == "global":
             # Control: a kernel that dropped the softcap would fail above.
             nocap = ops.flash_attention(q, k, v, causal=causal,
@@ -893,7 +928,7 @@ def check_flash_attention(np, torch, ops, dev, cfg):
                   f"outside rtol/atol 2e-2 of the softcapped plain version "
                   f"(max abs err {e:.4g})")
             del nocap
-        del q, k, v, got, want
+        del q, k, v, got, again, want
 
     B, S = LM_BATCH, LM_SEQ
     q, k, v = attn_inputs(torch, gen, dev, B, Hq, Hkv, S, S, D)
@@ -909,12 +944,35 @@ def check_flash_attention(np, torch, ops, dev, cfg):
         torch.cuda.empty_cache()
     nocap_ms = cuda_ms(torch, lambda: ops.flash_attention(q, k, v),
                        blocks=5, per_block=2)
-    try:
-        library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), blocks=5, per_block=2)
-    except RuntimeError as e:      # no SDPA backend for these inputs
-        print(f"scaled_dot_product_attention refused the inputs: {e}")
-        library_ms = None
+
+    def sdpa(q, k, v):
+        try:
+            return cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), blocks=5,
+                per_block=2)
+        except RuntimeError as e:      # no SDPA backend for these inputs
+            print(f"scaled_dot_product_attention refused the inputs: {e}")
+            return None
+    library_ms = sdpa(q, k, v)
+    del q, k, v
+    # starcoder2-3b's layer: 24 / 2 heads of 128, window 4096.
+    sc = starcoder2_3b.config()
+    sq, sk, sv = attn_inputs(torch, gen, dev, B, sc.n_heads, sc.n_kv, S, S,
+                             sc.head_dim)
+    swin = max(sc.window_pattern)
+    d128 = dict(
+        ms=cuda_ms(torch, lambda: ops.flash_attention(sq, sk, sv,
+                                                      window=swin),
+                   blocks=5, per_block=2),
+        bound=attn_bound(B, sc.n_heads, sc.n_kv, S, S, sc.head_dim, True,
+                         swin),
+        global_ms=cuda_ms(torch, lambda: ops.flash_attention(sq, sk, sv),
+                          blocks=5, per_block=2),
+        global_bound=attn_bound(B, sc.n_heads, sc.n_kv, S, S, sc.head_dim,
+                                True, 0),
+        library_ms=sdpa(sq, sk, sv))
+    del sq, sk, sv
+    torch.cuda.empty_cache()
     # A masked slot's features are never read: NaN there must not reach
     # the output (the plain version, as the reference, gives NaN).
     logits = torch.randn((130, 56), generator=gen, device=dev) * 3.0
@@ -936,6 +994,14 @@ def check_flash_attention(np, torch, ops, dev, cfg):
     print(f"flash_attention global layer without softcap: kernel "
           f"{nocap_ms:.4f} ms; scaled_dot_product_attention(is_causal, "
           f"enable_gqa) {library_ms} ms")
+    b, gb = d128["bound"], d128["global_bound"]
+    print(f"flash_attention {sc.name} layer (B={B} Hq={sc.n_heads} Hkv="
+          f"{sc.n_kv} S={S} D={sc.head_dim} window={swin}): kernel "
+          f"{d128['ms']:.4f} ms, bound {b[0]:.4f} ms ({b[1]}), "
+          f"{100 * b[0] / d128['ms']:.1f} % of the bound's rate; without "
+          f"window: kernel {d128['global_ms']:.4f} ms, bound {gb[0]:.4f} ms, "
+          f"{100 * gb[0] / d128['global_ms']:.1f} %, "
+          f"scaled_dot_product_attention {d128['library_ms']} ms")
     g, lo = times["global"], times["local"]
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -946,8 +1012,13 @@ def check_flash_attention(np, torch, ops, dev, cfg):
                 library_vs="the kernel without softcap, nocap_ms",
                 nocap_ms=nocap_ms, local_ms=lo["ms"],
                 local_plain_ms=lo["plain_ms"], local_bound_ms=lo["bound"][0],
+                d128_local_ms=d128["ms"], d128_local_bound_ms=b[0],
+                d128_global_ms=d128["global_ms"],
+                d128_global_bound_ms=gb[0],
+                d128_library_ms=d128["library_ms"],
                 shape=f"B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} softcap={cap}, "
-                      f"global layer")
+                      f"global layer; d128_*: {sc.name}'s layer, B={B} "
+                      f"Hq={sc.n_heads} Hkv={sc.n_kv} S={S} D={sc.head_dim}")
 
 
 def lm_path(np, torch, ops, dev, prof: bool = False):
@@ -1371,7 +1442,7 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f} s")
     for name, log in sorted(_build.build_log.items()):
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "serialized")):
                 print(f"  ptxas {name}: {line.strip()}")
 
     if "--attention-only" in sys.argv[1:]:

@@ -13,54 +13,170 @@
 // What bounds it on an H100: operations, at prefill lengths. Each visible
 // (q, k) pair costs 4 * D flops per head (q.k and p.v), 1,024 at D = 256,
 // against 989 TFLOP/s of bf16 tensor cores; the bytes (q, k, v read once,
-// o written once) take far less time than that at S = 8192.
+// o written once) take far less time than that at S = 8192. Beside the
+// tensor cores, each pair costs one ex2 (and one tanh with the softcap) on
+// the 16-a-clock special-function unit: half the tensor cores' time at
+// D = 256, so it has to run while they do.
 //
 // Design. The TPU kernel's grid was (B, Hq, Sq/tq, Sk/tk) with the key
-// axis sequential and (m, l, acc) in VMEM. Here one block of 4 warps owns
-// 64 query rows of one (b, h); a loop inside the block walks only the
-// 64-key tiles of the live causal / window band (the TPU kernel's
-// block-level test), so a window-W layer does O(S * W) work. Each warp
-// owns 16 rows: q.k^T and p.v run on the tensor cores as mma.sync
-// m16n8k16 (bf16 in, f32 accumulate); the running max m, the partial sums
-// l and the (16, D) accumulator stay in registers, in f32, with the TPU
-// kernel's m_safe / alpha handling of -inf and the final division by
-// max(l, 1e-30). Q, K and V tiles sit in shared memory with rows padded by
-// 8 elements (conflict-free fragment loads); K and V arrive by cp.async in
-// two groups, so V's copy overlaps q.k^T. Tiles that straddle the band's
-// edge or the ragged end of the keys are masked per element; rows past Sq
-// are computed and not stored. Query tiles are scheduled last-first, so
-// the longest causal rows start first. The layout comes in through element
-// strides: the model passes (B, S, H, D) activations without a transpose.
-// Not done yet: wgmma, TMA, a ring of tiles and warp specialisation.
+// axis sequential and (m, l, acc) in VMEM. Here a block of three
+// warpgroups owns BM = 128 query rows of one (b, h) and walks, in order,
+// the BN-key tiles of the live causal / window band (the TPU kernel's
+// block-level test), so a window-W layer does O(S * W) work:
+// - warpgroup 0 is the producer: one thread loads Q once and then K and V
+//   tile by tile with TMA (4-D tensor maps over (D, S, H, B) built from
+//   the caller's strides, 128-byte swizzle, rows past S zero-filled) into
+//   a ring of STAGES K and STAGES V buffers, each with a full and an empty
+//   mbarrier;
+// - warpgroups 1 and 2 are consumers of 64 rows each (setmaxnreg moves
+//   registers from the producer to them). Each visits only the tiles of
+//   its own rows' band. S = Q.K^T is a wgmma with both operands K-major
+//   in shared memory; O += P.V a wgmma with P from registers (S's
+//   accumulator fragments rounded to bf16 are the A fragments as they
+//   are) and V MN-major in shared memory. The next tile's Q.K^T and this
+//   tile's P.V are issued before the softmax of the next tile, so the
+//   exp / tanh work runs while the tensor cores do (and the two consumer
+//   warpgroups interleave their products and softmaxes on the SM).
+// The softmax works in the log2 domain: scale * log2(e) (or cap * log2 e
+// after tanh.approx of s * scale / cap) is folded into the one multiply
+// before ex2.approx. The running max m, the partial sums l and the
+// (64, D) accumulator stay in registers, in f32, with the TPU kernel's
+// m_safe / alpha handling of -inf and the final division by
+// max(l, 1e-30). Tiles that straddle the band's edge or the ragged end of
+// the keys are masked per element; rows past Sq are computed and not
+// stored. Query tiles are scheduled last-first, so the longest causal
+// rows start first. kernels/ref.py's flash_attention_tiles lists the tiles
+// visited and flash_attention_blocked models the arithmetic.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BM = 64;       // query rows per block
-constexpr int BN = 64;       // keys per tile
-constexpr int WARPS = 4;     // 16 query rows each
-constexpr int THREADS = WARPS * 32;
+constexpr int BM = 128;             // query rows per block
+constexpr int WG_ROWS = 64;         // query rows per consumer warpgroup
+constexpr int THREADS = 3 * 128;    // producer + 2 consumer warpgroups
+constexpr int STAGES = 2;           // K and V buffers each
+constexpr int CONSUMER_WARPS = 8;   // arrivals on an empty barrier
+constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_bytes));
+// Keys per tile. At D = 256 a consumer thread holds the (64, 256) f32
+// accumulator (128 registers), S (BN / 2) and P (BN / 4): 80 fits in 240
+// registers and the ring (Q 64 KB + 2 x 2 x 40 KB) in 227 KB. D = 128
+// has room for 128.
+template <int D>
+struct Tile;
+template <>
+struct Tile<128> {
+  static constexpr int BN = 128;
+};
+template <>
+struct Tile<256> {
+  static constexpr int BN = 80;
+};
+
+// Shared memory, in bytes from a 1024-aligned base. A tile of R rows is
+// D / 64 column chunks of R rows x 128 bytes (64 bf16), each as TMA's
+// 128-byte swizzle lays it out: 8-row atoms of 1024 bytes.
+template <int D>
+struct Layout {
+  static constexpr int BN = Tile<D>::BN;
+  static constexpr int CHUNKS = D / 64;
+  static constexpr int Q_CHUNK = BM * 128;
+  static constexpr int KV_CHUNK = BN * 128;
+  static constexpr int KV_TILE = CHUNKS * KV_CHUNK;
+  static constexpr int Q = 0;
+  static constexpr int K = Q + CHUNKS * Q_CHUNK;
+  static constexpr int V = K + STAGES * KV_TILE;
+  static constexpr int BAR = V + STAGES * KV_TILE;  // q_full, then per stage
+  static constexpr int BYTES = BAR + 8 * (1 + 4 * STAGES) + 1024;
+  static_assert(KV_CHUNK % 1024 == 0, "tiles must hold whole swizzle atoms");
+  static_assert(BYTES <= 232448, "more shared memory than a block has");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of a 4-D tensor map into shared memory; completes on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (in 16-byte units), layout 1.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// Orders the compiler's uses of a register after the wgmma wait before it.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -80,251 +196,489 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col).
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
+#define F4(a, i) "+f"(a[i]), "+f"(a[i + 1]), "+f"(a[i + 2]), "+f"(a[i + 3])
+#define F8(a, i) F4(a, i), F4(a, i + 4)
+#define F32(a, i) F8(a, i), F8(a, i + 8), F8(a, i + 16), F8(a, i + 24)
+#define F40(a) F32(a, 0), F8(a, 32)
+#define F64(a) F32(a, 0), F32(a, 32)
+#define F128(a) F32(a, 0), F32(a, 32), F32(a, 64), F32(a, 96)
+
+// d (64 x 80 f32) = a (64 x 16) * b (16 x 80), + d where acc is nonzero;
+// a and b in shared memory, K-major.
+__device__ __forceinline__ void wgmma_ss80(float (&d)[40], uint64_t da,
+                                          uint64_t db, int acc) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39}, %40, %41, p, 1, 1, 0, 0;\n}\n"
+      : F40(d)
+      : "l"(da), "l"(db), "r"(acc));
 }
 
-// Four 8x8 bf16 matrices from shared memory, transposed on the way.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
-                                                  const __nv_bfloat16* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+// d (64 x 128 f32) = a (64 x 16) * b (16 x 128), + d where acc is nonzero;
+// a and b in shared memory, K-major.
+__device__ __forceinline__ void wgmma_ss128(float (&d)[64], uint64_t da,
+                                          uint64_t db, int acc) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : F64(d)
+      : "l"(da), "l"(db), "r"(acc));
 }
 
-// rows x D tile of a (rows, D) slab at `src` (row stride `rs` elements)
-// into shared memory (row stride D + 8); rows >= n_valid are zero-filled.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          int64_t rs, int row0, int n_valid) {
-  constexpr int LD = D + 8;
-  constexpr int VPR = D / 8;  // 16-byte vectors per row
-#pragma unroll
-  for (int i = threadIdx.x; i < ROWS * VPR; i += THREADS) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    const int gr = row0 + r;
-    const bool ok = gr < n_valid;
-    cp_async16(dst + r * LD + c, src + (ok ? gr : 0) * rs + c, ok ? 16 : 0);
+// d (64 x 128 f32) += a (64 x 16, registers) * b (16 x 128, shared memory,
+// MN-major).
+__device__ __forceinline__ void wgmma_rs128(float (&d)[64],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : F64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 256 f32) += a (64 x 16, registers) * b (16 x 256, shared memory,
+// MN-major).
+__device__ __forceinline__ void wgmma_rs256(float (&d)[128],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "
+      "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : F128(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// The key tiles [lo, hi] that query rows [r0, r1) of one (b, h) see (the
+// TPU kernel's block test, :42-46); hi < lo when they see none.
+template <int BN>
+__device__ __forceinline__ void band(int r0, int r1, int Sq, int Sk,
+                                     int causal, int window, int& lo,
+                                     int& hi) {
+  r1 = min(r1, Sq);
+  const int off = Sk - Sq;
+  const int k_lo = window > 0 ? max(0, off + r0 - window + 1) : 0;
+  const int k_hi = causal ? min(Sk - 1, off + r1 - 1) : Sk - 1;
+  if (r0 >= r1 || k_hi < k_lo) {
+    lo = 0;
+    hi = -1;
+  } else {
+    lo = k_lo / BN;
+    hi = k_hi / BN;
   }
 }
 
+// s = Q.K^T for the warpgroup's 64 rows and one tile: D / 16 wgmmas that
+// step 32 bytes through each 128-byte swizzle row, then to the next chunk.
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
-                       const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v,
+__device__ __forceinline__ void issue_qk(float (&s)[Tile<D>::BN / 2],
+                                         uint32_t qs, uint32_t ks) {
+  using L = Layout<D>;
+  uint64_t da = sw128_desc(qs, 16, 1024), db = sw128_desc(ks, 16, 1024);
+  // Built anew for every tile: held across the loop, the D / 16 pairs of
+  // descriptors would take registers that the accumulators need.
+  asm volatile("" : "+l"(da), "+l"(db));
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    // The start address is the descriptor's low field, in 16-byte units.
+    const uint64_t a = da + (((kk / 4) * L::Q_CHUNK + (kk % 4) * 32) >> 4);
+    const uint64_t b = db + (((kk / 4) * L::KV_CHUNK + (kk % 4) * 32) >> 4);
+    if constexpr (L::BN == 80)
+      wgmma_ss80(s, a, b, kk > 0);
+    else
+      wgmma_ss128(s, a, b, kk > 0);
+  }
+}
+
+// acc += P.V: BN / 16 wgmmas, each 16 keys (two 8-row atoms, 1024 bytes
+// apart) by all D columns (64-column chunks KV_CHUNK bytes apart).
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
+                                         const uint32_t (&p)[Tile<D>::BN /
+                                                             16][4],
+                                         uint32_t vs) {
+  using L = Layout<D>;
+  uint64_t db = sw128_desc(vs, L::KV_CHUNK, 1024);
+  asm volatile("" : "+l"(db));
+#pragma unroll
+  for (int kk = 0; kk < L::BN / 16; ++kk) {
+    const uint64_t b = db + ((kk * 16 * 128) >> 4);
+    if constexpr (D == 256)
+      wgmma_rs256(acc, p[kk], b);
+    else
+      wgmma_rs128(acc, p[kk], b);
+  }
+}
+
+// One tile's online softmax on S's accumulator fragments: element i of a
+// thread is key 8 * (i / 4) + kcol + (i & 1) of the tile and row
+// qpos0 + 8 * ((i >> 1) & 1). Leaves p = 2^(x - m) in s, the rescale of
+// the earlier tiles in alpha, and m and the thread's partial sums l
+// updated; x = log2(e) * logit, as cexp * (tanh(mul * s) or s).
+template <int BN, bool CAP>
+__device__ __forceinline__ void softmax_tile(float (&s)[BN / 2], float (&m)[2],
+                                             float (&l)[2], float (&alpha)[2],
+                                             bool edge, int k0, int kcol,
+                                             int qpos0, int Sk, int causal,
+                                             int window, float mul,
+                                             float cexp) {
+  if (CAP) {
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) s[i] = tanh_fast(s[i] * mul);
+  }
+  if (edge) {
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) {
+      const int key = k0 + 8 * (i / 4) + kcol + (i & 1);
+      const int qpos = qpos0 + 8 * ((i >> 1) & 1);
+      if (key >= Sk || (causal && key > qpos) ||
+          (window > 0 && key <= qpos - window))
+        s[i] = -INFINITY;
+    }
+  }
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i)
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+  float ms[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    ms[r] = mx[r] == -INFINITY ? 0.0f : mx[r] * cexp;   // m_safe
+    alpha[r] = ex2(fmaf(m[r], cexp, -ms[r]));           // 0 from m = -inf
+    m[r] = mx[r];
+  }
+  float rs[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) {
+    s[i] = ex2(fmaf(s[i], cexp, -ms[(i >> 1) & 1]));
+    rs[(i >> 1) & 1] += s[i];
+  }
+  l[0] = l[0] * alpha[0] + rs[0];
+  l[1] = l[1] * alpha[1] + rs[1];
+}
+
+// p rounded to bf16: S's accumulator fragments of keys 16 kk .. 16 kk + 15
+// are the A fragment of the kk-th P.V wgmma as they are.
+template <int BN>
+__device__ __forceinline__ void pack_p(uint32_t (&p)[BN / 16][4],
+                                       const float (&s)[BN / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      p[kk][j] = pack_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
+}
+
+template <int D, bool CAP>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
                        __nv_bfloat16* __restrict__ o, int Sq, int Sk,
-                       int group, int64_t qsb, int64_t qsh, int64_t qss,
-                       int64_t ksb, int64_t ksh, int64_t kss, int64_t vsb,
-                       int64_t vsh, int64_t vss, int64_t osb, int64_t osh,
-                       int64_t oss, float scale, int causal, int window,
-                       float cap) {
-  constexpr int LD = D + 8;
-  constexpr int NT = D / 8;  // accumulator n-tiles
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ks = Qs + BM * LD;
-  __nv_bfloat16* Vs = Ks + BN * LD;
+                       int group, int64_t osb, int64_t osh, int64_t oss,
+                       float mul, float cexp, int causal, int window) {
+  using L = Layout<D>;
+  constexpr int BN = L::BN;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_full = base + L::BAR;
+  const uint32_t k_full = q_full + 8, k_empty = k_full + 8 * STAGES;
+  const uint32_t v_full = k_empty + 8 * STAGES;
+  const uint32_t v_empty = v_full + 8 * STAGES;
 
   const int nq = (Sq + BM - 1) / BM;
   const int q0 = (nq - 1 - static_cast<int>(blockIdx.x)) * BM;
   const int h = blockIdx.y, b = blockIdx.z, hk = h / group;
-  const __nv_bfloat16* qb = q + b * qsb + h * qsh;
-  const __nv_bfloat16* kb = k + b * ksb + hk * ksh;
-  const __nv_bfloat16* vb = v + b * vsb + hk * vsh;
+  // Each consumer's band, and the block's: their union.
+  int lo0, hi0, lo1, hi1;
+  band<BN>(q0, q0 + WG_ROWS, Sq, Sk, causal, window, lo0, hi0);
+  band<BN>(q0 + WG_ROWS, q0 + BM, Sq, Sk, causal, window, lo1, hi1);
+  const int t_lo = hi0 >= lo0 ? lo0 : lo1;
+  const int t_hi = hi1 >= lo1 ? hi1 : hi0;
+  // The warpgroup, broadcast from lane 0 so that the compiler sees it
+  // (and the loop bounds drawn from it) uniform across the warp.
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128,
+                             0);
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, tig = lane % 4;
-  const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
-
-  load_tile<D, BM>(Qs, qb, qss, q0, Sq);
-  cp_async_commit();
-
-  // The live key band of this block's rows (TPU kernel :42-46).
-  const int off = Sk - Sq;
-  const int pos_lo = off + q0;
-  const int pos_hi = off + min(q0 + BM, Sq) - 1;
-  const int k_lo = window > 0 ? max(0, pos_lo - window + 1) : 0;
-  const int k_hi = causal ? min(Sk - 1, pos_hi) : Sk - 1;
-  const int t_lo = k_lo / BN;
-  const int t_hi = k_hi >= k_lo ? k_hi / BN : t_lo - 1;
-
-  float acc[NT][4];
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
 #pragma unroll
-  for (int t = 0; t < NT; ++t)
-    acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.0f;
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.0f, 0.0f};
-  const int qpos0 = off + q0 + r0;
-  constexpr float LOG2E = 1.4426950408889634f;
-  const float c1 = cap > 0.0f ? scale / cap : scale * LOG2E;
-  const float c2 = cap * LOG2E;
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(k_full + 8 * st, 1);
+      mbar_init(v_full + 8 * st, 1);
+      mbar_init(k_empty + 8 * st, CONSUMER_WARPS);
+      mbar_init(v_empty + 8 * st, CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  for (int kt = t_lo; kt <= t_hi; ++kt) {
-    const int k0 = kt * BN;
-    __syncthreads();  // the previous tile's K and V are no longer read
-    load_tile<D, BN>(Ks, kb, kss, k0, Sk);
-    cp_async_commit();
-    load_tile<D, BN>(Vs, vb, vss, k0, Sk);
-    cp_async_commit();
-    cp_async_wait<1>();  // Q and K have landed
-    __syncthreads();
-
-    // s = q . k^T for this warp's 16 rows and the tile's 64 keys.
-    float s[BN / 8][4];
+  if (wg == 0) {
+    // Producer: Q once, then K_t and V_t in tile order through the ring.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0 && t_lo <= t_hi) {
+      mbar_expect_tx(q_full, BM * D * 2);
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+      for (int c = 0; c < L::CHUNKS; ++c)
+        tma_load(base + L::Q + c * L::Q_CHUNK, &tq, q_full, 64 * c, q0, h,
+                 b);
+      for (int t = t_lo; t <= t_hi; ++t) {
+        const int i = t - t_lo, st = i % STAGES, ph = (i / STAGES) & 1;
+        mbar_wait(k_empty + 8 * st, ph ^ 1);
+        mbar_expect_tx(k_full + 8 * st, L::KV_TILE);
 #pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-      uint32_t a[4];
-      const __nv_bfloat16* qa = Qs + r0 * LD + kc * 16 + tig * 2;
-      a[0] = lds32(qa);
-      a[1] = lds32(qa + 8 * LD);
-      a[2] = lds32(qa + 8);
-      a[3] = lds32(qa + 8 * LD + 8);
+        for (int c = 0; c < L::CHUNKS; ++c)
+          tma_load(base + L::K + st * L::KV_TILE + c * L::KV_CHUNK, &tk,
+                   k_full + 8 * st, 64 * c, t * BN, hk, b);
+        mbar_wait(v_empty + 8 * st, ph ^ 1);
+        mbar_expect_tx(v_full + 8 * st, L::KV_TILE);
 #pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        const __nv_bfloat16* kp = Ks + (j * 8 + g) * LD + kc * 16 + tig * 2;
-        mma_bf16(s[j], a, lds32(kp), lds32(kp + 8));
+        for (int c = 0; c < L::CHUNKS; ++c)
+          tma_load(base + L::V + st * L::KV_TILE + c * L::KV_CHUNK, &tv,
+                   v_full + 8 * st, 64 * c, t * BN, hk, b);
       }
     }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int w = wg - 1;
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int row0 = q0 + w * WG_ROWS, rend = min(row0 + WG_ROWS, Sq);
+    const int off = Sk - Sq;
+    const int qpos0 = off + row0 + 16 * warp + lane / 4;  // and qpos0 + 8
+    const int kcol = 2 * (lane % 4);
+    const uint32_t qs = base + L::Q + w * WG_ROWS * 128;
+    // This warpgroup's tiles [a, z]; the block's others are only released.
+    int a = w == 0 ? lo0 : lo1, z = w == 0 ? hi0 : hi1;
+    if (z < a) {
+      a = t_hi + 1;
+      z = t_hi;
+    }
+    // The tile meets the band's edge or the ragged end: mask per element.
+    auto edge = [&](int k0) {
+      return k0 + BN > Sk || (causal && k0 + BN - 1 > off + row0) ||
+             (window > 0 && k0 <= off + rend - 1 - window);
+    };
+    float acc[D / 2], s[BN / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) s[i] = 0.0f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f}, alpha[2];
+    uint32_t p[BN / 16][4];
 
-    // Scale, softcap, mask (only where the tile meets an edge of the band).
-    const bool edge = (k0 + BN > Sk) || (causal && k0 + BN - 1 > pos_lo) ||
-                      (window > 0 && k0 <= off + q0 + BM - 1 - window);
+    for (int t = t_lo; t < a; ++t) {
+      const int i = t - t_lo, st = i % STAGES, ph = (i / STAGES) & 1;
+      mbar_wait(k_full + 8 * st, ph);
+      if (lane == 0) mbar_arrive(k_empty + 8 * st);
+      mbar_wait(v_full + 8 * st, ph);
+      if (lane == 0) mbar_arrive(v_empty + 8 * st);
+    }
+    if (a <= z) {
+      mbar_wait(q_full, 0);
+      {  // The first tile: q.k^T, softmax.
+        const int i = a - t_lo, st = i % STAGES, ph = (i / STAGES) & 1;
+        mbar_wait(k_full + 8 * st, ph);
+        wgmma_fence();
+        issue_qk<D>(s, qs, base + L::K + st * L::KV_TILE);
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(s);
+        if (lane == 0) mbar_arrive(k_empty + 8 * st);
+        softmax_tile<BN, CAP>(s, m, l, alpha, edge(a * BN), a * BN, kcol,
+                              qpos0, Sk, causal, window, mul, cexp);
+        pack_p<BN>(p, s);
+      }
+      for (int t = a + 1; t <= z; ++t) {
+        // This tile's q.k^T, then the previous tile's p.v, which runs
+        // under this tile's softmax.
+        const int i = t - t_lo, st = i % STAGES, ph = (i / STAGES) & 1;
+        const int sp = (i - 1) % STAGES, pp = ((i - 1) / STAGES) & 1;
+        mbar_wait(k_full + 8 * st, ph);
+        wgmma_fence();
+        issue_qk<D>(s, qs, base + L::K + st * L::KV_TILE);
+        wgmma_commit();
+        mbar_wait(v_full + 8 * sp, pp);
+        issue_pv<D>(acc, p, base + L::V + sp * L::KV_TILE);
+        wgmma_commit();
+        wgmma_wait<1>();
+        reg_fence(s);
+        if (lane == 0) mbar_arrive(k_empty + 8 * st);
+        softmax_tile<BN, CAP>(s, m, l, alpha, edge(t * BN), t * BN, kcol,
+                              qpos0, Sk, causal, window, mul, cexp);
+        wgmma_wait<0>();
+        reg_fence(acc);
+        reg_fence(p);
+        if (lane == 0) mbar_arrive(v_empty + 8 * sp);
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        // x = log2(e) * logit: the scale and log2(e) in one multiply.
-        const float x0 = s[j][e];
-        float x = cap > 0.0f ? tanh_fast(x0 * c1) * c2 : x0 * c1;
-        if (edge) {
-          const int key = k0 + j * 8 + tig * 2 + (e & 1);
-          const int qpos = qpos0 + (e >> 1) * 8;
-          const bool ok = key < Sk && (!causal || key <= qpos) &&
-                          (window <= 0 || key > qpos - window);
-          if (!ok) x = -INFINITY;
+        for (int j = 0; j < D / 8; ++j) {
+          acc[4 * j] *= alpha[0];
+          acc[4 * j + 1] *= alpha[0];
+          acc[4 * j + 2] *= alpha[1];
+          acc[4 * j + 3] *= alpha[1];
         }
-        s[j][e] = x;
+        pack_p<BN>(p, s);
       }
+      // The last tile's p.v.
+      const int i = z - t_lo, st = i % STAGES, ph = (i / STAGES) & 1;
+      mbar_wait(v_full + 8 * st, ph);
+      wgmma_fence();
+      issue_pv<D>(acc, p, base + L::V + st * L::KV_TILE);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(acc);
+      if (lane == 0) mbar_arrive(v_empty + 8 * st);
+    }
+    for (int t = z + 1; t <= t_hi; ++t) {
+      const int i = t - t_lo, st = i % STAGES, ph = (i / STAGES) & 1;
+      mbar_wait(k_full + 8 * st, ph);
+      if (lane == 0) mbar_arrive(k_empty + 8 * st);
+      mbar_wait(v_full + 8 * st, ph);
+      if (lane == 0) mbar_arrive(v_empty + 8 * st);
     }
 
-    // Online softmax, rows r0 (e = 0, 1) and r0 + 8 (e = 2, 3); the four
-    // threads of a row group share each row.
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
-    }
-    float m_safe[2], alpha[2];
+    // out = acc / max(l, 1e-30), rows below Sq only.
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      m_safe[r] = m_new == -INFINITY ? 0.0f : m_new;
-      alpha[r] = m[r] == -INFINITY ? 0.0f : ex2(m[r] - m_safe[r]);
-      m[r] = m_new;
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      l[r] = 1.0f / fmaxf(l[r], 1e-30f);
     }
-    float rs[2] = {0.0f, 0.0f};
+    __nv_bfloat16* ob = o + b * osb + h * osh;
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 16 * warp + lane / 4 + 8 * r;
+      if (row >= rend) continue;
+      __nv_bfloat16* orow = ob + row * oss + kcol;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = ex2(s[j][e] - m_safe[e >> 1]);
-        rs[e >> 1] += s[j][e];
-      }
-    }
-    l[0] = l[0] * alpha[0] + rs[0];
-    l[1] = l[1] * alpha[1] + rs[1];
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      acc[t][0] *= alpha[0];
-      acc[t][1] *= alpha[0];
-      acc[t][2] *= alpha[1];
-      acc[t][3] *= alpha[1];
-    }
-
-    cp_async_wait<0>();  // V has landed
-    __syncthreads();
-
-    // acc += p . v; p's accumulator fragments are the A operand as they are.
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const __nv_bfloat16* vrow =
-          Vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-          (lane >> 4) * 8;
-#pragma unroll
-      for (int dt = 0; dt < D / 16; ++dt) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, vrow + dt * 16);
-        mma_bf16(acc[2 * dt], pa, bv[0], bv[1]);
-        mma_bf16(acc[2 * dt + 1], pa, bv[2], bv[3]);
-      }
-    }
-  }
-  cp_async_wait<0>();  // Q's copy, where the band held no tile
-
-  // out = acc / max(l, 1e-30), rows below Sq only.
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    l[r] = 1.0f / fmaxf(l[r], 1e-30f);
-  }
-  __nv_bfloat16* ob = o + b * osb + h * osh;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + r0 + r * 8;
-    if (row >= Sq) continue;
-    __nv_bfloat16* orow = ob + row * oss + tig * 2;
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      *reinterpret_cast<uint32_t*>(orow + t * 8) =
-          pack_bf16(acc[t][2 * r] * l[r], acc[t][2 * r + 1] * l[r]);
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+            pack_bf16(acc[4 * j + 2 * r] * l[r], acc[4 * j + 2 * r + 1] * l[r]);
     }
   }
 }
 
-template <int D>
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, through the runtime (no -lcuda).
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A 4-D map over (D, S, H, B) bf16 with element strides st = (batch, head,
+// seq), boxes of 64 columns x `rows` rows, 128-byte swizzle, rows past S
+// read as zeros. A stride of an axis of length 1 is never used; it is
+// replaced by a valid one.
+bool make_map(CUtensorMap* map, const void* ptr, int D, int S, int H, int B,
+              const long long* st, int rows) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t ss = S > 1 ? st[2] * 2 : D * 2;
+  const cuuint64_t sh = H > 1 ? st[1] * 2 : ss * S;
+  const cuuint64_t sb = B > 1 ? st[0] * 2 : sh * H;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {ss, sh, sb};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D, bool CAP>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Hq, int Hkv, int Sq, int Sk, const long long* st, float scale,
            int causal, int window, float cap, cudaStream_t stream) {
-  const int smem = (BM + 2 * BN) * (D + 8) * 2;
+  using L = Layout<D>;
+  CUtensorMap tq, tk, tv;
+  // With no keys no tile is loaded: the maps only need to be valid.
+  const int Skm = Sk > 0 ? Sk : 1;
+  if (!make_map(&tq, q, D, Sq, Hq, B, st, BM) ||
+      !make_map(&tk, k, D, Skm, Hkv, B, st + 3, L::BN) ||
+      !make_map(&tv, v, D, Skm, Hkv, B, st + 6, L::BN))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_attention_kernel<D, CAP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const float mul = CAP ? scale / cap : 0.0f;
+  const float cexp = (CAP ? cap : scale) * LOG2E;
   const dim3 grid((Sq + BM - 1) / BM, Hq, B);
-  flash_attention_kernel<D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      Sq, Sk, Hq / Hkv, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-      st[7], st[8], st[9], st[10], st[11], scale, causal, window, cap);
+  flash_attention_kernel<D, CAP><<<grid, THREADS, L::BYTES, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq, Sk, Hq / Hkv, st[9],
+      st[10], st[11], mul, cexp, causal, window);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_d(const void* q, const void* k, const void* v, void* o, int B,
+             int Hq, int Hkv, int Sq, int Sk, const long long* st,
+             float scale, int causal, int window, float cap,
+             cudaStream_t stream) {
+  return cap > 0.0f
+             ? launch<D, true>(q, k, v, o, B, Hq, Hkv, Sq, Sk, st, scale,
+                               causal, window, cap, stream)
+             : launch<D, false>(q, k, v, o, B, Hq, Hkv, Sq, Sk, st, scale,
+                                causal, window, cap, stream);
 }
 
 }  // namespace
 
 // strides: 12 element strides, (batch, head, seq) of q, k, v and o in that
-// order; the last axis of each is contiguous.
+// order; the last axis of each is contiguous, every stride a multiple of 8
+// and every start 16-byte aligned (TMA's rules).
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* o, int B, int Hq,
                                     int Hkv, int Sq, int Sk, int D,
@@ -337,11 +691,11 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 128:
-      return launch<128>(q, k, v, o, B, Hq, Hkv, Sq, Sk, strides, scale,
-                         causal, window, cap, s);
+      return launch_d<128>(q, k, v, o, B, Hq, Hkv, Sq, Sk, strides, scale,
+                           causal, window, cap, s);
     case 256:
-      return launch<256>(q, k, v, o, B, Hq, Hkv, Sq, Sk, strides, scale,
-                         causal, window, cap, s);
+      return launch_d<256>(q, k, v, o, B, Hq, Hkv, Sq, Sk, strides, scale,
+                           causal, window, cap, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

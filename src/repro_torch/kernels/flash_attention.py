@@ -20,6 +20,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 HEAD_DIMS = (128, 256)
+# Keys per tile by head_dim and query rows per consumer warpgroup, as
+# csrc/flash_attention.cu sets them (Tile<D>, WG_ROWS): the tests and
+# chip_smoke.py place their edge cases with them.
+TILE_N = {128: 128, 256: 80}
+WARPGROUP_ROWS = 64
 
 
 def _fn():

@@ -305,3 +305,93 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(logits.masked_fill_(~m, float("-inf")), dim=-1)
     p = p.nan_to_num_(nan=0.0)
     return torch.einsum("bhqk,bhkd->bhqd", p, vv).to(dt)
+
+
+def flash_attention_tiles(Sq: int, Sk: int, causal: bool, window: int,
+                          BM: int, BN: int) -> list[tuple[int, int, bool]]:
+    """The (q-tile, k-tile, masked) triples the CUDA ``flash_attention``
+    visits, in its order: q-tiles of BM rows (one consumer warpgroup's),
+    each walking the BN-key tiles of its rows' causal / window band
+    (``band`` in ``csrc/flash_attention.cu``); ``masked`` is the kernel's
+    ``edge``: the tile meets the band's edge or the ragged end of the keys.
+    Used by the tests, never on the main path."""
+    off = Sk - Sq
+    out = []
+    for qt in range(-(-Sq // BM)):
+        r0, r1 = qt * BM, min(qt * BM + BM, Sq)
+        k_lo = max(0, off + r0 - window + 1) if window > 0 else 0
+        k_hi = min(Sk - 1, off + r1 - 1) if causal else Sk - 1
+        if k_hi < k_lo:
+            continue
+        for kt in range(k_lo // BN, k_hi // BN + 1):
+            k0 = kt * BN
+            edge = (k0 + BN > Sk or (causal and k0 + BN - 1 > off + r0)
+                    or (window > 0 and k0 <= off + r1 - 1 - window))
+            out.append((qt, kt, edge))
+    return out
+
+
+def flash_attention_blocked(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool = True,
+                            window: int | None = None,
+                            softcap: float | None = None,
+                            scale: float | None = None, BM: int = 64,
+                            BN: int = 80) -> torch.Tensor:
+    """A plain model of the CUDA ``flash_attention``'s arithmetic, same
+    arguments as ``flash_attention``: the tiles of ``flash_attention_tiles``
+    in order, logits in the log2 domain (cexp · tanh(mul · s) with the
+    softcap, cexp · s without, cexp folding log2 e), the online max and
+    rescale per tile with the m_safe / alpha handling of -inf, p rounded to
+    bf16 before p·v, each tile's p·v added before the next tile's rescale,
+    and the division by max(l, 1e-30). Used by the tests, never on the
+    main path."""
+    B, Hq, Sq, D = q.shape
+    Sk = k.shape[2]
+    g = Hq // k.shape[1]
+    scale = D ** -0.5 if scale is None else scale
+    log2e = 1.4426950408889634
+    mul = scale / softcap if softcap else 0.0
+    cexp = (softcap if softcap else scale) * log2e
+    win = int(window or 0)
+    kk = k.float().repeat_interleave(g, dim=1)
+    vv = v.float().repeat_interleave(g, dim=1)
+    out = torch.zeros(q.shape, dtype=torch.float32)
+    keys = torch.arange(BN)
+    tiles: dict[int, list] = {}
+    for qt, kt, edge in flash_attention_tiles(Sq, Sk, causal, win, BM, BN):
+        tiles.setdefault(qt, []).append((kt, edge))
+    for qt, visits in tiles.items():
+        rows = slice(qt * BM, min(qt * BM + BM, Sq))
+        qb = q[:, :, rows].float()
+        qpos = Sk - Sq + torch.arange(rows.start, rows.stop)
+        m = torch.full(qb.shape[:3], float("-inf"))
+        l = torch.zeros(qb.shape[:3])
+        acc = torch.zeros(qb.shape)
+        pending = None                      # the previous tile's (p, v)
+        for kt, edge in visits:
+            ks = slice(kt * BN, min(kt * BN + BN, Sk))
+            x = qb @ kk[:, :, ks].transpose(-1, -2)
+            if softcap:
+                x = torch.tanh(x * mul)
+            if edge:
+                key = kt * BN + keys[:ks.stop - ks.start]
+                ok = torch.ones((len(qpos), len(key)), dtype=torch.bool)
+                if causal:
+                    ok &= key[None, :] <= qpos[:, None]
+                if win:
+                    ok &= key[None, :] > qpos[:, None] - win
+                x = x.masked_fill(~ok, float("-inf"))
+            mx = torch.maximum(m, x.amax(-1))
+            ms = torch.where(mx == float("-inf"), 0.0, mx * cexp)
+            alpha = torch.exp2(m * cexp - ms)
+            p = torch.exp2(x * cexp - ms[..., None])
+            l = l * alpha + p.sum(-1)
+            if pending is not None:
+                acc = acc + pending[0] @ pending[1]
+            acc = acc * alpha[..., None]
+            m = mx
+            pending = (p.to(torch.bfloat16).float(), vv[:, :, ks])
+        if pending is not None:
+            acc = acc + pending[0] @ pending[1]
+        out[:, :, rows] = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.to(q.dtype)

@@ -736,30 +736,50 @@ def test_cuda_flash_attention_matches_plain_version(cuda):
     """On the card, bf16: the kernel against its plain version (f32 math)
     within rtol / atol 2e-2 — GQA with window and softcap, Sq < Sk, a
     ragged length, non-causal, head_dim 128 and 256, and (B, S, H, D)
-    activations passed through their strides."""
+    activations passed through their strides; at the kernel's edges: Sq
+    and Sk off its tiles, Sq of 1 and 17, Sq > Sk (rows with no visible
+    key exactly 0), windows of 1 and a tile's keys ± 1, GQA groups of 1,
+    2 and 12; every case run twice and bit-equal."""
     rng = np.random.default_rng(13)
+    bn = flash_attention.TILE_N
     cases = [(2, 8, 4, 300, 300, 256, True, 128, 50.0),
              (1, 8, 4, 70, 333, 256, True, None, None),
              (1, 4, 2, 200, 200, 128, False, None, 30.0),
-             (1, 4, 1, 129, 129, 128, True, 64, None)]
+             (1, 4, 1, 129, 129, 128, True, 64, None),
+             (1, 8, 4, 1000, 1234, 256, True, 300, 50.0),
+             (2, 8, 4, 1, 777, 256, True, None, 50.0),
+             (1, 24, 2, 17, 300, 128, True, None, None),
+             (1, 8, 4, 700, 300, 256, True, None, 50.0),
+             (1, 4, 2, 500, 129, 128, True, None, None),
+             (1, 4, 4, 700, 700, 256, True, None, 50.0),
+             (1, 24, 2, 700, 700, 256, True, None, 50.0),
+             (1, 24, 2, 700, 700, 128, True, None, None)]
+    cases += [(1, 8, 4, 600, 600, D, True, w, 50.0)
+              for D in (128, 256) for w in (1, bn[D] - 1, bn[D], bn[D] + 1)]
     for B, Hq, Hkv, Sq, Sk, D, causal, win, cap in cases:
         q, k, v = (t.to(cuda) for t in _t(*_flash_case(
             rng, B, Hq, Hkv, Sq, Sk, D, np.float32)))
         q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
         kw = dict(causal=causal, window=win, softcap=cap)
+        got = ops.flash_attention(q, k, v, **kw)
         torch.testing.assert_close(
-            ops.flash_attention(q, k, v, **kw).float(),
+            got.float(),
             ops.flash_attention(q, k, v, impl="ref", **kw).float(),
             rtol=2e-2, atol=2e-2)
-    q = torch.randn((2, 96, 8, 256), device=cuda, dtype=torch.bfloat16)
-    kv = torch.randn((2, 96, 4, 256), device=cuda, dtype=torch.bfloat16)
-    out = ops.flash_attention(q.transpose(1, 2), kv.transpose(1, 2),
-                              kv.transpose(1, 2), softcap=50.0)
-    assert out.transpose(1, 2).is_contiguous()
-    torch.testing.assert_close(
-        out.float(), ops.flash_attention(
-            q.transpose(1, 2), kv.transpose(1, 2), kv.transpose(1, 2),
-            softcap=50.0, impl="ref").float(), rtol=2e-2, atol=2e-2)
+        assert torch.equal(got, ops.flash_attention(q, k, v, **kw))
+        if Sq > Sk:
+            assert torch.equal(got[:, :, :Sq - Sk],
+                               torch.zeros_like(got[:, :, :Sq - Sk]))
+    for D in (256, 128):
+        q = torch.randn((2, 96, 8, D), device=cuda, dtype=torch.bfloat16)
+        kv = torch.randn((2, 96, 4, D), device=cuda, dtype=torch.bfloat16)
+        out = ops.flash_attention(q.transpose(1, 2), kv.transpose(1, 2),
+                                  kv.transpose(1, 2), softcap=50.0)
+        assert out.transpose(1, 2).is_contiguous()
+        torch.testing.assert_close(
+            out.float(), ops.flash_attention(
+                q.transpose(1, 2), kv.transpose(1, 2), kv.transpose(1, 2),
+                softcap=50.0, impl="ref").float(), rtol=2e-2, atol=2e-2)
     # Logits of std 25 at D = 256, which the softcap of 50 bends hard: the
     # kernel agrees with the softcapped plain version, and the kernel
     # without softcap does not (so the check above can see the softcap).
