@@ -496,13 +496,15 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f}, alpha[2];
     uint32_t p[BN / 16][4];
 
-    for (int t = t_lo; t < a; ++t) {
+    // A tile of the block outside this warpgroup's band: released unread.
+    auto skip = [&](int t) {
       const int i = t - t_lo, st = i % STAGES, ph = (i / STAGES) & 1;
       mbar_wait(k_full + 8 * st, ph);
       if (lane == 0) mbar_arrive(k_empty + 8 * st);
       mbar_wait(v_full + 8 * st, ph);
       if (lane == 0) mbar_arrive(v_empty + 8 * st);
-    }
+    };
+    for (int t = t_lo; t < a; ++t) skip(t);
     if (a <= z) {
       mbar_wait(q_full, 0);
       {  // The first tile: q.k^T, softmax.
@@ -558,13 +560,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
       reg_fence(acc);
       if (lane == 0) mbar_arrive(v_empty + 8 * st);
     }
-    for (int t = z + 1; t <= t_hi; ++t) {
-      const int i = t - t_lo, st = i % STAGES, ph = (i / STAGES) & 1;
-      mbar_wait(k_full + 8 * st, ph);
-      if (lane == 0) mbar_arrive(k_empty + 8 * st);
-      mbar_wait(v_full + 8 * st, ph);
-      if (lane == 0) mbar_arrive(v_empty + 8 * st);
-    }
+    for (int t = z + 1; t <= t_hi; ++t) skip(t);
 
     // out = acc / max(l, 1e-30), rows below Sq only.
 #pragma unroll

@@ -122,7 +122,8 @@ def _check_blocked(seed, B, Hq, Hkv, Sq, Sk, D, causal, window, cap, BN):
     (2, 2, 1, 100, 333, 256, True, 0, 50.0, 80),
     (1, 4, 4, 200, 200, 128, False, 0, None, 128),
     (1, 24, 2, 150, 150, 128, True, 64, None, 128),
-    (1, 2, 1, 17, 17, 128, True, 1, 50.0, 128)])
+    (1, 2, 1, 17, 17, 128, True, 1, 50.0, 128),
+    (1, 2, 1, 16, 1, 64, True, 0, None, 80)])       # one key, 15 rows see none
 def test_flash_attention_blocked_matches_jax(B, Hq, Hkv, Sq, Sk, D, causal,
                                              window, cap, BN):
     _check_blocked(5, B, Hq, Hkv, Sq, Sk, D, causal, window, cap, BN)
@@ -131,7 +132,7 @@ def test_flash_attention_blocked_matches_jax(B, Hq, Hkv, Sq, Sk, D, causal,
 @given(st.integers(1, 200), st.integers(1, 200), st.booleans(),
        st.sampled_from(WINDOWS), st.integers(1, 200),
        st.sampled_from(TILE_BN), st.booleans(), st.integers(0, 2**31 - 1))
-@settings(max_examples=20, deadline=None)
+@settings(max_examples=6, deadline=None)
 def test_flash_attention_blocked_property(Sq, Sk, causal, wkind, wdrawn, BN,
                                           cap, seed):
     _check_blocked(seed, 1, 2, 1, Sq, Sk, 64, causal,
