@@ -44,9 +44,11 @@
 // m_safe / alpha handling of -inf and the final division by
 // max(l, 1e-30). Tiles that straddle the band's edge or the ragged end of
 // the keys are masked per element; rows past Sq are computed and not
-// stored. Query tiles are scheduled last-first, so the longest causal
-// rows start first. kernels/ref.py's flash_attention_tiles lists the tiles
-// visited and flash_attention_blocked models the arithmetic.
+// stored. Blocks are numbered longest first across every (b, h): the
+// last query tile of each head and batch, then the one before, so that
+// the longest causal rows start first and no long block starts last.
+// kernels/ref.py's flash_attention_tiles lists the tiles visited and
+// flash_attention_blocked models the arithmetic.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -405,8 +407,9 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
                        __nv_bfloat16* __restrict__ o, int Sq, int Sk,
-                       int group, int64_t osb, int64_t osh, int64_t oss,
-                       float mul, float cexp, int causal, int window) {
+                       int Hq, int group, int64_t osb, int64_t osh,
+                       int64_t oss, float mul, float cexp, int causal,
+                       int window) {
   using L = Layout<D>;
   constexpr int BN = L::BN;
   extern __shared__ unsigned char smem_raw[];
@@ -417,8 +420,10 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
   const uint32_t v_empty = v_full + 8 * STAGES;
 
   const int nq = (Sq + BM - 1) / BM;
-  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x)) * BM;
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / group;
+  const int nhb = static_cast<int>(gridDim.x) / nq;  // Hq * B
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x) / nhb) * BM;
+  const int hb = static_cast<int>(blockIdx.x) % nhb;
+  const int h = hb % Hq, b = hb / Hq, hk = h / group;
   // Each consumer's band, and the block's: their union.
   int lo0, hi0, lo1, hi1;
   band<BN>(q0, q0 + WG_ROWS, Sq, Sk, causal, window, lo0, hi0);
@@ -651,10 +656,10 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   if (err != cudaSuccess) return static_cast<int>(err);
   const float mul = CAP ? scale / cap : 0.0f;
   const float cexp = (CAP ? cap : scale) * LOG2E;
-  const dim3 grid((Sq + BM - 1) / BM, Hq, B);
+  const dim3 grid((Sq + BM - 1) / BM * Hq * B);
   flash_attention_kernel<D, CAP><<<grid, THREADS, L::BYTES, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq, Sk, Hq / Hkv, st[9],
-      st[10], st[11], mul, cexp, causal, window);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq, Sk, Hq, Hq / Hkv,
+      st[9], st[10], st[11], mul, cexp, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -682,7 +687,8 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     int causal, int window, float cap,
                                     void* stream) {
   if (B <= 0 || Sq <= 0) return 0;
-  if (Hkv <= 0 || Hq % Hkv || B > 65535 || Hq > 65535)
+  if (Hkv <= 0 || Hq % Hkv || B > 65535 || Hq > 65535 ||
+      static_cast<long long>((Sq + BM - 1) / BM) * Hq * B > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
