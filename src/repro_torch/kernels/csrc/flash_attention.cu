@@ -595,7 +595,7 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
                                  CUtensorMapFloatOOBfill);
 
-// The driver's cuTensorMapEncodeTiled, through the runtime (no -lcuda).
+// cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda).
 EncodeTiled encoder() {
   static EncodeTiled fn = nullptr;
   if (fn == nullptr) {
