@@ -8,9 +8,17 @@ Phases, each of which fails loudly (non-zero exit, no result line):
 1. print the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc;
 3. hold the KG kernels against their plain PyTorch versions on the card,
-   at the shapes the KG path gives them (bit-equal), and time kernel,
-   plain version and, where one exists, a single PyTorch call computing
-   the same function (CUDA events, median);
+   at the shapes the KG path gives them, each case run twice (bit-equal
+   to plain and between runs): ``rank_join_lookup`` on empty, partial,
+   full and wrapped rings, with duplicate and all-PAD probes, and with
+   duplicate live ring keys (found equal, scores within rtol 1e-6);
+   ``merge_topk`` on unsorted coarse-grid windows, on the KG path's own
+   windows (the kg-specqp lists through ``operators.block_windows``) and on
+   those with a third of their rows shuffled. Time each kernel's device
+   time (calls captured in a CUDA graph, replays timed with CUDA events,
+   median) beside its per-call time (back-to-back calls), its plain
+   version, its bound, an empty kernel's launch timed alike, and for
+   ``merge_topk`` ``torch.topk`` timed both ways;
 4. drive the KG path at the kg-specqp geometry (``configs/kg_specqp``):
    a 32-query xkg workload with lists of 8192 items, planned by PLANGEN
    and served through ``BatchExecutor`` (continuous refill, 8 lanes) in
@@ -70,7 +78,8 @@ Phases, each of which fails loudly (non-zero exit, no result line):
 It exits non-zero without CUDA and when ``src/repro_torch`` is not beside
 it. It imports nothing of JAX. ``--attention-only`` runs phases 1-2 and
 phase 7's ``flash_attention`` checks and timings, then stops without the
-result line. ``--profile`` adds ``torch.profiler``
+result line; ``--kg-only`` runs phases 1-3 and stops the same way.
+``--profile`` adds ``torch.profiler``
 windows (device busy share, time by kernel) over one retrieval query in
 each mode, the serving batches, one LM prefill with 4 decode steps, one
 GAT forward and one specqp pass of the KG path.
@@ -188,28 +197,149 @@ def lookup_inputs(np, torch, rng, G, N, B, dev):
     return [torch.from_numpy(a).to(dev) for a in (keys, scores, probes, cnt)]
 
 
+def graph_ms(torch, fn, blocks: int = 15, per_block: int = 20) -> float:
+    """Device time of one call in ms: ``per_block`` calls captured in a CUDA
+    graph, its replays timed with CUDA events (median). The host's work per
+    call (argument checks, allocation, the launch itself) is not in it, so
+    a kernel of a few microseconds is timed, not the host's issue rate."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_block):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(blocks):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / per_block)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def empty_launch_ms(torch) -> float:
+    """Device time of an empty kernel launched as ``graph_ms`` launches."""
+    import ctypes
+    from repro_torch.kernels import _build
+
+    fn = _build.load("empty").empty_launch
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return graph_ms(torch, lambda: fn(torch.cuda.current_stream().cuda_stream))
+
+
+def engine_windows(np, torch, dev, rng, block: int):
+    """(LANES, R1, block) windows as the KG path's pull gives them: the
+    kg-specqp workload's source lists, weight-scaled, each lane's stream
+    cut at random cursors by ``operators.block_windows``."""
+    from repro_torch.configs import kg_specqp
+    from repro_torch.core import operators
+    from repro_torch.data import kg_synth
+
+    wl = kg_synth.make_workload("xkg", list_len=kg_specqp.L_SHARD,
+                                n_queries=N_QUERIES,
+                                n_relax=kg_specqp.N_RELAX, seed=SEED,
+                                device=dev)
+    pids = torch.stack([torch.as_tensor(np.asarray(q)) for q in
+                        wl.queries[:LANES]]).to(dev)
+    mask = torch.ones(pids.shape + (wl.relax.ids.shape[1],), dtype=torch.bool,
+                      device=dev)
+    streams = operators.gather_streams(wl.store, wl.relax, pids, mask)
+    lane = torch.arange(LANES, device=dev)
+    keys, scores = streams.keys[lane, 0], streams.scores[lane, 0]
+    lengths = streams.lengths[lane, 0]
+    cursors = (torch.from_numpy(rng.random(lengths.shape)).to(dev)
+               * lengths * 1.2).long().clamp(max=lengths)
+    # Lane 0 near every list's end: fewer than `block` items are left, so
+    # the pull takes -inf padding.
+    cursors[0] = (lengths[0] - 20).clamp(min=0)
+    return operators.block_windows(keys, scores, lengths, cursors, block)
+
+
+def same(torch, a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
 def check_kernels(np, torch, ops, dev):
-    """Phase 3: each kernel vs its plain version at main-path shapes."""
+    """Phase 3: each KG kernel vs its plain version at main-path shapes,
+    every case run twice; device times (CUDA graph), per-call times
+    (back-to-back calls), bounds and the empty-launch floor."""
     rng = np.random.default_rng(SEED)
     rows = {}
+    floor_ms = empty_launch_ms(torch)
+    print(f"empty kernel launch: {floor_ms:.4f} ms of device time (graph "
+          f"replay), the floor under every launch")
 
-    # rank_join_lookup: lanes × (1 + T) rings at T = 4, then a ring length
-    # that is not a multiple of the kernel's 2048-slot tile.
-    for G, N, B in ((LANES * 5, 16384, 256), (LANES, 5000, 256)):
-        args = lookup_inputs(np, torch, rng, G, N, B, dev)
-        ks, kf = ops.rank_join_lookup(*args)
-        rs, rf = ops.rank_join_lookup(*args, impl="ref")
+    def lookup_case(label, args, unique=True):
+        got = ops.rank_join_lookup(*args)
+        again = ops.rank_join_lookup(*args)
+        want = ops.rank_join_lookup(*args, impl="ref")
         torch.cuda.synchronize()
-        if not (torch.equal(ks, rs) and torch.equal(kf, rf)):
-            fail(f"rank_join_lookup differs from its plain version at "
-                 f"G={G} N={N} B={B}")
+        twice = same(torch, got, again)
+        if unique:
+            if not (same(torch, got, want) and twice):
+                fail(f"rank_join_lookup {label}: differs from its plain "
+                     f"version or between two runs")
+            print(f"rank_join_lookup {label}: bit-equal to plain, twice")
+            return got, want
+        close = torch.allclose(got[0], want[0], rtol=1e-6, atol=0.0)
+        if not (torch.equal(got[1], want[1]) and close):
+            fail(f"rank_join_lookup {label}: found differs or scores beyond "
+                 f"rtol 1e-6 of its plain version")
+        print(f"rank_join_lookup {label}: found equal to plain, scores "
+              f"within rtol 1e-6 (max abs err "
+              f"{float((got[0] - want[0]).abs().max()):.3g}); two runs "
+              f"bit-equal: {twice}")
+        return got, want
+
+    # rank_join_lookup: lanes × (1 + T) rings at T = 4, then ring lengths
+    # that are not a multiple of the kernel's chunks (5000) and not even of
+    # its 16-byte loads (5001: every load is a 4-byte one).
+    for G, N, B in ((LANES * 5, 16384, 256), (LANES, 5000, 256),
+                    (LANES, 5001, 256)):
+        args = lookup_inputs(np, torch, rng, G, N, B, dev)
+        shape = f"G={G} N={N} B={B}"
+        (ks, kf), (rs, _) = lookup_case(shape, args)
         if not kf.any():
             fail("rank_join_lookup test data found nothing")
-        err = float((ks - rs).abs().max())
-        print(f"rank_join_lookup G={G} N={N} B={B}: bit-equal to plain")
+        keys, scores, probes, cnt = args
+        dup = probes.clone()
+        dup[:, B // 2:B // 2 + B // 4] = dup[:, :B // 4]
+        lookup_case(f"{shape}, duplicate probe keys",
+                    (keys, scores, dup, cnt))
+        lookup_case(f"{shape}, every probe PAD",
+                    (keys, scores, torch.full_like(probes, -1), cnt))
+        # Four live slots of every ring take the key of another live one.
+        dkeys = keys.clone()
+        live = cnt.clamp(min=1, max=N).long()
+        src = (torch.from_numpy(rng.random((G, 4))).to(dev) * live[:, None]
+               ).long()
+        dst = (torch.from_numpy(rng.random((G, 4))).to(dev) * live[:, None]
+               ).long()
+        dkeys.scatter_(1, dst, dkeys.gather(1, src))
+        dprobes = probes.clone()
+        dprobes[:, :4] = dkeys.gather(1, src)
+        pos = torch.arange(N, device=dev)
+        valid = (dkeys != -1) & (pos[None, :] < cnt[:, None])
+        multi = int(((dprobes[:, :4, None] == dkeys[:, None, :])
+                     & valid[:, None, :]).sum(-1).ge(2).sum())
+        if not multi:
+            fail("rank_join_lookup: no probe matches a duplicated live key")
+        lookup_case(f"{shape}, duplicate live ring keys ({multi} probes "
+                    f"match two or more live slots)",
+                    (dkeys, scores, dprobes, cnt), unique=False)
         if N == 16384:
-            keys, scores, probes, cnt = args
-            live = cnt.clamp(max=N).long()
+            live = cnt.clamp(min=0, max=N).long()
             nonpad = (probes != -1).sum(-1)
             compares = int((live * nonpad).sum())
             nbytes = int(live.sum()) * 8 + G * B * 4 + G * 4 + G * B * 5
@@ -217,48 +347,91 @@ def check_kernels(np, torch, ops, dev):
                 name="rank_join_lookup", route="cuda",
                 source="src/repro_torch/kernels/csrc/rank_join.cu",
                 replaces="src/repro/kernels/rank_join.py:48",
-                max_abs_err=err,
-                ms=cuda_ms(torch, lambda: ops.rank_join_lookup(*args)),
+                max_abs_err=float((ks - rs).abs().max()),
+                ms=graph_ms(torch, lambda: ops.rank_join_lookup(*args)),
+                call_ms=cuda_ms(torch, lambda: ops.rank_join_lookup(*args)),
                 plain_ms=cuda_ms(torch, lambda: ops.rank_join_lookup(
                     *args, impl="ref"), blocks=5, per_block=2),
-                bound_ms=1e3 * max(nbytes / HBM_BYTES_PER_S,
-                                   compares / FP32_OPS_PER_S),
-                bound_by=("bytes" if nbytes / HBM_BYTES_PER_S >
-                          compares / FP32_OPS_PER_S else "operations"),
-                library_ms=None, shape=f"G={G} N={N} B={B}")
+                bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes",
+                compare_bound_ms=1e3 * compares / FP32_OPS_PER_S,
+                floor_ms=floor_ms, library_ms=None, shape=shape)
+            # Device time by ring fill: every ring empty (the clusters
+            # leave at once), 4 live slots (table and barriers, no
+            # stream), and every ring full.
+            fills = {label: torch.full_like(cnt, fill) for label, fill in
+                     (("empty", 0), ("4 slots", 4), ("full", N))}
+            rows["rank_join_lookup"]["by_fill_ms"] = {
+                label: graph_ms(torch, lambda: ops.rank_join_lookup(
+                    keys, scores, probes, c_)) for label, c_ in fills.items()}
 
-    # merge_topk: one group per lane, R1 = 11 windows of W = block = 256,
-    # scores on a coarse grid (many ties) with -inf tails.
+    # merge_topk: one group per lane, R1 = 11 windows of W = block = 256:
+    # scores on a coarse grid (many ties, every row out of order) with
+    # -inf tails; the KG path's own windows (sorted rows); and those with a
+    # third of their rows shuffled.
     G, R, W, block = LANES, 11, 256, 256
     wk = torch.from_numpy(rng.integers(0, 20000, (G, R, W)).astype(
         np.int32)).to(dev)
     ws_np = (rng.integers(0, 64, (G, R, W)) / 64.0).astype(np.float32)
     ws_np[:, 3:, -40:] = -np.inf
     ws = torch.from_numpy(ws_np).to(dev)
-    got = ops.merge_topk(wk, ws, block)
-    want = ops.merge_topk(wk, ws, block, impl="ref")
-    torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(got, want)):
-        fail("merge_topk differs from its plain version")
-    flat_s = ws.view(G, -1)
+    ek, es = engine_windows(np, torch, dev, rng, block)
+    if tuple(ek.shape) != (G, R, W):
+        fail(f"engine windows of shape {tuple(ek.shape)}, not {(G, R, W)}")
+    mixed = es.clone()
+    for g in range(G):
+        for r in rng.choice(R, R // 3, replace=False):
+            mixed[g, r] = mixed[g, r, torch.randperm(
+                W, generator=torch.Generator().manual_seed(int(g * R + r)))]
+    cases = {"unsorted": (wk, ws), "engine": (ek, es), "mixed": (ek, mixed)}
+    for label, (k_, s_) in cases.items():
+        rows_in_order = int((s_[..., :-1] >= s_[..., 1:]).all(-1).sum())
+        got = ops.merge_topk(k_, s_, block)
+        again = ops.merge_topk(k_, s_, block)
+        want = ops.merge_topk(k_, s_, block, impl="ref")
+        torch.cuda.synchronize()
+        if not (same(torch, got, want) and same(torch, got, again)):
+            fail(f"merge_topk {label} windows differ from the plain version "
+                 f"or between two runs")
+        print(f"merge_topk G={G} R={R} W={W} block={block}, {label} windows "
+              f"({rows_in_order} of {G * R} rows in order, "
+              f"{int(torch.isinf(got[1]).sum())} -inf taken): bit-equal to "
+              f"plain, twice")
     n = R * W
     nbytes = G * n * 8 + G * block * 12
     compares = G * n * math.ceil(math.log2(block))
-    print(f"merge_topk G={G} R={R} W={W} block={block}: bit-equal to plain")
+    t_unsorted = graph_ms(torch, lambda: ops.merge_topk(wk, ws, block))
     rows["merge_topk"] = dict(
         name="merge_topk", route="cuda",
         source="src/repro_torch/kernels/csrc/merge_topk.cu",
         replaces="src/repro/kernels/merge_topk.py:30", max_abs_err=float(
             (got[1] - want[1]).nan_to_num(0.0, 0.0, 0.0).abs().max()),
-        ms=cuda_ms(torch, lambda: ops.merge_topk(wk, ws, block)),
-        plain_ms=cuda_ms(torch, lambda: ops.merge_topk(wk, ws, block,
+        ms=graph_ms(torch, lambda: ops.merge_topk(ek, es, block)),
+        unsorted_ms=t_unsorted,
+        call_ms=cuda_ms(torch, lambda: ops.merge_topk(ek, es, block)),
+        plain_ms=cuda_ms(torch, lambda: ops.merge_topk(ek, es, block,
                                                        impl="ref")),
         bound_ms=1e3 * max(nbytes / HBM_BYTES_PER_S,
                            compares / FP32_OPS_PER_S),
         bound_by=("bytes" if nbytes / HBM_BYTES_PER_S >
                   compares / FP32_OPS_PER_S else "operations"),
-        library_ms=cuda_ms(torch, lambda: torch.topk(flat_s, block, dim=-1)),
-        shape=f"G={G} R={R} W={W} block={block}")
+        library_ms=graph_ms(torch, lambda: torch.topk(es.view(G, -1), block,
+                                                      dim=-1)),
+        library_call_ms=cuda_ms(torch, lambda: torch.topk(es.view(G, -1),
+                                                          block, dim=-1)),
+        floor_ms=floor_ms, shape=f"G={G} R={R} W={W} block={block}")
+    for k in rows.values():
+        lib = ("" if k["library_ms"] is None else
+               f", torch.topk {k['library_ms']:.4f} ms (per call "
+               f"{k['library_call_ms']:.4f})")
+        extra = (f", old compare bound {k['compare_bound_ms']:.5f} ms; "
+                 f"by ring fill " + ", ".join(
+                     f"{f} {t:.4f} ms" for f, t in k["by_fill_ms"].items())
+                 if "compare_bound_ms" in k else
+                 f", unsorted windows {k['unsorted_ms']:.4f} ms")
+        print(f"{k['name']} ({k['shape']}): device {k['ms']:.4f} ms, per "
+              f"call {k['call_ms']:.4f} ms, plain {k['plain_ms']:.4f} ms"
+              f"{lib}, bound {k['bound_ms']:.5f} ms ({k['bound_by']}), "
+              f"empty launch {k['floor_ms']:.4f} ms{extra}")
     return rows
 
 
@@ -389,11 +562,12 @@ def main_path(np, torch, dev):
     return launches, report, (wl, queries, bcfg)
 
 
-def profile_window(torch, label: str, fn) -> None:
+def profile_window(torch, label: str, fn) -> list:
     """``fn`` under torch.profiler: the device's busy share of the wall
     time and the device time by kernel. Only device-side events count: a
     CPU-side op's self device time is that of the kernels it launched,
-    which the trace also holds as events of their own."""
+    which the trace also holds as events of their own. Returns (name, ms,
+    calls) of every device event."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -414,12 +588,13 @@ def profile_window(torch, label: str, fn) -> None:
     if not events:
         print(f"profile ({label}): the trace holds no device time (not "
               "measured)")
-        return
+        return []
     print(f"profile ({label}, {wall:.4f} s wall under the profiler): "
           f"device busy {busy:.4f} s = {100 * busy / wall:.2f} % of wall")
     for e in sorted(events, key=dev_us, reverse=True)[:15]:
         print(f"  {dev_us(e) / 1e3:10.3f} ms  {e.count:7d} calls  "
               f"{e.key[:90]}")
+    return [(e.key, dev_us(e) / 1e3, e.count) for e in events]
 
 
 def profile_main_path(np, torch, dev, wl, queries, bcfg) -> None:
@@ -429,7 +604,12 @@ def profile_main_path(np, torch, dev, wl, queries, bcfg) -> None:
 
     ex = batching.BatchExecutor(wl.store, wl.relax, kg_specqp.ENGINE,
                                 "specqp", bcfg, device=dev)
-    profile_window(torch, "specqp pass", lambda: ex.run(queries))
+    events = profile_window(torch, "specqp pass", lambda: ex.run(queries))
+    for kernel in ("rank_join_lookup_kernel", "merge_topk_kernel"):
+        ms = sum(t for key, t, _ in events if kernel in key)
+        calls = sum(n for key, _, n in events if kernel in key)
+        print(f"profile (specqp pass): {kernel} {ms:.3f} ms of device time "
+              f"over {calls} launches")
 
 
 def bound(nbytes: float, ops_count: float) -> tuple[float, str]:
@@ -1455,11 +1635,13 @@ def main() -> None:
               f"{time.perf_counter() - T_START:.1f} s")
         return
     rows = check_kernels(np, torch, ops, dev)
-    for k in rows.values():
-        print(f"{k['name']} ({k['shape']}): kernel {k['ms']:.4f} ms, plain "
-              f"{k['plain_ms']:.4f} ms, library {k['library_ms']} ms, bound "
-              f"{k['bound_ms']:.5f} ms ({k['bound_by']})")
     print(f"phases 1-3 done at {time.perf_counter() - t0:.1f} s")
+    if "--kg-only" in sys.argv[1:]:
+        # Phases 1-3 alone: a quick run while the KG kernels change.
+        print(json.dumps(list(rows.values())))
+        print(f"chip_smoke --kg-only took "
+              f"{time.perf_counter() - T_START:.1f} s")
+        return
     launches, _, state = main_path(np, torch, dev)
     print(f"phase 4 done at {time.perf_counter() - t0:.1f} s")
     for name, row in rows.items():

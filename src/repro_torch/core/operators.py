@@ -72,6 +72,20 @@ def gather_streams(store, relax, pattern_ids: torch.Tensor,
                          stream_active=pattern_ids != PAD_KEY)
 
 
+def block_windows(keys: torch.Tensor, scores: torch.Tensor,
+                  lengths: torch.Tensor, cursors: torch.Tensor, block: int):
+    """Each source's next ``block`` items from its cursor: (Q, R1, B) keys
+    and scores, PAD / -inf past the source's length. A source list is
+    score-descending, so every row is too."""
+    L = keys.shape[-1]
+    pos = cursors[..., None] + torch.arange(block, device=keys.device)
+    ok = pos < lengths[..., None]                        # (Q, R1, B)
+    at = pos.clamp(max=L - 1)
+    wk = torch.where(ok, keys.gather(-1, at), PAD_KEY).contiguous()
+    ws = torch.where(ok, scores.gather(-1, at), NEG_INF).contiguous()
+    return wk, ws
+
+
 def pull_block(keys: torch.Tensor, scores: torch.Tensor,
                lengths: torch.Tensor, cursors: torch.Tensor, block: int):
     """Pull the next ``block`` items of Q merged streams, one launch.
@@ -81,12 +95,8 @@ def pull_block(keys: torch.Tensor, scores: torch.Tensor,
     Returns (blk_keys (Q, B), blk_scores (Q, B) sorted desc,
     new_cursors (Q, R1)).
     """
-    Q, R1, L = keys.shape
-    pos = cursors[..., None] + torch.arange(block, device=keys.device)
-    ok = pos < lengths[..., None]                        # (Q, R1, B)
-    at = pos.clamp(max=L - 1)
-    wk = torch.where(ok, keys.gather(-1, at), PAD_KEY).contiguous()
-    ws = torch.where(ok, scores.gather(-1, at), NEG_INF).contiguous()
+    R1 = keys.shape[1]
+    wk, ws = block_windows(keys, scores, lengths, cursors, block)
     top_k, top_s, top_i = kops.merge_topk(wk, ws, block)
     src_of = top_i.long() // block
     taken = top_s > NEG_INF

@@ -16,47 +16,47 @@ from repro_torch.kernels._checks import check, check_cuda
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# Shared memory holds (score, index) for every padded slot: 16384 slots use
-# 128 KB of the 227 KB a block may have.
-MAX_PADDED = 16384
+# Shared memory holds (score, flat index) for every row padded to a power of
+# two: 16384 slots use 128 KB of the 227 KB a block may have.
+MAX_SLOTS = 16384
 
 
 def _fn():
     fn = _build.load("merge_topk").merge_topk
-    fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+    fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
     fn.restype = ctypes.c_int
     return fn
 
 
-def padded_len(n: int, block: int) -> int:
-    """Power-of-two slot count the bitonic sort runs over (≥ n, ≥ block)."""
-    return 1 << max(int(n - 1).bit_length(), int(block - 1).bit_length(), 3)
+def padded_row(W: int) -> int:
+    """Slots a row of W items takes in shared memory: the power of two ≥ W
+    that a row's warp sorts over when the row is out of order."""
+    return 1 << int(W - 1).bit_length()
 
 
 def check_args(window_keys, window_scores, block: int):
-    """Dtype, shape and sizes the kernel takes → (G, n, padded)."""
+    """Dtype, shape and sizes the kernel takes → (G, R, W, padded row)."""
     if window_keys.dim() != 3:
         raise ValueError("window_keys must be (G, R, W)")
     G, R, W = window_keys.shape
-    n = R * W
     check("window_keys", window_keys, torch.int32, (G, R, W))
     check("window_scores", window_scores, torch.float32, (G, R, W))
-    if not 0 < block <= n:
-        raise ValueError(f"block {block} must be in [1, R*W = {n}]")
-    padded = padded_len(n, block)
-    if padded > MAX_PADDED:
-        raise ValueError(f"{n} window items exceed the kernel's "
-                         f"{MAX_PADDED}-slot shared-memory sort")
-    if not 0 < G <= 2**31 - 1:
-        raise ValueError(f"G = {G} groups out of range")
-    return G, n, padded
+    if not 0 < block <= R * W:
+        raise ValueError(f"block {block} must be in [1, R*W = {R * W}]")
+    P = padded_row(W)
+    if R * P > MAX_SLOTS:
+        raise ValueError(f"{R} rows of {P} slots exceed the kernel's "
+                         f"{MAX_SLOTS}-slot shared memory")
+    if not 0 < G * R <= 2**31 - 1:
+        raise ValueError(f"G * R = {G * R} blocks out of range")
+    return G, R, W, P
 
 
 def merge_topk(window_keys: torch.Tensor, window_scores: torch.Tensor,
                block: int):
     """(G, R, W) i32, (G, R, W) f32 → (keys (G, block) i32,
     scores (G, block) f32, flat_idx (G, block) i32), on the card."""
-    G, n, padded = check_args(window_keys, window_scores, block)
+    G, R, W, P = check_args(window_keys, window_scores, block)
     check_cuda(window_keys, window_scores)
     fn = _fn()
     dev = window_keys.device
@@ -65,8 +65,8 @@ def merge_topk(window_keys: torch.Tensor, window_scores: torch.Tensor,
     idx = torch.empty((G, block), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(window_keys.data_ptr(), window_scores.data_ptr(),
-             keys.data_ptr(), scores.data_ptr(), idx.data_ptr(), G, n,
-             padded, block, stream)
+             keys.data_ptr(), scores.data_ptr(), idx.data_ptr(), G, R, W, P,
+             block, stream)
     if err:
         raise RuntimeError(f"merge_topk launch failed: CUDA error {err}")
     merge_topk.launches += 1

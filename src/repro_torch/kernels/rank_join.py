@@ -15,6 +15,12 @@ from repro_torch.kernels._checks import check, check_cuda
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# Blocks per group (one thread block cluster), each streaming a chunk of the
+# live ring; ``kernels.ref.rank_join_lookup_split`` models the same split.
+CHUNKS = 8
+# The probe table, its filter and the chunks' sums take 84 bytes a probe of
+# shared memory beside 17 KB of slot queue and filter (189 KB here).
+MAX_PROBES = 2048
 
 
 def _fn():
@@ -36,6 +42,9 @@ def check_args(seen_keys, seen_scores, probe_keys, seen_cnt):
     check("seen_cnt", seen_cnt, torch.int32, (G,))
     if not 0 < G <= 65535:
         raise ValueError(f"G = {G} groups must be in [1, 65535]")
+    if B > MAX_PROBES:
+        raise ValueError(f"B = {B} probes exceed the kernel's "
+                         f"{MAX_PROBES}-entry shared-memory table")
     return G, N, B
 
 

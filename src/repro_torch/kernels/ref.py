@@ -48,6 +48,93 @@ def merge_topk(window_keys: torch.Tensor, window_scores: torch.Tensor,
             top_i.to(torch.int32))
 
 
+def rank_join_lookup_split(seen_keys: torch.Tensor, seen_scores: torch.Tensor,
+                           probe_keys: torch.Tensor, seen_cnt: torch.Tensor,
+                           chunks: int):
+    """The CUDA kernel's schedule of ``rank_join_lookup`` (a model for the
+    tests; it returns what the plain version does).
+
+    Per group: the B probe keys sorted into a table, duplicates and PAD keys
+    kept (a key's entry is its first position, a lower bound); the live
+    prefix min(N, seen_cnt) cut into ``chunks`` equal chunks of a multiple
+    of 4 slots; in each chunk every live non-PAD slot finds its entry by
+    lower bound and, on a hit, adds its score to that entry's sum and
+    counts it; then each probe sums its entry over the chunks in order,
+    from 0.0 (an empty chunk adds 0), and is found where the count is > 0
+    and it is not PAD.
+    """
+    G, N = seen_keys.shape
+    B = probe_keys.shape[1]
+    scores = torch.zeros((G, B), dtype=torch.float32)
+    found = torch.zeros((G, B), dtype=torch.bool)
+    for g in range(G):
+        live = min(N, max(int(seen_cnt[g]), 0))
+        if live == 0:
+            continue
+        table = torch.sort(probe_keys[g]).values
+        chunk = (-(-live // chunks) + 3) & ~3
+        total = torch.zeros(B, dtype=torch.float32)
+        hits = torch.zeros(B, dtype=torch.int64)
+        for c in range(chunks):
+            lo, hi = min(live, c * chunk), min(live, (c + 1) * chunk)
+            if lo >= hi:
+                break
+            k, s = seen_keys[g, lo:hi], seen_scores[g, lo:hi]
+            e = torch.searchsorted(table, k).clamp(max=B - 1)
+            hit = (k != PAD_KEY) & (table[e] == k)
+            acc = torch.zeros(B, dtype=torch.float32).index_add_(
+                0, e[hit], s[hit])
+            total = total + acc
+            hits = hits.index_add_(0, e[hit], torch.ones_like(e[hit]))
+        e = torch.searchsorted(table, probe_keys[g])
+        found[g] = (hits[e] > 0) & (probe_keys[g] != PAD_KEY)
+        scores[g] = torch.where(found[g], total[e], 0.0)
+    return scores.to(seen_scores.device), found.to(seen_keys.device)
+
+
+def merge_topk_ranked(window_keys: torch.Tensor, window_scores: torch.Tensor,
+                      block: int):
+    """The CUDA kernel's schedule of ``merge_topk`` (a model for the tests;
+    it returns what the plain version does, and how many rows it sorted).
+
+    Each row whose scores are non-increasing is taken as it is (its flat
+    indices are then in position order); any other row is sorted by (score
+    desc, flat index asc). An item's rank is its position in its row plus,
+    for every other row, the count of that row's items before it in the
+    total order: scores >= its score in a lower row, > it in a higher one.
+    The item of rank j < block fills output slot j.
+    """
+    G, R, W = window_keys.shape
+    out_k = torch.full((G, block), PAD_KEY, dtype=torch.int32)
+    out_s = torch.full((G, block), float("nan"))
+    out_i = torch.full((G, block), -1, dtype=torch.int32)
+    n_sorted = 0
+    for g in range(G):
+        rows_s, rows_i = [], []
+        for q in range(R):
+            s = window_scores[g, q].cpu()
+            i = q * W + torch.arange(W, dtype=torch.int32)
+            if not bool((s[:-1] >= s[1:]).all()):
+                s, perm = torch.sort(s, descending=True, stable=True)
+                i = i[perm]
+                n_sorted += 1
+            rows_s.append(s)
+            rows_i.append(i)
+        for r in range(R):
+            x = rows_s[r]
+            rank = torch.arange(W)
+            for q in range(R):
+                if q != r:  # counts in a non-increasing row, from the top
+                    rank = rank + torch.searchsorted(-rows_s[q], -x,
+                                                     right=q < r)
+            take = rank < block
+            out_s[g, rank[take]] = x[take]
+            out_i[g, rank[take]] = rows_i[r][take]
+        out_k[g] = window_keys[g].reshape(-1).cpu()[out_i[g].long()]
+    dev = window_keys.device
+    return out_k.to(dev), out_s.to(dev), out_i.to(dev), n_sorted
+
+
 def topk_score(query: torch.Tensor, cands: torch.Tensor, k: int):
     """Full-scan oracle: dot-score one query against every candidate.
 

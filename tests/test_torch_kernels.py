@@ -483,8 +483,14 @@ def test_dispatch_and_wrapper_checks():
     with pytest.raises(ValueError):
         ops.merge_topk(keys.view(1, 2, 4), scores.view(1, 2, 4), 4,
                        impl="cuda")
-    assert merge_topk.padded_len(2816, 256) == 4096
-    assert merge_topk.padded_len(3, 2) == 8
+    assert merge_topk.padded_row(256) == 256
+    assert merge_topk.padded_row(20) == 32 and merge_topk.padded_row(1) == 1
+    big = torch.zeros((1, 65, 256), dtype=torch.int32)
+    with pytest.raises(ValueError, match="shared memory"):
+        merge_topk.check_args(big, big.float(), 256)
+    probes = torch.zeros((1, rank_join.MAX_PROBES + 1), dtype=torch.int32)
+    with pytest.raises(ValueError, match="probes"):
+        rank_join.check_args(keys, scores, probes, cnt)
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -643,22 +649,34 @@ def cuda():
 
 @pytest.mark.gpu
 def test_cuda_kernels_match_plain_versions(cuda):
-    """On the card: both kernels bit-equal to their plain versions."""
+    """On the card: both kernels bit-equal to their plain versions, on
+    empty, partial, full and wrapped rings (9000 > N), with duplicate and
+    PAD probes, and on unsorted and engine-layout (sorted, -inf tails)
+    windows."""
     rng = np.random.default_rng(5)
     cases = [_lookup_case(rng, 5000, 256, c) for c in (0, 1000, 5000, 9000)]
     args = [torch.from_numpy(np.stack([c[j] for c in cases])).to(cuda)
             for j in range(3)]
     cnt = torch.tensor([c[3] for c in cases], dtype=torch.int32,
                        device=cuda)
-    got = ops.rank_join_lookup(*args, cnt)
-    want = ops.rank_join_lookup(*args, cnt, impl="ref")
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
+    dup = args[2].clone()
+    dup[:, 128:192] = dup[:, :64]
+    for probes in (args[2], dup):
+        got = ops.rank_join_lookup(args[0], args[1], probes, cnt)
+        want = ops.rank_join_lookup(args[0], args[1], probes, cnt,
+                                    impl="ref")
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        assert got[1][1:].any()
     wk, ws = _windows_with_ties(rng, 8, 11, 256)
-    wk, ws = torch.from_numpy(wk).to(cuda), torch.from_numpy(ws).to(cuda)
-    for a, b in zip(ops.merge_topk(wk, ws, 256),
-                    ops.merge_topk(wk, ws, 256, impl="ref")):
-        assert torch.equal(a, b)
+    engine = -np.sort(-rng.random((8, 11, 256)).astype(np.float32), -1)
+    engine[np.arange(256) >= rng.integers(0, 257, (8, 11, 1))] = -np.inf
+    for scores in (ws, engine):
+        wk_c = torch.from_numpy(wk).to(cuda)
+        ws_c = torch.from_numpy(scores).to(cuda)
+        for a, b in zip(ops.merge_topk(wk_c, ws_c, 256),
+                        ops.merge_topk(wk_c, ws_c, 256, impl="ref")):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
