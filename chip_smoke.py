@@ -37,8 +37,12 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    every query's tiles scored against the plain version's;
 6. two-tower serving at the ``serve_p99`` shape: the full-width model
    (two 20 M x 256 tables, about 41 GB) initialised on the card,
-   ``embedding_bag`` held against its plain version on its tables (also
-   at ids above 2**23) and timed, then, with the counters read around
+   ``embedding_bag`` held against its plain version on its tables at the
+   user batch (512 x 32, a quarter of the slots -1), the corpus chunk
+   (65,536 x 8) and ids above 2**23, each case twice and bit-equal, and
+   timed at the two path shapes by device time (CUDA-graph replay) beside
+   the per-call time, ids from the table's first GiB only, its bound, the
+   plain version and ``F.embedding_bag``; then, with the counters read around
    them, the 1,048,576-item corpus built through the item tower and 16
    batches of 512 users served through ``serve``; one batch checked
    against a full-matrix top-k;
@@ -60,8 +64,10 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    against its plain version at the reference's test shapes, the GAT
    layer shapes, ragged and odd shapes, rows with no live slot, NaN
    features in masked slots (which it never reads) and more than 2**31
-   feature floats, and timed beside its bound (live slots' features
-   only), the plain version and ``torch.softmax`` + ``torch.bmm``; the graph made by
+   feature floats, each case twice and bit-equal, and timed by device
+   time (CUDA-graph replay) beside the per-call time, its bound (live
+   slots' features only), the plain version and ``torch.softmax`` +
+   ``torch.bmm``; the graph made by
    ``graph_synth.random_graph`` and 3 forwards through ``gat.apply`` timed
    with the counters read around them (0 launches: the reference's GAT
    never calls the kernel); then per layer the kernel driven over every
@@ -78,7 +84,11 @@ Phases, each of which fails loudly (non-zero exit, no result line):
 It exits non-zero without CUDA and when ``src/repro_torch`` is not beside
 it. It imports nothing of JAX. ``--attention-only`` runs phases 1-2 and
 phase 7's ``flash_attention`` checks and timings, then stops without the
-result line; ``--kg-only`` runs phases 1-3 and stops the same way.
+result line; ``--kg-only`` runs phases 1-3 and stops the same way;
+``--gather-only`` runs phases 1-2 and the checks and timings of
+``embedding_bag`` (phase 6's, on one table of the model's shape) and of
+``neigh_softmax_agg`` (phase 8's, with the NaN check), without the towers
+or the graph, and stops the same way.
 ``--profile`` adds ``torch.profiler``
 windows (device busy share, time by kernel) over one retrieval query in
 each mode, the serving batches, one LM prefill with 4 decode steps, one
@@ -133,14 +143,20 @@ GNN_ORACLE_NODES = 4096
 AGG_RTOL, AGG_ATOL = 1e-4, 1e-5
 # (name, R, MAXD, D): the reference's test shapes, the GAT layer shapes
 # (a node chunk x 8 heads, MAXD 56 as the ogb_products graph gives it),
-# ragged and odd shapes, and more than 2**31 feature floats (8.6 GB)
+# ragged and odd shapes, the kernel's edges (one slot a row, a row of
+# exactly one pass of 64 slots and of three, rows split over column
+# tiles, features one float past a 16-byte boundary, which the kernel
+# reads in single floats), and more than 2**31 feature floats (8.6 GB)
 AGG_CASES = [("test", 64, 16, 32), ("test", 130, 8, 64),
              ("layer 0", GNN_NODE_CHUNK * 8, 56, 8),
              ("layer 1", GNN_NODE_CHUNK * 8, 56, 47),
              ("ragged", 100_003, 56, 47), ("ragged", 100_003, 56, 8),
              ("odd", 777, 33, 10), ("wide", 1000, 100, 100),
-             ("D=1", 513, 3, 1), ("no rows", 0, 56, 47),
-             ("2**31+", 820_000, 56, 47)]
+             ("D=1", 513, 3, 1), ("MAXD=1", 1001, 1, 8),
+             ("MAXD=64", 4001, 64, 8), ("three passes", 5003, 129, 47),
+             ("column tiles", 301, 20, 1030), ("D=130", 999, 56, 130),
+             ("unaligned", 100_003, 56, 8),
+             ("no rows", 0, 56, 47), ("2**31+", 820_000, 56, 47)]
 
 
 def fail(msg: str) -> None:
@@ -842,56 +858,95 @@ def user_batch(torch, cfg, B, gen, dev):
                                       device=dev)}
 
 
-def check_embedding_bag(np, torch, ops, model, dev):
-    """embedding_bag against its plain version on the model's tables: the
-    user tower's (B=512, S=32) with a quarter of the slots -1, and
-    (B=4096, S=8) with every id above 2**23 (64-bit row offsets)."""
+def check_embedding_bag(np, torch, ops, user_table, item_table, dev):
+    """embedding_bag against its plain version (rtol/atol 1e-6) at the
+    shapes the serving path launches it at, each case run twice and
+    bit-equal: the user tower's (B=512, S=32) with a quarter of the slots
+    -1, the corpus chunk (B=65,536, S=8, every slot live) on the item
+    table, and (B=4096, S=8) with every id above 2**23 (64-bit row
+    offsets). The two path shapes are timed by device time (CUDA-graph
+    replay) beside the per-call time, an empty launch, the bound, the plain
+    version and ``F.embedding_bag`` timed both ways, and once more with
+    their ids drawn from the table's first GiB only, which tells the cost
+    of the TLB's misses over the whole 20.5 GB table from DRAM latency."""
     import torch.nn.functional as F
 
     rng = np.random.default_rng(SEED + 1)
-    V, D = model.user.table.shape
+    V, D = user_table.shape
+    slice_rows = min(V, 2**30 // (4 * D))
+    floor_ms = empty_launch_ms(torch)
     rows = {}
-    for B, S, lo, tbl in ((512, 32, 0, model.user.table),
-                          (4096, 8, 2**23, model.item.table)):
+    for B, S, lo, tbl, dead in ((512, 32, 0, user_table, 0.25),
+                                (CORPUS_CHUNK, 8, 0, item_table, 0.0),
+                                (4096, 8, 2**23, item_table, 0.0)):
         ids_np = rng.integers(lo, V, (B, S)).astype(np.int32)
-        if lo == 0:
-            ids_np[rng.random((B, S)) < 0.25] = -1
+        ids_np[rng.random((B, S)) < dead] = -1
         ids = torch.from_numpy(ids_np).to(dev)
         w = torch.from_numpy(rng.random((B, S)).astype(np.float32)).to(dev)
         got = ops.embedding_bag(tbl, ids, w)
+        again = ops.embedding_bag(tbl, ids, w)
         want = ops.embedding_bag(tbl, ids, w, impl="ref")
         torch.cuda.synchronize()
+        e = float((got - want).abs().max())
         if not torch.allclose(got, want, rtol=1e-6, atol=1e-6):
             fail(f"embedding_bag differs from its plain version at B={B} "
-                 f"S={S} (ids from {lo})")
+                 f"S={S} (ids from {lo}): max abs err {e:.4g}")
+        if not torch.equal(got, again):
+            fail(f"embedding_bag B={B} S={S}: two runs differ")
         live = ids[ids >= 0]
+        print(f"embedding_bag V={V} D={D} B={B} S={S} (ids from {lo}, "
+              f"{int(live.numel())} live slots): within rtol/atol 1e-6 of "
+              f"plain (max abs err {e:.3g}), two runs bit-equal")
+        if lo:
+            rows[(B, S)] = dict(max_abs_err=e)
+            continue
         n_rows = int(torch.unique(live).numel())
         nbytes = n_rows * D * 4 + B * S * 8 + B * D * 4
         safe = torch.where(ids >= 0, ids, 0)
         w0 = torch.where(ids >= 0, w, 0.0)
+        near = torch.from_numpy(np.where(ids_np >= 0, rng.integers(
+            0, slice_rows, (B, S)), -1).astype(np.int32)).to(dev)
         rows[(B, S)] = dict(
-            max_abs_err=float((got - want).abs().max()),
-            ms=cuda_ms(torch, lambda: ops.embedding_bag(tbl, ids, w)),
+            max_abs_err=e,
+            ms=graph_ms(torch, lambda: ops.embedding_bag(tbl, ids, w)),
+            call_ms=cuda_ms(torch, lambda: ops.embedding_bag(tbl, ids, w)),
+            slice_ms=graph_ms(torch, lambda: ops.embedding_bag(tbl, near, w)),
             plain_ms=cuda_ms(torch, lambda: ops.embedding_bag(
-                tbl, ids, w, impl="ref")),
-            library_ms=cuda_ms(torch, lambda: F.embedding_bag(
+                tbl, ids, w, impl="ref"), blocks=5, per_block=2),
+            library_ms=graph_ms(torch, lambda: F.embedding_bag(
                 safe, tbl, mode="sum", per_sample_weights=w0)),
-            bound=bound(nbytes, 2 * int(live.numel()) * D))
-        r = rows[(B, S)]
-        print(f"embedding_bag V={V} D={D} B={B} S={S} (ids from {lo}, "
-              f"{int(live.numel())} live slots): within rtol/atol 1e-6 of "
-              f"plain (max abs err {r['max_abs_err']:.3g}); kernel "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
-              f"{r['library_ms']:.4f} ms, bound {r['bound'][0]:.5f} ms "
-              f"({r['bound'][1]})")
-    r = rows[(512, 32)]
+            library_call_ms=cuda_ms(torch, lambda: F.embedding_bag(
+                safe, tbl, mode="sum", per_sample_weights=w0)),
+            bound=bound(nbytes, 2 * int(live.numel()) * D),
+            shape=f"V={V} D={D} B={B} S={S}")
+        del safe, w0, near
+    for (B, S), r in rows.items():
+        if "ms" not in r:
+            continue
+        b = r["bound"]
+        print(f"embedding_bag {r['shape']}: device {r['ms']:.4f} ms "
+              f"({100 * b[0] / r['ms']:.1f} % of the bound's rate), per call "
+              f"{r['call_ms']:.4f} ms, ids in the first GiB "
+              f"{r['slice_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"F.embedding_bag {r['library_ms']:.4f} ms (per call "
+              f"{r['library_call_ms']:.4f}), bound {b[0]:.5f} ms ({b[1]}), "
+              f"empty launch {floor_ms:.4f} ms")
+    r, c = rows[(512, 32)], rows[(CORPUS_CHUNK, 8)]
     return dict(name="embedding_bag", route="cuda",
                 source="src/repro_torch/kernels/csrc/embedding_bag.cu",
                 replaces="src/repro/kernels/embedding_bag.py:33",
                 max_abs_err=max(x["max_abs_err"] for x in rows.values()),
-                ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
+                ms=r["ms"], call_ms=r["call_ms"], slice_ms=r["slice_ms"],
+                plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
                 bound_by=r["bound"][1], library_ms=r["library_ms"],
-                shape=f"V={V} D={D} B=512 S=32, a quarter of slots -1")
+                library_call_ms=r["library_call_ms"], floor_ms=floor_ms,
+                corpus_ms=c["ms"], corpus_call_ms=c["call_ms"],
+                corpus_slice_ms=c["slice_ms"], corpus_plain_ms=c["plain_ms"],
+                corpus_bound_ms=c["bound"][0],
+                corpus_library_ms=c["library_ms"],
+                corpus_library_call_ms=c["library_call_ms"],
+                shape=f"{r['shape']}, a quarter of slots -1; corpus chunk "
+                      f"{c['shape']}")
 
 
 def serving_path(np, torch, ops, dev, prof: bool = False):
@@ -912,7 +967,12 @@ def serving_path(np, torch, ops, dev, prof: bool = False):
           f"parameters initialised on the card in "
           f"{time.perf_counter() - t0:.2f} s (embed_dim {cfg.embed_dim}, "
           f"MLP {cfg.tower_mlp}, vocab {cfg.user_vocab} + {cfg.item_vocab})")
-    row = check_embedding_bag(np, torch, ops, model, dev)
+    row = check_embedding_bag(np, torch, ops, model.user.table,
+                              model.item.table, dev)
+    # The serving peak: the model and what serving allocates, not the
+    # check's plain versions and timing graphs.
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 2)
@@ -1355,22 +1415,42 @@ def agg_bound(R: int, MAXD: int, D: int, live: int) -> tuple[float, str]:
     return bound(nbytes, live * (2 * D + 4))
 
 
+def agg_granule_bound(torch, r: int, maxd: int, d: int, mask) -> float:
+    """Least time in ms if HBM moves whole 64-byte granules, as the card
+    fetches them: the logits, mask and output once, and every granule that
+    a live slot's features touch (a lone live 32-byte slot costs 64 B)."""
+    flat = torch.nonzero(mask.reshape(-1)).squeeze(1) * (4 * d)
+    first, last = flat // 64, (flat + 4 * d - 1) // 64
+    span = -(-4 * d // 64) + 1
+    ids = torch.cat([torch.where(first + k <= last, first + k, first)
+                     for k in range(span)])
+    nbytes = int(torch.unique(ids).numel()) * 64 + r * maxd * 5 + r * d * 4
+    return 1e3 * nbytes / HBM_BYTES_PER_S
+
+
 def check_neigh_agg(np, torch, ops, dev):
     """neigh_softmax_agg against its plain version (rtol AGG_RTOL, atol
     AGG_ATOL): the reference's test shapes, the GAT layer shapes at
     GNN_NODE_CHUNK nodes x 8 heads, ragged and odd shapes and one case of
-    more than 2**31 feature floats; every 7th row has no live slot and must
-    give exactly 0. Then timed at the layer shapes beside its bound, the
-    plain version and torch.softmax + torch.bmm."""
+    more than 2**31 feature floats, each case run twice and bit-equal;
+    every 7th row has no live slot and must give exactly 0. Then timed at
+    the layer shapes by device time (CUDA-graph replay) beside the per-call
+    time, an empty launch, its bound, the plain version and torch.softmax +
+    torch.bmm timed both ways."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 4)
+    floor_ms = empty_launch_ms(torch)
     err, times = 0.0, {}
     for name, r, maxd, d in AGG_CASES:
         logits = torch.randn((r, maxd), generator=gen, device=dev) * 3.0
         feats = torch.randn((r, maxd, d), generator=gen, device=dev)
+        if name == "unaligned":
+            feats = torch.cat([feats.new_zeros(1), feats.view(-1)])[1:].view(
+                r, maxd, d)
         mask = torch.rand((r, maxd), generator=gen, device=dev) < 0.45
         mask[::7] = False
         got = ops.neigh_softmax_agg(logits, feats, mask)
+        again = ops.neigh_softmax_agg(logits, feats, mask)
         want = ops.neigh_softmax_agg(logits, feats, mask, impl="ref")
         torch.cuda.synchronize()
         e = float((got - want).abs().max()) if r else 0.0
@@ -1378,26 +1458,56 @@ def check_neigh_agg(np, torch, ops, dev):
                 got, want, rtol=AGG_RTOL, atol=AGG_ATOL):
             fail(f"neigh_softmax_agg ({name}: R={r} MAXD={maxd} D={d}) "
                  f"differs from its plain version: max abs err {e:.4g}")
+        if not torch.equal(got, again):
+            fail(f"neigh_softmax_agg ({name}: R={r} MAXD={maxd} D={d}): two "
+                 "runs differ")
         if not torch.equal(got[::7], torch.zeros_like(got[::7])):
             fail(f"neigh_softmax_agg ({name}) gives non-zero rows where no "
                  "slot is live")
         err = max(err, e)
         print(f"neigh_softmax_agg {name} (R={r} MAXD={maxd} D={d}, "
               f"{r * maxd * d} feature floats): within rtol {AGG_RTOL} atol "
-              f"{AGG_ATOL} of plain (max abs err {e:.3g}); empty rows 0")
+              f"{AGG_ATOL} of plain (max abs err {e:.3g}); empty rows 0; "
+              f"two runs bit-equal")
+        del again, want
         if name.startswith("layer"):
             ml = logits.masked_fill(~mask, float("-inf"))
+
+            def lib():
+                return torch.bmm(torch.softmax(ml, dim=1)[:, None, :], feats)
+
             times[name] = dict(
                 shape=f"R={r} MAXD={maxd} D={d}",
-                ms=cuda_ms(torch, lambda: ops.neigh_softmax_agg(
+                ms=graph_ms(torch, lambda: ops.neigh_softmax_agg(
+                    logits, feats, mask)),
+                call_ms=cuda_ms(torch, lambda: ops.neigh_softmax_agg(
                     logits, feats, mask)),
                 plain_ms=cuda_ms(torch, lambda: ops.neigh_softmax_agg(
                     logits, feats, mask, impl="ref"), blocks=5, per_block=2),
-                library_ms=cuda_ms(torch, lambda: torch.bmm(torch.softmax(
-                    ml, dim=1)[:, None, :], feats), blocks=5, per_block=2),
+                library_ms=graph_ms(torch, lib, blocks=5, per_block=4),
+                library_call_ms=cuda_ms(torch, lib, blocks=5, per_block=2),
                 bound=agg_bound(r, maxd, d, int(mask.sum())))
-            del ml
-        del logits, feats, mask, got, want
+            times[name]["granule_bound_ms"] = agg_granule_bound(
+                torch, r, maxd, d, mask)
+            # Every slot live: the kernel then reads whole rows, which
+            # tells what reading only the live slots saves on this card.
+            full = torch.ones_like(mask)
+            times[name]["all_live_ms"] = graph_ms(
+                torch, lambda: ops.neigh_softmax_agg(logits, feats, full))
+            times[name]["all_live_bound"] = agg_bound(r, maxd, d, r * maxd)
+            if d == 8:
+                # Half the slots live at D = 8, every other one or in
+                # adjacent pairs: the same live bytes, in 64-byte granules
+                # all touched or half of them.
+                j = torch.arange(maxd, device=dev)
+                for label, m in (("every other slot", j % 2 == 0),
+                                 ("slot pairs", j % 4 < 2)):
+                    m = m.expand(r, maxd).contiguous()
+                    times[name][label] = graph_ms(
+                        torch, lambda: ops.neigh_softmax_agg(logits, feats,
+                                                             m))
+            del ml, full
+        del logits, feats, mask, got
         torch.cuda.empty_cache()
     # A masked slot's features are never read: NaN there must not reach
     # the output (the plain version, as the reference, gives NaN).
@@ -1413,20 +1523,37 @@ def check_neigh_agg(np, torch, ops, dev):
           "output")
     for name, t in times.items():
         b = t["bound"]
-        print(f"neigh_softmax_agg {name} shape ({t['shape']}): kernel "
-              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, softmax + "
-              f"bmm {t['library_ms']:.4f} ms, bound {b[0]:.4f} ms ({b[1]}), "
-              f"{100 * b[0] / t['ms']:.1f} % of the bound's rate")
+        print(f"neigh_softmax_agg {name} shape ({t['shape']}): device "
+              f"{t['ms']:.4f} ms ({100 * b[0] / t['ms']:.1f} % of the "
+              f"bound's rate), per call {t['call_ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, softmax + bmm {t['library_ms']:.4f} "
+              f"ms (per call {t['library_call_ms']:.4f}), bound {b[0]:.4f} "
+              f"ms ({b[1]}), empty launch {floor_ms:.4f} ms; in 64-byte "
+              f"granules the bound is {t['granule_bound_ms']:.4f} ms "
+              f"({100 * t['granule_bound_ms'] / t['ms']:.1f} % of it); every "
+              f"slot live (whole rows read) {t['all_live_ms']:.4f} ms, bound "
+              f"{t['all_live_bound'][0]:.4f} ms")
+        for label in ("every other slot", "slot pairs"):
+            if label in t:
+                print(f"neigh_softmax_agg {name}, half the slots live, "
+                      f"{label}: device {t[label]:.4f} ms")
     t1, t0 = times["layer 1"], times["layer 0"]
     return dict(name="neigh_softmax_agg", route="cuda",
                 source="src/repro_torch/kernels/csrc/neigh_agg.cu",
                 replaces="src/repro/kernels/neigh_agg.py:41",
-                max_abs_err=err, ms=t1["ms"], plain_ms=t1["plain_ms"],
-                bound_ms=t1["bound"][0], bound_by=t1["bound"][1],
-                library_ms=t1["library_ms"],
+                max_abs_err=err, ms=t1["ms"], call_ms=t1["call_ms"],
+                plain_ms=t1["plain_ms"], bound_ms=t1["bound"][0],
+                bound_by=t1["bound"][1], library_ms=t1["library_ms"],
+                library_call_ms=t1["library_call_ms"],
                 library_vs="torch.softmax over the masked logits + "
                            "torch.bmm: two calls, no single one computes it",
-                layer0_ms=t0["ms"], layer0_plain_ms=t0["plain_ms"],
+                floor_ms=floor_ms, all_live_ms=t1["all_live_ms"],
+                granule_bound_ms=t1["granule_bound_ms"],
+                layer0_granule_bound_ms=t0["granule_bound_ms"],
+                layer0_all_live_ms=t0["all_live_ms"], layer0_ms=t0["ms"],
+                layer0_every_other_slot_ms=t0["every other slot"],
+                layer0_slot_pairs_ms=t0["slot pairs"],
+                layer0_call_ms=t0["call_ms"], layer0_plain_ms=t0["plain_ms"],
                 layer0_bound_ms=t0["bound"][0],
                 layer0_library_ms=t0["library_ms"],
                 shape=f"{t1['shape']} (GAT layer 1, {GNN_NODE_CHUNK} nodes "
@@ -1632,6 +1759,25 @@ def main() -> None:
         row = check_flash_attention(np, torch, ops, dev, gemma2_2b.config())
         print(json.dumps(row))
         print(f"chip_smoke --attention-only took "
+              f"{time.perf_counter() - T_START:.1f} s")
+        return
+    if "--gather-only" in sys.argv[1:]:
+        # Phases 1-2, then the checks and timings of the two gather
+        # kernels alone: embedding_bag on one table of the two-tower
+        # model's shape (no towers), neigh_softmax_agg at its cases and the
+        # GAT layer shapes (no graph), with the NaN check.
+        from repro_torch.configs import two_tower_retrieval as tt
+        cfg = tt.config()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        table = torch.empty((cfg.user_vocab, cfg.embed_dim), device=dev)
+        table.normal_(0.0, 0.01, generator=gen)
+        rows = [check_embedding_bag(np, torch, ops, table, table, dev)]
+        del table
+        torch.cuda.empty_cache()
+        rows.append(check_neigh_agg(np, torch, ops, dev))
+        print(json.dumps(rows))
+        print(f"chip_smoke --gather-only took "
               f"{time.perf_counter() - T_START:.1f} s")
         return
     rows = check_kernels(np, torch, ops, dev)

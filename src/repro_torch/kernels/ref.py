@@ -360,6 +360,113 @@ def neigh_softmax_agg(logits: torch.Tensor, feats: torch.Tensor,
     return torch.einsum("nd,ndk->nk", w, feats)
 
 
+AGG_CHUNK = 64  # slots of a row that one pass of csrc/neigh_agg.cu takes
+
+
+def agg_lanes(D: int, vec: int):
+    """``csrc/neigh_agg.cu``'s lanes for D floats a slot read in vectors of
+    ``vec`` floats: (LPS lanes a slot, KC vectors a lane, LPR lanes a row,
+    column tiles)."""
+    units = D // vec
+    if units <= 32:
+        lps = 1
+        while lps < units:
+            lps <<= 1
+        return lps, 1, max(lps, 8), 1
+    if units <= 48:
+        return 16, 3, 32, 1
+    if units <= 64:
+        return 32, 2, 32, 1
+    return 32, 4, 32, -(-units // 128)
+
+
+def _xor_tree(v: torch.Tensor, offsets) -> torch.Tensor:
+    """Lanes on the last axis; at each offset o every lane adds lane i ^ o
+    (a shuffle xor), so all lanes end with the same sum."""
+    idx = torch.arange(v.shape[-1])
+    for o in offsets:
+        v = v + v[..., idx ^ o]
+    return v
+
+
+def neigh_softmax_agg_grouped(logits: torch.Tensor, feats: torch.Tensor,
+                              mask: torch.Tensor, vec: int | None = None):
+    """The CUDA kernel's schedule of ``neigh_softmax_agg`` (a model for the
+    tests; within the reference's rtol 1e-4 atol 1e-5 of the plain version).
+    Returns (out, the (row, slot) pairs whose features it read).
+
+    Rows go in groups of 32 / LPR (the last group ragged: its missing rows
+    read nothing). Lane l of a row holds slots c·64 + t·LPR + l of pass c;
+    the max and the sum of exponentials go over every pass, a lane's sum in
+    pass-then-step order, then over the row's lanes by an xor tree. Each
+    pass packs its live slots in slot order into a list with weight
+    e / den; the row's LPR / LPS slot groups take list entries g, g + G,
+    ... and add w · x in that order, reading only those slots' features;
+    the groups' partial sums then meet in an xor tree (offsets 1, 2, ...).
+    ``vec`` is the vector width the kernel picks from D and the pointers'
+    alignment (4, 2 or 1); it changes the lanes, not the sums' order.
+    """
+    R, MAXD = logits.shape
+    D = feats.shape[-1]
+    if vec is None:
+        vec = 4 if D % 4 == 0 else 2 if D % 2 == 0 else 1
+    lps, _, lpr, _ = agg_lanes(D, vec)
+    G, T = lpr // lps, AGG_CHUNK // lpr
+    nch = -(-MAXD // AGG_CHUNK)
+    rpw = 32 // lpr
+    Rp = -(-R // rpw) * rpw                       # the ragged last group
+    lg = torch.zeros((Rp, nch * AGG_CHUNK))
+    mk = torch.zeros((Rp, nch * AGG_CHUNK), dtype=torch.bool)
+    lg[:R, :MAXD] = logits.cpu()
+    mk[:R, :MAXD] = mask.cpu()
+    lane_lg = lg.view(Rp, nch, T, lpr)            # [row, pass, step, lane]
+    lane_mk = mk.view(Rp, nch, T, lpr)
+    mx = torch.where(lane_mk, lane_lg, float("-inf")).amax(dim=(1, 2, 3))
+    mx = torch.where(mx == float("-inf"), 0.0, mx)
+    ex = torch.where(lane_mk, torch.exp(lane_lg - mx[:, None, None, None]),
+                     0.0)
+    den = torch.zeros((Rp, lpr))
+    for c in range(nch):
+        for t in range(T):
+            den = den + ex[:, c, t]
+    offs = []
+    o = lpr // 2
+    while o:
+        offs.append(o)
+        o //= 2
+    den = _xor_tree(den, offs)[:, 0].clamp(min=1e-30)
+
+    fc = feats.cpu()
+    acc = torch.zeros((Rp, G, D))
+    read = []
+    for c in range(nch):
+        live = mk[:, c * AGG_CHUNK:(c + 1) * AGG_CHUNK]
+        cnt = live.sum(1)
+        # The pass's list: live slots in slot order, weights e / den.
+        order = torch.sort((~live).to(torch.int8), dim=1, stable=True).indices
+        slot = c * AGG_CHUNK + order
+        w = ex.view(Rp, -1)[:, c * AGG_CHUNK:(c + 1) * AGG_CHUNK].gather(
+            1, order) / den[:, None]
+        for k in range(-(-AGG_CHUNK // G)):
+            s = k * G + torch.arange(G)                         # (G,)
+            on = s[None, :] < cnt[:, None]                      # (Rp, G)
+            r_i, g_i = torch.nonzero(on, as_tuple=True)
+            j = slot[r_i, s[g_i]]
+            x = torch.zeros((Rp, G, D))
+            x[r_i, g_i] = fc[r_i, j]                            # live only
+            read += list(zip(r_i.tolist(), j.tolist()))
+            ws = torch.zeros((Rp, G))
+            ws[r_i, g_i] = w[r_i, s[g_i]]
+            acc = acc + ws[..., None] * x
+    offs = []
+    o = 1
+    while o < G:
+        offs.append(o)
+        o *= 2
+    out = _xor_tree(acc.transpose(1, 2), offs)[..., 0]          # (Rp, D)
+    return out[:R].to(logits.device), read
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     softcap: float | None = None,

@@ -731,14 +731,19 @@ def test_cuda_topk_score_matches_plain_version(cuda):
 @pytest.mark.gpu
 def test_cuda_embedding_bag_matches_plain_version(cuda):
     """On the card, with -1 slots, S not a multiple of the kernel's unroll,
-    and rows past 2**23 of a table wider than 2**31 floats (64-bit
-    offsets): rtol/atol 1e-6."""
+    bags of one slot and bags whose ids are all -1 (exactly 0), and rows
+    past 2**23 of a table wider than 2**31 floats (64-bit offsets): rtol/
+    atol 1e-6; two runs bit-equal."""
     rng = np.random.default_rng(10)
-    case = _bag_case(rng, 1000, 256, 64, 7)
-    table, ids, w = (t.to(cuda) for t in _t(*case))
-    torch.testing.assert_close(ops.embedding_bag(table, ids, w),
-                               ops.embedding_bag(table, ids, w, impl="ref"),
-                               rtol=1e-6, atol=1e-6)
+    for B, S in ((64, 7), (33, 1), (16, 32)):
+        table, ids, w = (t.to(cuda) for t in _t(*_bag_case(rng, 1000, 256,
+                                                             B, S)))
+        ids[1] = -1
+        got = ops.embedding_bag(table, ids, w)
+        torch.testing.assert_close(got, ops.embedding_bag(
+            table, ids, w, impl="ref"), rtol=1e-6, atol=1e-6)
+        assert torch.equal(got, ops.embedding_bag(table, ids, w))
+        assert torch.equal(got[1], torch.zeros_like(got[1]))
     V = 2**23 + 4096
     big = torch.empty((V, 256), device=cuda).normal_()
     ids = torch.from_numpy(rng.integers(2**23, V, (32, 8)).astype(
@@ -820,20 +825,33 @@ def test_cuda_flash_attention_matches_plain_version(cuda):
 def test_cuda_neigh_softmax_agg_matches_plain_version(cuda):
     """On the card: the kernel against its plain version within rtol 1e-4
     atol 1e-5 at the reference's shapes, GAT's widths (D = 8 and 47, MAXD
-    56), MAXD above 32 and D above 64 (several slot chunks and column
-    tiles), D = 1, a D that 32 does not divide, and no rows; empty rows
-    give exactly 0, and NaN features in masked slots, which the kernel
-    never reads, do not reach the output."""
+    56), MAXD of 1, 64 and 65 and above (one pass of 64 slots, and several),
+    D above 64 and above a row's 128 vectors (column tiles), D = 1, a D that
+    32 does not divide, a ragged last row group, feature pointers that are
+    not 16- or 8-byte aligned (narrower vectors), and no rows; empty rows
+    give exactly 0, two runs are bit-equal, and NaN features in masked
+    slots, which the kernel never reads, do not reach the output."""
     rng = np.random.default_rng(15)
-    for N, MAXD, D in [(64, 16, 32), (130, 8, 64), (257, 56, 47),
-                       (100, 56, 8), (300, 100, 130), (65, 3, 1),
-                       (99, 33, 10), (0, 56, 47)]:
+    for N, MAXD, D, shift in [
+            (64, 16, 32, 0), (130, 8, 64, 0), (257, 56, 47, 0),
+            (100, 56, 8, 0), (300, 100, 130, 0), (65, 3, 1, 0),
+            (99, 33, 10, 0), (0, 56, 47, 0), (101, 1, 8, 0), (77, 64, 8, 0),
+            (77, 65, 47, 0), (31, 129, 8, 0), (45, 20, 1030, 0),
+            (103, 56, 8, 1), (103, 56, 8, 2), (57, 56, 47, 1)]:
         lg, ft, mk = (t.to(cuda) for t in _t(*_agg_case(rng, N, MAXD, D)))
+
+        def at_shift(x):  # the same values `shift` floats past an alignment
+            buf = torch.empty(x.numel() + shift, device=cuda)
+            buf[shift:] = x.reshape(-1)
+            return buf[shift:].view(x.shape)
+
+        ft = at_shift(ft)
         got = ops.neigh_softmax_agg(lg, ft, mk)
         torch.testing.assert_close(
             got, ops.neigh_softmax_agg(lg, ft, mk, impl="ref"), rtol=1e-4,
             atol=1e-5)
+        assert torch.equal(got, ops.neigh_softmax_agg(lg, ft, mk))
         assert torch.equal(got[::5], torch.zeros_like(got[::5]))
-        hidden = ft.masked_fill(~mk[..., None], float("nan"))
+        hidden = at_shift(ft.masked_fill(~mk[..., None], float("nan")))
         torch.testing.assert_close(ops.neigh_softmax_agg(lg, hidden, mk), got,
                                    rtol=0, atol=0)
