@@ -25,7 +25,19 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    ``specqp`` and ``trinit`` modes, with the kernels' launch counters set to
    0 just before and read just after; check TriniT (rings uncapped)
    against the full-scan oracle on the card and two queries against the
-   port on the CPU;
+   port on the CPU. Then, on the same store and each with the counters
+   set to 0 just before and read just after: the sketch planner
+   (``cardinality_mode="sketch"``) through the same executor, with plan
+   seconds exact against sketch per plan group, the share of (T, R) mask
+   bits and whole masks equal to the exact plans, precision against
+   TriniT, QPS and p50/p99, and two queries' estimates held against the
+   port on the CPU (zeros and the 0.5 gate equal, atol 4e-3 rtol 1e-5);
+   the pipelined plan/execute path in both modes, every query's keys,
+   scores and counters equal to the offline pass's, with the planner's
+   seconds under execution; the 32 queries as Poisson arrivals through the
+   ``MicroBatcher`` at 0.5x and 0.9x of the offline specqp QPS (p50/p99
+   from submit to resolution), and all 32 at once drained by ``close()``,
+   every future's result equal to the offline pass's;
 5. retrieval at the ``retrieval_cand`` shape of
    ``configs/two_tower_retrieval``: ``topk_score_pruned`` held against its
    plain version on a 1,048,576 x 256 norm-clustered corpus (Cauchy,
@@ -119,6 +131,9 @@ SEED = 0
 SERVE_BATCH = 512
 SERVE_BATCHES = 16
 CORPUS_CHUNK = 65536
+# Sketch estimates of the card against the port on the CPU: the bar of
+# tests/test_torch_sketches.py (zeros and the 0.5 gate exactly equal).
+SKETCH_ATOL, SKETCH_RTOL = 4e-3, 1e-5
 # LM serving: prompts, prompt length (cut from prefill_32k's 32 x 32768),
 # decode steps (cut from decode_32k's 128 x 32768), timed prefills
 LM_BATCH = 4
@@ -486,6 +501,7 @@ def main_path(np, torch, dev):
         engine.run_query(wl.store, wl.relax, queries[0], cfg, m, device=dev)
     torch.cuda.synchronize()
 
+    plan_spans = record_spans(execs["specqp"], "plan_group")
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launches()
     served, report = {}, {}
@@ -543,10 +559,7 @@ def main_path(np, torch, dev):
                  "naive_full_scan")
         key_match += int(np.array_equal(bk, exact.keys[i].cpu().numpy()))
         capped_match += int(np.allclose(bs, r.scores, rtol=1e-5))
-    precision = np.mean([
-        len(set(a.keys[a.keys >= 0]) & set(b.keys[b.keys >= 0]))
-        / max(int((b.keys >= 0).sum()), 1)
-        for a, b in zip(served["specqp"], served["trinit"])])
+    precision = precision_vs(np, served["specqp"], served["trinit"])
     print(f"trinit (no seen cap) == naive_full_scan on all {len(queries)} "
           f"queries (scores rtol 1e-5; keys identical on {key_match}); "
           f"with seen_cap={cfg.seen_cap} on {capped_match}; specqp "
@@ -575,7 +588,223 @@ def main_path(np, torch, dev):
     print(f"card and CPU agree on keys and counters of queries "
           f"{order[:2].tolist()}; CPU plans equal the card's on "
           f"{plans_agree}/2")
-    return launches, report, (wl, queries, bcfg)
+    report["specqp"]["plan_groups_s"] = [b - a for a, b in plan_spans]
+    return launches, report, dict(wl=wl, queries=queries, bcfg=bcfg,
+                                  served=served, cpu=(store_c, relax_c),
+                                  cpu_queries=order[:2].tolist())
+
+
+def record_spans(obj, name: str) -> list:
+    """Wrap the method ``name`` of ``obj`` so each call logs its (start,
+    end) on the host clock; returns the log."""
+    spans, fn = [], getattr(obj, name)
+
+    def wrapped(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            spans.append((t0, time.perf_counter()))
+
+    setattr(obj, name, wrapped)
+    return spans
+
+
+def overlap_s(spans_a, spans_b) -> float:
+    """Seconds in which a span of one log and a span of the other overlap
+    (spans within a log do not overlap each other)."""
+    return sum(max(0.0, min(a1, b1) - max(a0, b0))
+               for a0, a1 in spans_a for b0, b1 in spans_b)
+
+
+def precision_vs(np, got, ref) -> float:
+    """Mean share of each reference top-k found in the other's top-k."""
+    return float(np.mean([
+        len(set(a.keys[a.keys >= 0]) & set(b.keys[b.keys >= 0]))
+        / max(int((b.keys >= 0).sum()), 1) for a, b in zip(got, ref)]))
+
+
+def check_same_results(np, label: str, got, want) -> None:
+    """Keys, scores and work counters equal query by query."""
+    if len(got) != len(want):
+        fail(f"{label}: {len(got)} results for {len(want)} queries")
+    for i, (g, w) in enumerate(zip(got, want)):
+        same = (np.array_equal(g.keys, w.keys)
+                and np.array_equal(g.scores, w.scores)
+                and all(getattr(g, f) == getattr(w, f)
+                        for f in ("n_pulled", "n_answers", "n_iters")))
+        if not same:
+            fail(f"{label}: query {i} differs from the offline pass")
+
+
+def path_launches(ops, label: str) -> dict:
+    """The counts since the last reset; fails unless both KG kernels ran."""
+    launches = ops.launches()
+    if not (launches["rank_join_lookup"] > 0 and launches["merge_topk"] > 0):
+        fail(f"{label}: a kernel of the KG path was never launched: "
+             f"{launches}")
+    return launches
+
+
+def latency_line(np, lat) -> str:
+    return (f"p50 {float(np.percentile(lat, 50)) * 1e3:.1f} ms p99 "
+            f"{float(np.percentile(lat, 99)) * 1e3:.1f} ms")
+
+
+def online_path(np, torch, dev, report, st) -> None:
+    """Phase 4, continued, on the kg-specqp store already on the card: the
+    sketch planner through the offline refill executor, the pipelined
+    plan/execute path in both cardinality modes, and a Poisson replay
+    through the MicroBatcher at 0.5x and 0.9x of the offline specqp QPS,
+    each with the counters set to 0 just before and read just after."""
+    from repro_torch.configs import kg_specqp
+    from repro_torch.core import engine, sketches
+    from repro_torch.kernels import ops
+    from repro_torch.launch import batching, serve
+
+    wl, queries, bcfg, served = st["wl"], st["queries"], st["bcfg"], \
+        st["served"]
+    exact_cfg = kg_specqp.ENGINE
+    sketch_cfg = dataclasses.replace(exact_cfg, cardinality_mode="sketch")
+
+    # --- the sketch planner, offline ---
+    ex = batching.BatchExecutor(wl.store, wl.relax, sketch_cfg, "specqp",
+                                bcfg, device=dev)
+    engine.plan_query_batch(wl.store, wl.relax, queries[0][None], sketch_cfg,
+                            "specqp", dev)         # warm-up, off the clock
+    torch.cuda.synchronize()
+    spans = record_spans(ex, "plan_group")
+    ops.reset_launches()
+    sk_res, wall, lat = serve.serve_offline(ex, queries)
+    torch.cuda.synchronize()
+    launches = path_launches(ops, "sketch pass")
+    ex_groups = report["specqp"]["plan_groups_s"]
+    sk_groups = [b - a for a, b in spans]
+    bits = sum(int((a.relax_mask == b.relax_mask).sum())
+               for a, b in zip(sk_res, served["specqp"]))
+    n_bits = sum(b.relax_mask.size for b in served["specqp"])
+    whole = sum(int(np.array_equal(a.relax_mask, b.relax_mask))
+                for a, b in zip(sk_res, served["specqp"]))
+    print(f"sketch pass: {len(queries) / wall:.2f} QPS | "
+          f"{latency_line(np, lat)} | mean n_pulled "
+          f"{np.mean([r.n_pulled for r in sk_res]):.1f} | launches "
+          f"{launches}")
+    print(f"plan seconds in the serving passes, exact against sketch (W = "
+          f"{wl.store.sketch.shape[-1]}, L = {wl.store.keys.shape[1]}; a "
+          f"shape's first call on the machine included): total "
+          f"{sum(ex_groups):.4f} s against {sum(sk_groups):.4f} s; per plan "
+          f"group " + ", ".join(
+              f"{a:.4f}/{b:.4f}" for a, b in zip(ex_groups, sk_groups)))
+    # Warm, in turns: each plan group of the passes, median of 3 a mode.
+    planners = {c: batching.BatchExecutor(wl.store, wl.relax, cfg, "specqp",
+                                          bcfg, device=dev)
+                for c, cfg in (("exact", exact_cfg), ("sketch", sketch_cfg))}
+    warm = []
+    for idxs in ex.by_t_bucket(queries):
+        g = [queries[j] for j in idxs]
+        t_b = ex._t_bucket(max(ex._true_t(q) for q in g))
+        times = {c: [] for c in planners}
+        for rep in range(4):
+            for c, p in planners.items():
+                t0 = time.perf_counter()
+                p.plan_group(g, ex._m_bucket(len(g)))
+                if rep:
+                    times[c].append(time.perf_counter() - t0)
+        warm.append((t_b, len(g), *(float(np.median(times[c]))
+                                    for c in planners)))
+    print("plan seconds warm, exact against sketch, per plan group (T "
+          "bucket x queries: median of 3, in turns): " + ", ".join(
+              f"T{t} x {n}: {a:.4f}/{b:.4f}" for t, n, a, b in warm)
+          + f"; total {sum(w[2] for w in warm):.4f}/"
+          f"{sum(w[3] for w in warm):.4f} s")
+    print(f"sketch masks equal the exact plans on {bits}/{n_bits} (T, R) "
+          f"bits ({100 * bits / n_bits:.2f} %) and {whole}/{len(queries)} "
+          f"whole masks; precision vs capped trinit: sketch "
+          f"{precision_vs(np, sk_res, served['trinit']):.4f}, exact "
+          f"{precision_vs(np, served['specqp'], served['trinit']):.4f}")
+
+    # The port on the CPU estimates what the card estimates.
+    store_c, relax_c = st["cpu"]
+    for i in st["cpu_queries"]:
+        q = torch.from_numpy(queries[i][None]).long()
+        for name, fn in (("cardinalities", sketches.sketch_cardinalities),
+                         ("joinable counts",
+                          sketches.sketch_joinable_counts)):
+            card = fn(wl.store, wl.relax, q.to(dev), (q != -1).to(dev))
+            cpu = fn(store_c, relax_c, q, q != -1)
+            card = card if isinstance(card, tuple) else (card,)
+            cpu = cpu if isinstance(cpu, tuple) else (cpu,)
+            for a, b in zip(card, cpu):
+                a, b = a.cpu().numpy(), b.numpy()
+                if not (np.array_equal(a == 0, b == 0)
+                        and np.array_equal(a < 0.5, b < 0.5)
+                        and np.allclose(a, b, rtol=SKETCH_RTOL,
+                                        atol=SKETCH_ATOL)):
+                    fail(f"query {i}: sketch {name} on the CPU differ from "
+                         f"the card's (max gap {np.abs(a - b).max()})")
+    print(f"card and CPU sketch estimates agree on queries "
+          f"{st['cpu_queries']} (zeros and the 0.5 gate equal, atol "
+          f"{SKETCH_ATOL} rtol {SKETCH_RTOL})")
+
+    # --- pipelined plan/execute, both cardinality modes ---
+    pipe = dataclasses.replace(bcfg, pipeline=True)
+    for card, cfg, want in (("exact", exact_cfg, served["specqp"]),
+                            ("sketch", sketch_cfg, sk_res)):
+        ex = batching.BatchExecutor(wl.store, wl.relax, cfg, "specqp", pipe,
+                                    device=dev)
+        plans = record_spans(ex, "plan_group")
+        runs = record_spans(ex, "run_stream")
+        ops.reset_launches()
+        res, wall, lat = serve.serve_offline(ex, queries)
+        torch.cuda.synchronize()
+        path_launches(ops, f"pipelined {card} pass")
+        check_same_results(np, f"pipelined {card} pass", res, want)
+        print(f"pipelined {card}: {len(queries) / wall:.2f} QPS | "
+              f"{latency_line(np, lat)} | planner "
+              f"{sum(b - a for a, b in plans):.4f} s in {len(plans)} "
+              f"groups, {overlap_s(plans, runs):.4f} s of it under "
+              f"execution | results equal the offline pass")
+
+    # --- online: Poisson arrivals through the MicroBatcher ---
+    base_qps = report["specqp"]["qps"]
+    for frac in (0.5, 0.9):
+        rate = frac * base_qps
+        ex = batching.BatchExecutor(wl.store, wl.relax, exact_cfg, "specqp",
+                                    bcfg, device=dev)
+        ops.reset_launches()
+        try:
+            res, wall, lat = serve.serve_online(ex, queries, rate, SEED)
+        except Exception as e:  # noqa: BLE001 — a future held an error
+            fail(f"online replay at {rate:.3f}/s: {e!r}")
+        launches = path_launches(ops, f"online replay at {rate:.3f}/s")
+        check_same_results(np, f"online replay at {rate:.3f}/s", res,
+                           served["specqp"])
+        print(f"online {frac:g}x ({rate:.3f} arrivals/s): "
+              f"{len(queries) / wall:.2f} QPS | {latency_line(np, lat)} | "
+              f"{len(ex.stats)} executor calls, mean "
+              f"{np.mean([s.n_requests for s in ex.stats]):.2f} requests | "
+              f"launches {launches['rank_join_lookup']} + "
+              f"{launches['merge_topk']} | results equal the offline pass")
+    # close() serves what is still queued: submit all, close at once.
+    ex = batching.BatchExecutor(wl.store, wl.relax, exact_cfg, "specqp",
+                                bcfg, device=dev)
+    ops.reset_launches()
+    mb = batching.MicroBatcher(ex)
+    futs = [mb.submit(q) for q in queries]
+    t0 = time.perf_counter()
+    mb.close()
+    drained = time.perf_counter() - t0
+    path_launches(ops, "drain on close")
+    if mb._thread.is_alive() or not all(f.done() for f in futs):
+        fail("MicroBatcher.close() returned with requests unresolved")
+    errors = [f.exception() for f in futs if f.exception() is not None]
+    if errors:
+        fail(f"MicroBatcher.close(): a future holds {errors[0]!r}")
+    check_same_results(np, "drain on close", [f.result() for f in futs],
+                       served["specqp"])
+    print(f"close() drained {len(futs)} queued requests in {drained:.2f} s "
+          f"({len(ex.stats)} executor calls); results equal the offline "
+          f"pass")
 
 
 def profile_window(torch, label: str, fn) -> list:
@@ -1788,7 +2017,11 @@ def main() -> None:
         print(f"chip_smoke --kg-only took "
               f"{time.perf_counter() - T_START:.1f} s")
         return
-    launches, _, state = main_path(np, torch, dev)
+    launches, report, state = main_path(np, torch, dev)
+    t4 = time.perf_counter()
+    online_path(np, torch, dev, report, state)
+    print(f"phase 4's sketch, pipelined and online passes took "
+          f"{time.perf_counter() - t4:.1f} s")
     print(f"phase 4 done at {time.perf_counter() - t0:.1f} s")
     for name, row in rows.items():
         row["launches"] = launches[name]
@@ -1805,7 +2038,8 @@ def main() -> None:
     for k in kernels:
         print(f"{k['name']}: {k['launches']} launches on its path")
     if prof:
-        profile_main_path(np, torch, dev, *state)
+        profile_main_path(np, torch, dev, state["wl"], state["queries"],
+                          state["bcfg"])
     print(f"chip_smoke took {time.perf_counter() - T_START:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,27 +1,22 @@
 """Expected-score estimator (§3.1): join cardinalities + order statistics.
 
-Counterpart of ``repro.core.estimator`` in its exact mode: join
-selectivities are exact, computed with batched binary searches
-(``torch.searchsorted``) over the key-sorted copies in the store. Every
-function takes a batch of queries, ``pattern_ids`` (Q, T), where the JAX
-functions take one query and are vmapped. ``cardinality_mode="sketch"`` is
-not ported yet and raises ``NotImplementedError``.
+Counterpart of ``repro.core.estimator``. Cardinalities come in two
+flavours behind ``cardinality_mode``: ``"exact"`` join selectivities,
+computed with batched binary searches (``torch.searchsorted``) over the
+key-sorted copies in the store (cost grows with L), and ``"sketch"``
+estimates from the bitmap signatures (``sketches``; O(W) per probe,
+independent of L). Every function takes a batch of queries,
+``pattern_ids`` (Q, T), where the JAX functions take one query and are
+vmapped.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core import histogram
+from repro_torch.core import histogram, sketches
 from repro_torch.core.types import (TripleStore, RelaxTable, PAD_KEY,
                                     KEY_SENTINEL)
-
-
-def _check_mode(mode: str) -> None:
-    if mode == "sketch":
-        raise NotImplementedError(
-            "cardinality_mode='sketch' is not ported to PyTorch yet")
-    if mode != "exact":
-        raise ValueError(f"unknown cardinality_mode: {mode!r}")
+from repro_torch.core.types import safe_ids as _safe
 
 
 def member(sorted_keys: torch.Tensor, probes: torch.Tensor) -> torch.Tensor:
@@ -30,11 +25,6 @@ def member(sorted_keys: torch.Tensor, probes: torch.Tensor) -> torch.Tensor:
     idx = idx.clamp(0, sorted_keys.shape[-1] - 1)
     found = sorted_keys.gather(-1, idx) == probes
     return found & (probes != PAD_KEY) & (probes != KEY_SENTINEL)
-
-
-def _safe(ids: torch.Tensor) -> torch.Tensor:
-    ids = ids.long()
-    return torch.where(ids == PAD_KEY, 0, ids)
 
 
 def star_join_cardinality(store: TripleStore, pattern_ids: torch.Tensor,
@@ -103,13 +93,25 @@ def joinable_counts(store: TripleStore, relax: RelaxTable,
 
 
 def cardinalities(store, relax, pattern_ids, active, mode: str = "exact"):
-    _check_mode(mode)
-    return exact_cardinalities(store, relax, pattern_ids, active)
+    """(n, n_rel) join cardinalities under ``mode`` ∈ {"exact", "sketch"}."""
+    if mode == "exact":
+        return exact_cardinalities(store, relax, pattern_ids, active)
+    if mode == "sketch":
+        return sketches.sketch_cardinalities(store, relax, pattern_ids,
+                                             active)
+    raise ValueError(f"unknown cardinality_mode: {mode!r}")
 
 
 def joinability(store, relax, pattern_ids, active, mode: str = "exact"):
-    _check_mode(mode)
-    return joinable_counts(store, relax, pattern_ids, active)
+    """(Q, T, R) joinable-key counts under ``mode`` ∈ {"exact", "sketch"};
+    the sketch flavour's positives are estimates (see
+    ``sketches.round_joinability``)."""
+    if mode == "exact":
+        return joinable_counts(store, relax, pattern_ids, active)
+    if mode == "sketch":
+        return sketches.sketch_joinable_counts(store, relax, pattern_ids,
+                                               active)
+    raise ValueError(f"unknown cardinality_mode: {mode!r}")
 
 
 def leave_one_out_pmfs(pmfs: torch.Tensor, active: torch.Tensor

@@ -4,14 +4,15 @@ Counterpart of ``repro.core.plangen``. The plan is a ``(T, R)`` boolean
 mask — one bit per (pattern, relaxation) pair: pattern t is relaxed when
 any relaxation's expected best score E_Q'(1) beats the original query's
 expected k-th score E_Q(k), and then every relaxation that can join at all
-rides along (a provably lossless prune of the dead ones). ``plan`` takes
-one query (T,) or a batch (Q, T) and returns (T, R) or (Q, T, R).
+rides along (a provably lossless prune of the dead ones; in sketch mode
+sub-half-key joinability estimates count as dead). ``plan`` takes one
+query (T,) or a batch (Q, T) and returns (T, R) or (Q, T, R).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core import estimator
+from repro_torch.core import estimator, sketches
 from repro_torch.core.types import TripleStore, RelaxTable, PAD_KEY
 
 
@@ -38,7 +39,8 @@ def plan(store: TripleStore, relax: RelaxTable, pattern_ids: torch.Tensor,
          cardinality_mode: str = "exact") -> torch.Tensor:
     """Speculative plan for a star query (T,) or a batch (Q, T).
 
-    Rows of padded patterns and padded relaxation slots are always False.
+    ``cardinality_mode``: "exact" (binary-search selectivities, cost grows
+    with L) or "sketch" (bitmap-signature estimates, L-independent). Rows of padded patterns and padded relaxation slots are always False.
     """
     single = pattern_ids.dim() == 1
     pids = pattern_ids.long()
@@ -49,6 +51,8 @@ def plan(store: TripleStore, relax: RelaxTable, pattern_ids: torch.Tensor,
         store, relax, pids, active, k, G, cardinality_mode)
     n_joinable = estimator.joinability(store, relax, pids, active,
                                        cardinality_mode)
+    if cardinality_mode == "sketch":
+        n_joinable = sketches.round_joinability(n_joinable)
     rel_exists = relax.ids[torch.where(active, pids, 0)] != PAD_KEY
     mask = plan_from_estimates(e_qk, e_q1, n_joinable, rel_exists, active,
                                sibling_slack)

@@ -35,6 +35,13 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def safe_ids(ids: torch.Tensor) -> torch.Tensor:
+    """Pattern ids as int64 with ``PAD_KEY`` mapped to 0, for gathers (the
+    rows they fetch for padding are masked out by the caller)."""
+    ids = ids.long()
+    return torch.where(ids == PAD_KEY, 0, ids)
+
+
 def check_on(device: torch.device, *tensors: torch.Tensor) -> None:
     """Raise unless every tensor lies on ``device``'s type of device."""
     for t in tensors:
@@ -114,7 +121,8 @@ class EngineConfig:
     grid_bins: int = 512      # histogram grid resolution per unit score
     # Sibling-pruning aggressiveness of the (T, R) planner (plangen.plan).
     plan_slack: float | None = None
-    # "exact" only in this slice; "sketch" raises NotImplementedError.
+    # Planner cardinalities: "exact" (binary searches, cost grows with L)
+    # or "sketch" (bitmap signatures, L-independent; core/sketches.py).
     cardinality_mode: str = "exact"
     # Cap on the per-stream seen ring (None = worst-case R1·L sizing),
     # rounded up to whole blocks (engine._seen_size).

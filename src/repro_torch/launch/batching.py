@@ -1,25 +1,30 @@
-"""Batched serving layer: shape buckets + the offline batch executor.
+"""Batched serving layer: shape buckets, the batch executor, the request
+queue.
 
-Counterpart of ``repro.launch.batching`` (offline half). Requests' ``(T,)``
-pattern vectors are padded up to T buckets and batches up to Q buckets, as
-in the JAX package; eager PyTorch compiles nothing per shape, but the same
-padding keeps every per-request result — ``n_wasted`` drain accounting on
-pad queue entries included — equal to the reference's. ``BatchExecutor``
-plans a group, composes execution groups by planned work, and runs them
-through the engine's one executor loop: fixed micro-batches (lanes = Q) or
-the continuous-refill stream (lanes < M) with ``BatchingConfig.refill``.
-
-Not ported yet: ``MicroBatcher`` (threaded queue) and the pipelined
-plan/execute path; ``pipeline=True`` raises ``NotImplementedError``.
+Counterpart of ``repro.launch.batching``. Requests' ``(T,)`` pattern
+vectors are padded up to T buckets and batches up to Q buckets, as in the
+JAX package; eager PyTorch compiles nothing per shape, but the same padding
+keeps every per-request result — ``n_wasted`` drain accounting on pad queue
+entries included — equal to the reference's. ``BatchExecutor`` plans a
+group, composes execution groups by planned work, and runs them through the
+engine's one executor loop: fixed micro-batches (lanes = Q) or the
+continuous-refill stream (lanes < M) with ``BatchingConfig.refill``. With
+``BatchingConfig.pipeline`` a planner thread plans group i+1 on a CUDA
+stream of its own while group i executes. ``MicroBatcher`` is the threaded
+request queue in front of an executor: it flushes a group when
+``max_batch`` requests wait or the oldest has waited ``max_wait_s``.
 
 Correctness contract: per-request results are element-wise identical to
 ``engine.run_query`` on the unpadded query.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import queue
 import threading
 import time
+from concurrent.futures import Future, ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -51,13 +56,15 @@ def default_t_buckets(t_max: int) -> tuple[int, ...]:
 class BatchingConfig:
     """Serving-layer knobs (engine knobs live in EngineConfig)."""
 
-    max_batch: int = 16            # largest fixed micro-batch
+    max_batch: int = 16            # flush threshold / largest micro-batch
+    max_wait_s: float = 0.002      # oldest queued request's longest wait
     q_buckets: tuple[int, ...] = (1, 4, 16, 64)
     t_buckets: tuple[int, ...] | None = None
     refill: bool = False           # continuous-refill configuration
     lanes: int | None = None       # lanes for refill (None → max_batch)
     refill_depth: int = 64         # queue entries per streaming call
-    pipeline: bool = False         # not ported yet: raises
+    # Plan group i+1 on a planner thread while group i executes.
+    pipeline: bool = False
 
     def __post_init__(self):
         if self.max_batch < 1:
@@ -75,9 +82,6 @@ class BatchingConfig:
             raise ValueError(
                 "refill_depth must cover max_batch: "
                 f"{self.refill_depth} < {self.max_batch}")
-        if self.pipeline:
-            raise NotImplementedError(
-                "pipeline=True (plan/execute overlap) is not ported yet")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,8 +186,10 @@ class BatchExecutor:
         return 0
 
     def _sync(self) -> None:
+        """Wait for this thread's stream only: under the pipeline the
+        planner's stream runs on, and must not be timed as execution."""
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.current_stream(self.device).synchronize()
 
     def plan_group(self, group, q_b: int | None = None
                    ) -> tuple[list[np.ndarray], float]:
@@ -303,25 +309,36 @@ class BatchExecutor:
         return self._finish_batch(res, group, m_b, t_b, dt, plan_s, trips,
                                   wasted=int(w_all.sum()))
 
+    def _exec_cap(self) -> int:
+        return (self.bcfg.refill_depth if self.bcfg.refill
+                else self.bcfg.max_batch)
+
+    def by_t_bucket(self, queries) -> list[list[int]]:
+        """Request indices grouped by T bucket, buckets ascending, each in
+        arrival order."""
+        by_bucket: dict[int, list[int]] = {}
+        for i, q in enumerate(queries):
+            by_bucket.setdefault(self._t_bucket(self._true_t(q)), []).append(i)
+        return [idxs for _, idxs in sorted(by_bucket.items())]
+
     def run(self, queries) -> list[ServedResult]:
         """Serve a request list offline: plan → schedule → execute.
 
         Per T bucket, plan in arrival order, then compose execution groups
         by planned work: ascending for fixed batches (similar-cost lanes
         share a lockstep loop), descending for refill (longest processing
-        time first shrinks the end-of-queue drain). Results follow
-        ``queries``' order.
+        time first shrinks the end-of-queue drain). With
+        ``BatchingConfig.pipeline`` planning overlaps execution instead
+        (``_run_pipelined``). Results follow ``queries``' order.
         """
-        by_bucket: dict[int, list[int]] = {}
-        for i, q in enumerate(queries):
-            by_bucket.setdefault(self._t_bucket(self._true_t(q)), []).append(i)
+        if self.bcfg.pipeline:
+            return self._run_pipelined(queries)
         out: list[ServedResult | None] = [None] * len(queries)
         serve = self.run_stream if self.bcfg.refill else self.run_batch
-        exec_cap = (self.bcfg.refill_depth if self.bcfg.refill
-                    else self.bcfg.max_batch)
+        exec_cap = self._exec_cap()
         chunk_cap = (self.bcfg.refill_depth if self.bcfg.refill
                      else bucket_for(self.bcfg.max_batch, self.bcfg.q_buckets))
-        for _, idxs in sorted(by_bucket.items()):
+        for idxs in self.by_t_bucket(queries):
             masks: dict[int, np.ndarray] = {}
             for c in range(0, len(idxs), chunk_cap):
                 chunk = idxs[c:c + chunk_cap]
@@ -339,9 +356,157 @@ class BatchExecutor:
                     out[j] = r
         return out  # type: ignore[return-value]
 
+    def _run_pipelined(self, queries) -> list[ServedResult]:
+        """Double-buffered plan/execute: a planner thread plans execution
+        group i+1 while group i executes.
+
+        Groups follow arrival order: the planned-work sort of ``run`` needs
+        every plan before the first execute, the very barrier the pipeline
+        removes. On a card the planner queues its work on a CUDA stream of
+        its own, so the executor's per-trip read-back waits on its own
+        stream and not on the planner's queued kernels.
+        """
+        out: list[ServedResult | None] = [None] * len(queries)
+        serve = self.run_stream if self.bcfg.refill else self.run_batch
+        exec_cap = self._exec_cap()
+        chunks = [idxs[c:c + exec_cap] for idxs in self.by_t_bucket(queries)
+                  for c in range(0, len(idxs), exec_cap)]
+        stream = (torch.cuda.Stream(self.device)
+                  if self.device.type == "cuda" else None)
+
+        def plan_for(chunk):
+            q_b = (self._m_bucket(len(chunk)) if self.bcfg.refill
+                   else bucket_for(len(chunk), self.bcfg.q_buckets))
+            with (torch.cuda.stream(stream) if stream is not None
+                  else contextlib.nullcontext()):
+                return self.plan_group([queries[j] for j in chunk], q_b)[0]
+
+        with ThreadPoolExecutor(max_workers=1,
+                                thread_name_prefix="planner") as pool:
+            fut = pool.submit(plan_for, chunks[0]) if chunks else None
+            for c, chunk in enumerate(chunks):
+                ms = fut.result()
+                if c + 1 < len(chunks):
+                    fut = pool.submit(plan_for, chunks[c + 1])
+                rs = serve([queries[j] for j in chunk], masks=ms)
+                for j, r in zip(chunk, rs):
+                    out[j] = r
+        return out  # type: ignore[return-value]
+
     def wasted_fraction(self) -> float:
         """Share of real-lane lockstep trips spent idle since the last
         ``reset_stats()``."""
         with self._lock:
             return self._wasted_total / max(
                 self._useful_total + self._wasted_total, 1)
+
+
+class MicroBatcher:
+    """Threaded request queue in front of a BatchExecutor.
+
+    ``submit`` returns a Future resolving to a ServedResult. A worker
+    thread flushes a micro-batch when ``max_batch`` requests are queued or
+    the oldest has waited ``max_wait_s``. Flushed requests are grouped by
+    T bucket, one executor call per group. Use as a context manager, or
+    call ``close()``.
+    """
+
+    _STOP = object()
+
+    def __init__(self, executor: BatchExecutor):
+        self.executor = executor
+        self._q: queue.Queue = queue.Queue()
+        self._lock = threading.Lock()
+        self._closed = False
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def submit(self, query) -> Future:
+        """Enqueue one request. After ``close()`` the future fails at once
+        with RuntimeError: no request is enqueued behind the stop mark."""
+        fut: Future = Future()
+        with self._lock:
+            if self._closed:
+                fut.set_exception(RuntimeError(
+                    "MicroBatcher is closed; request rejected"))
+                return fut
+            self._q.put((np.asarray(query, np.int32), fut))
+        return fut
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def close(self) -> None:
+        """Stop accepting requests, serve everything queued, join the
+        worker. Every future submitted before close() has resolved when it
+        returns. Idempotent."""
+        with self._lock:
+            already = self._closed
+            self._closed = True
+            if not already:
+                self._q.put(self._STOP)
+        if self._thread.is_alive():
+            self._thread.join()
+
+    def _loop(self) -> None:
+        bcfg = self.executor.bcfg
+        while True:
+            item = self._q.get()
+            if item is self._STOP:
+                self._drain_and_exit([])
+                return
+            pending = [item]
+            deadline = time.perf_counter() + bcfg.max_wait_s
+            while len(pending) < bcfg.max_batch:
+                left = deadline - time.perf_counter()
+                if left <= 0:
+                    break
+                try:
+                    nxt = self._q.get(timeout=left)
+                except queue.Empty:
+                    break
+                if nxt is self._STOP:
+                    self._drain_and_exit(pending)
+                    return
+                pending.append(nxt)
+            self._flush(pending)
+
+    def _drain_and_exit(self, pending) -> None:
+        """Serve everything still queued at shutdown, so no future is left
+        unresolved."""
+        pending = list(pending)
+        while True:
+            try:
+                item = self._q.get_nowait()
+            except queue.Empty:
+                break
+            if item is not self._STOP:
+                pending.append(item)
+        cap = self.executor.bcfg.max_batch
+        for c in range(0, len(pending), cap):
+            self._flush(pending[c:c + cap])
+
+    def _flush(self, pending) -> None:
+        """Serve one flush group. Never raises: an error, from bucketing a
+        malformed query or from the executor, goes to the futures it
+        affects, and the worker thread lives on."""
+        by_bucket: dict[int, list[tuple[np.ndarray, Future]]] = {}
+        for q, fut in pending:
+            try:
+                t_b = self.executor._t_bucket(self.executor._true_t(q))
+            except Exception as e:  # noqa: BLE001 — fail the request only
+                fut.set_exception(e)
+                continue
+            by_bucket.setdefault(t_b, []).append((q, fut))
+        for _, items in sorted(by_bucket.items()):
+            try:
+                results = self.executor.run_batch([q for q, _ in items])
+                for (_, fut), r in zip(items, results):
+                    fut.set_result(r)
+            except Exception as e:  # noqa: BLE001 — fail the batch only
+                for _, fut in items:
+                    if not fut.done():
+                        fut.set_exception(e)

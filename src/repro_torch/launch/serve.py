@@ -5,10 +5,10 @@ generates a workload on the device, answers it one query at a time (the
 sequential baseline), then serves it through ``launch.batching`` — the
 continuous-refill configuration of the executor by default, fixed batches
 with ``--no-refill`` — and reports QPS, p50/p99 latency and the
-wasted-iteration fraction. ``--device`` defaults to ``cuda``.
-
-Not ported yet: ``--arrival-qps`` (Poisson arrivals through a threaded
-micro-batcher) and ``--pipeline``; both raise ``NotImplementedError``.
+wasted-iteration fraction. ``--pipeline`` overlaps planning of group i+1
+with execution of group i; ``--arrival-qps`` replays the workload as a
+Poisson arrival process through the threaded ``MicroBatcher`` (latency
+then includes queue wait). ``--device`` defaults to ``cuda``.
 """
 from __future__ import annotations
 
@@ -58,6 +58,34 @@ def serve_offline(ex: batching.BatchExecutor, queries):
     return results, wall, lat
 
 
+def serve_online(ex: batching.BatchExecutor, queries, arrival_qps: float,
+                 seed: int):
+    """Replay ``queries`` as a Poisson process of rate ``arrival_qps``
+    through a MicroBatcher; returns (results, wall s, per-request latency
+    s). A request's latency runs from its submit to its future's
+    resolution, stamped by a done callback in the worker thread."""
+    gaps = np.random.default_rng(seed).exponential(1.0 / arrival_qps,
+                                                   size=len(queries))
+    done_t = np.zeros(len(queries))
+
+    def _mark(i):
+        return lambda _f: done_t.__setitem__(i, time.perf_counter())
+
+    ex.reset_stats()
+    with batching.MicroBatcher(ex) as mb:
+        futs, t_sub = [], []
+        t_start = time.perf_counter()
+        for i, (q, gap) in enumerate(zip(queries, gaps)):
+            time.sleep(gap)
+            t_sub.append(time.perf_counter())
+            f = mb.submit(q)
+            f.add_done_callback(_mark(i))
+            futs.append(f)
+        results = [f.result() for f in futs]
+        wall = time.perf_counter() - t_start
+    return results, wall, done_t - np.asarray(t_sub)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--dataset", default="xkg_mini",
@@ -77,16 +105,18 @@ def main(argv=None):
                     help="lanes for --refill (default: max-batch)")
     ap.add_argument("--refill-depth", type=int, default=64,
                     help="admission-queue entries per streaming call")
+    ap.add_argument("--max-wait-ms", type=float, default=2.0)
     ap.add_argument("--pipeline", action="store_true",
-                    help="not ported yet")
+                    help="overlap planning of group i+1 with execution of "
+                         "group i (offline mode)")
     ap.add_argument("--arrival-qps", type=float, default=None,
-                    help="not ported yet")
+                    help="replay as a Poisson arrival process through the "
+                         "threaded MicroBatcher (default: offline batches)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.arrival_qps is not None or args.pipeline:
-        raise NotImplementedError(
-            "--arrival-qps and --pipeline are not ported to PyTorch yet")
+    if args.arrival_qps is not None and args.arrival_qps <= 0:
+        ap.error(f"--arrival-qps must be > 0, got {args.arrival_qps}")
     if args.lanes is not None and args.lanes < 1:
         ap.error(f"--lanes must be >= 1, got {args.lanes}")
     if args.refill_depth < 1:
@@ -104,23 +134,31 @@ def main(argv=None):
     q_buckets = tuple(sorted({b for b in (1, 4, 16, 64)
                               if b <= args.max_batch} | {args.max_batch}))
     bcfg = batching.BatchingConfig(
-        max_batch=args.max_batch, q_buckets=q_buckets, t_buckets=tuple(t_set),
-        refill=args.refill, lanes=args.lanes, refill_depth=args.refill_depth)
+        max_batch=args.max_batch, max_wait_s=args.max_wait_ms * 1e-3,
+        q_buckets=q_buckets, t_buckets=tuple(t_set), refill=args.refill,
+        lanes=args.lanes, refill_depth=args.refill_depth,
+        pipeline=args.pipeline)
     ex = batching.BatchExecutor(wl.store, wl.relax, cfg, args.mode, bcfg,
                                 device)
     extra = (f" refill(lanes={ex._lanes_n()}, depth={bcfg.refill_depth})"
              if args.refill else "")
     print(f"{args.dataset} mode={args.mode} k={args.k} device={device}: "
-          f"{len(queries)} queries{extra}")
+          f"{len(queries)} queries{extra}"
+          f"{' pipeline' if args.pipeline else ''}")
 
     seq_wall, seq_lat = sequential_baseline(wl, cfg, args.mode, queries,
                                             device)
     print(f"  sequential: {len(queries) / seq_wall:7.1f} QPS | "
           f"p50 {np.percentile(seq_lat, 50) * 1e3:6.1f}ms "
           f"p99 {np.percentile(seq_lat, 99) * 1e3:6.1f}ms")
-    _, wall, lat = serve_offline(ex, queries)
+    if args.arrival_qps:
+        _, wall, lat = serve_online(ex, queries, args.arrival_qps, args.seed)
+        label = f"online λ={args.arrival_qps:g}/s"
+    else:
+        _, wall, lat = serve_offline(ex, queries)
+        label = "batched    "
     mean_b = np.mean([s.n_requests for s in ex.stats]) if ex.stats else 0
-    print(f"  batched    : {len(queries) / wall:7.1f} QPS | "
+    print(f"  {label}: {len(queries) / wall:7.1f} QPS | "
           f"p50 {np.percentile(lat, 50) * 1e3:6.1f}ms "
           f"p99 {np.percentile(lat, 99) * 1e3:6.1f}ms | "
           f"speedup {seq_wall / wall:4.2f}x | mean batch {mean_b:.1f} | "

@@ -24,7 +24,9 @@ def test_port_imports_no_jax_and_no_repro():
               "configs.gemma2_2b", "configs.starcoder2_3b",
               "data.graph_synth", "models.gnn.graph", "models.gnn.gat",
               "models.gnn.padded",
-              "kernels.neigh_agg", "configs.gnn_common", "configs.gat_cora"):
+              "kernels.neigh_agg", "configs.gnn_common", "configs.gat_cora",
+              "core.sketches", "examples.quickstart", "examples.serve_kg",
+              "examples.serve_soak"):
         assert f"repro_torch.{m}" in mods, m
     code = "\n".join(
         ["import importlib, sys"]

@@ -136,7 +136,13 @@ def test_plan_modes_and_slack(workload):
     cfg = EngineConfig(block=16, k=K, grid_bins=G)
     with pytest.raises(ValueError):
         engine.plan_for_mode(store, relax, q, cfg, "bogus")
-    with pytest.raises(NotImplementedError):
+    # Sketch mode, once refused, now plans as the JAX package does.
+    got = engine.plan_for_mode(
+        store, relax, q, dataclasses.replace(cfg, cardinality_mode="sketch"),
+        "specqp")
+    want = _j_plan(wl.store, wl.relax, jq, K, G, cardinality_mode="sketch")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    with pytest.raises(ValueError):
         engine.plan_for_mode(
             store, relax, q,
-            dataclasses.replace(cfg, cardinality_mode="sketch"), "specqp")
+            dataclasses.replace(cfg, cardinality_mode="bogus"), "specqp")

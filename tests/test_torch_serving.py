@@ -90,14 +90,26 @@ def test_bad_batching_config_raises(kw):
         batching.BatchingConfig(**kw)
 
 
-def test_unported_options_raise(workload):
-    _, store, relax, _ = workload
-    with pytest.raises(NotImplementedError):
-        batching.BatchingConfig(pipeline=True)
+def test_unported_options_raise(workload, capsys):
+    """The options once refused (pipeline, --arrival-qps) now serve; bad
+    values still raise."""
+    _, store, relax, queries = workload
+    bcfg = batching.BatchingConfig(max_batch=4, q_buckets=(1, 4, 8),
+                                   t_buckets=(2, 3), pipeline=True)
+    ex = batching.BatchExecutor(store, relax, CFG, "specqp", bcfg,
+                                device="cpu")
+    for i, (q, r) in enumerate(zip(queries, ex.run(queries))):
+        want = engine.run_query(store, relax, q, CFG, "specqp", device="cpu")
+        np.testing.assert_array_equal(r.keys, want.keys.numpy(),
+                                      err_msg=f"request {i}")
     with pytest.raises(ValueError):
         batching.BatchExecutor(store, relax, CFG, "bogus", device="cpu")
-    with pytest.raises(NotImplementedError):
-        serve.main(["--device", "cpu", "--arrival-qps", "5"])
+    serve.main(["--device", "cpu", "--arrival-qps", "50", "--list-len", "48",
+                "--n-queries", "4", "--block", "16", "--k", "5",
+                "--grid-bins", "96", "--max-batch", "4"])
+    assert "online λ=50/s" in capsys.readouterr().out
+    with pytest.raises(SystemExit):
+        serve.main(["--device", "cpu", "--arrival-qps", "0"])
     assert batching.bucket_for(3, (1, 4, 16)) == 4
     assert batching.default_t_buckets(3) == (2, 4)
 
