@@ -87,11 +87,34 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    layout, held against its plain version and the layer's segment-op
    aggregation, and the layer's output against a float64 oracle at 4,096
    sampled nodes;
-9. print the kernel table as one JSON line (``launches``: each kernel's
+9. the sharded paths (``core/distributed.py``, ``launch/mesh.py``): the
+   xkg workload with lists of up to 4 x 8192 items over 80,000 entities,
+   hash-sharded by ``distributed.shard_workload`` into 4 partitions of
+   about 8192 items (about 0.4 GB each), one a rank of a (2, 2) mesh of 4
+   gloo ranks spawned on the one card (NCCL refuses two ranks on one
+   device); each rank runs kg-specqp's ``serve_step`` on the 32 queries
+   in specqp and trinit modes, exact and then sketch, with the counters
+   set to 0 just before each and read just after, then the step's plan,
+   local rank join and merge apart, each timed. Checked: every rank's
+   result equal; exact masks equal to the single-device plans over the
+   unsharded store; the merged top-k equal to the reference's two-level
+   stable top-k of the ranks' local results
+   (``engine.run_query_batch_with_masks`` on each shard under the step's
+   plans), n_pulled and n_answers their sums, n_iters their maximum;
+   specqp with rings uncapped equal, on all 32 queries, to the one-device
+   engine over the unsharded store under the same plans (scores rtol
+   1e-5, keys wherever no near-tie); TriniT with rings uncapped equal to
+   ``naive_full_scan`` on 4 queries. Then 32 retrieval
+   queries through the sharded ``retrieve`` over phase 5's corpus split in
+   4, each top-100 equal to the unsharded ``retrieve`` (indices exactly,
+   scores rtol 1e-5); then the serve step under NCCL at world size 1 over
+   phase 4's whole store, equal to ``engine.run_query_batch`` on it and to
+   phase 4's offline pass. A failing rank fails the run;
+10. print the kernel table as one JSON line (``launches``: each kernel's
    count on its own path, so 0 for ``neigh_softmax_agg`` on
    ``gat.apply``; its ``check_launches`` are those of the drive over the
-   layers' data), then the result line
-   ``{"ok": true, "device": {...}}`` last.
+   layers' data; rows 1-3 add ``sharded_launches``, summed over phase 9's
+   ranks), then the result line ``{"ok": true, "device": {...}}`` last.
 
 It exits non-zero without CUDA and when ``src/repro_torch`` is not beside
 it. It imports nothing of JAX. ``--attention-only`` runs phases 1-2 and
@@ -100,7 +123,9 @@ result line; ``--kg-only`` runs phases 1-3 and stops the same way;
 ``--gather-only`` runs phases 1-2 and the checks and timings of
 ``embedding_bag`` (phase 6's, on one table of the model's shape) and of
 ``neigh_softmax_agg`` (phase 8's, with the NaN check), without the towers
-or the graph, and stops the same way.
+or the graph, and stops the same way; ``--shard-only`` runs phases 1-2
+and phase 9 (the NCCL run then checked against ``run_query_batch``
+alone), and stops the same way.
 ``--profile`` adds ``torch.profiler``
 windows (device busy share, time by kernel) over one retrieval query in
 each mode, the serving batches, one LM prefill with 4 decode steps, one
@@ -1951,6 +1976,409 @@ def gnn_path(np, torch, ops, dev, prof: bool = False):
     return row, apply_launches
 
 
+# Phase 9, the sharded paths: the mesh of gloo ranks that share the card
+# (NCCL refuses two ranks on one device), the KG workload's lists at this
+# many L_SHARD-item partitions (SHARD_RANKS x L_SHARD items and 20,000
+# entities a partition), and the queries whose uncapped TriniT answers are
+# held against the full scan.
+SHARD_MESH = (2, 2)
+SHARD_AXES = ("data", "model")
+SHARD_RANKS = 4
+SHARD_UNCAPPED = 4
+# The KG serve steps of the sharded phase: (cardinality mode, engine mode).
+SHARD_STEPS = (("exact", "specqp"), ("exact", "trinit"),
+               ("sketch", "specqp"), ("sketch", "trinit"))
+STEP_FIELDS = ("keys", "scores", "n_pulled", "n_answers", "n_iters",
+               "n_wasted", "relax_mask")
+STORE_FIELDS = ("keys", "scores", "lengths", "sorted_keys", "stats",
+                "sketch")
+
+
+def on_host(res) -> dict:
+    """An EngineResult's fields as numpy arrays."""
+    return {f: getattr(res, f).cpu().numpy() for f in STEP_FIELDS}
+
+
+def shard_rank(mesh, shard_dir: str, relax_np, gstats_np, queries):
+    """One rank of phase 9's (2, 2) mesh: load this rank's KG partition,
+    run the sharded serve step per SHARD_STEPS (launch counters set to 0
+    just before each and read just after), then the step's three parts
+    apart, each timed: the plan, this rank's local rank join under the
+    step's plans (kept for the parent's merge check) and the merge with
+    the counters' collectives; then specqp with rings uncapped on every
+    query and TriniT so on SHARD_UNCAPPED, and 32 sharded retrieval
+    queries over this rank's rows of phase 5's corpus. Returns host data."""
+    import os
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.configs import kg_specqp
+    from repro_torch.configs import two_tower_retrieval as tt
+    from repro_torch.core import distributed, engine, kg
+    from repro_torch.core.types import RelaxTable
+    from repro_torch.kernels import ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, flat = mesh.device, mesh.flat_index()
+    with np.load(os.path.join(shard_dir, f"shard{flat}.npz")) as f:
+        store = kg.store_from_arrays(dict(f), dev)
+    relax = RelaxTable(ids=torch.from_numpy(relax_np[0]).to(dev),
+                       weights=torch.from_numpy(relax_np[1]).to(dev))
+    gstats = torch.from_numpy(gstats_np).to(dev)
+    pids = engine._as_pids(queries, dev)
+    cfgs = {"exact": kg_specqp.ENGINE,
+            "sketch": dataclasses.replace(kg_specqp.ENGINE,
+                                          cardinality_mode="sketch")}
+    fns = {(c, m): (kg_specqp.serve_step(mesh, m) if c == "exact" else
+                    distributed.make_batched_sharded_fn(cfgs[c], m, mesh))
+           for c, m in SHARD_STEPS}
+    for fn in fns.values():        # warm-up (context, cuFFT plans) off the clock
+        fn(store, relax, gstats, queries[:1])
+    torch.cuda.synchronize()
+
+    def timed(f, *args):
+        """(f(*args), seconds), the card synchronised at both ends; the
+        ranks meet first, so a part's time holds no other rank's lag."""
+        tdist.barrier()
+        t0 = time.perf_counter()
+        r = f(*args)
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    def merge(local, k):
+        s, keys = mesh.merge_top_k(local.scores, local.keys, k)
+        for ax in mesh.axis_names:
+            mesh.psum(local.n_pulled, ax)
+            mesh.psum(local.n_answers, ax)
+            mesh.pmax(local.n_iters, ax)
+        return s, keys
+
+    out = {"kg": {}, "device": torch.cuda.get_device_name(dev)}
+    for key, fn in fns.items():
+        cfg = cfgs[key[0]]
+        tdist.barrier()
+        ops.reset_launches()
+        res, wall = timed(fn, store, relax, gstats, queries)
+        launches = ops.launches()
+        _, plan_s = timed(distributed._plan, store, relax, gstats, pids, cfg,
+                          key[1], mesh, mesh.axis_names)
+        local, local_s = timed(engine.run_query_batch_with_masks, store,
+                               relax, queries, res.relax_mask, cfg, dev)
+        _, merge_s = timed(merge, local, cfg.k)
+        out["kg"][key] = dict(wall=wall, plan_s=plan_s, local_s=local_s,
+                              merge_s=merge_s, launches=launches,
+                              merged=on_host(res), local=on_host(local))
+    uncapped = dataclasses.replace(kg_specqp.ENGINE, seen_cap=None)
+    out["uncapped"] = {
+        mode: on_host(distributed.make_batched_sharded_fn(
+            uncapped, mode, mesh)(store, relax, gstats, queries[:n]))
+        for mode, n in (("specqp", N_QUERIES), ("trinit", SHARD_UNCAPPED))}
+    del store
+    torch.cuda.empty_cache()
+
+    cfg = tt.config()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    cand = clustered_corpus(np, torch, dev, gen, cfg)
+    qs = torch.randn((N_QUERIES, cfg.embed_dim), generator=gen, device=dev)
+    rows = cand.shape[0] // math.prod(mesh.shape)
+    block = cand[flat * rows:(flat + 1) * rows].clone()
+    del cand
+    torch.cuda.empty_cache()
+    tt.retrieve(qs[0], block, tt.TOPK, tt.TILE, mesh=mesh)      # warm-up
+    torch.cuda.synchronize()
+    tdist.barrier()
+    ops.reset_launches()
+    res, lat = [], []
+    for q in qs:
+        t0 = time.perf_counter()
+        s, i, n = tt.retrieve(q, block, tt.TOPK, tt.TILE, mesh=mesh)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        res.append((s.cpu().numpy(), i.cpu().numpy(), int(n)))
+    out["retrieval"] = dict(res=res, lat=lat, launches=ops.launches())
+    return out
+
+
+def nccl_rank(mesh):
+    """Phase 9's NCCL run at world size 1: the serve step over phase 4's
+    whole kg-specqp store, in both modes (counters set to 0 just before and
+    read just after), then ``engine.run_query_batch`` on the same store."""
+    import torch
+    from repro_torch.configs import kg_specqp
+    from repro_torch.core import engine
+    from repro_torch.data import kg_synth
+    from repro_torch.kernels import ops
+
+    dev = mesh.device
+    wl = kg_synth.make_workload("xkg", list_len=kg_specqp.L_SHARD,
+                                n_queries=N_QUERIES,
+                                n_relax=kg_specqp.N_RELAX, seed=SEED,
+                                device=dev)
+    queries = wl.queries
+    out = {}
+    for mode in ("specqp", "trinit"):
+        fn = kg_specqp.serve_step(mesh, mode)
+        fn(wl.store, wl.relax, wl.store.stats, queries[:1])    # warm-up
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res = fn(wl.store, wl.relax, wl.store.stats, queries)
+        torch.cuda.synchronize()
+        out[mode] = dict(wall=time.perf_counter() - t0,
+                         launches=ops.launches(), merged=on_host(res),
+                         batch=on_host(engine.run_query_batch(
+                             wl.store, wl.relax, queries, kg_specqp.ENGINE,
+                             mode, device=dev)))
+    return out
+
+
+def mesh_merge(np, shape, scores, payload, k: int):
+    """The reference's merge of per-rank (Q, k) buffers (listed by flat
+    rank of a row-major ``shape`` mesh): over the first axis, then the
+    next, each a concatenation in axis order and a stable top-k."""
+    s = np.stack(scores).reshape(*shape, *scores[0].shape)
+    p = np.stack(payload).reshape(*shape, *payload[0].shape)
+    for _ in shape:
+        s, p = np.concatenate(list(s), -1), np.concatenate(list(p), -1)
+        o = np.argsort(-s, axis=-1, kind="stable")[..., :k]
+        s, p = (np.take_along_axis(s, o, -1), np.take_along_axis(p, o, -1))
+    return s, p
+
+
+def shard_path(np, torch, ops, dev, served=None):
+    """Phase 9: the hash-sharded KG serve step on a (2, 2) mesh of 4 gloo
+    ranks sharing the card, the same serve step under NCCL at world size 1
+    over phase 4's store, and sharded retrieval over phase 5's corpus.
+    ``served``: phase 4's offline results, held against the NCCL run too.
+    Returns each kernel's launches on the sharded paths."""
+    import tempfile
+    from repro_torch.configs import kg_specqp
+    from repro_torch.configs import two_tower_retrieval as tt
+    from repro_torch.core import distributed, engine
+    from repro_torch.data import kg_synth
+    from repro_torch.launch import mesh as meshlib
+
+    cfg = kg_specqp.ENGINE
+    t0 = time.perf_counter()
+    wl = kg_synth.make_workload(
+        "xkg", list_len=SHARD_RANKS * kg_specqp.L_SHARD,
+        n_entities=SHARD_RANKS * 20_000, n_queries=N_QUERIES,
+        n_relax=kg_specqp.N_RELAX, seed=SEED, device=dev)
+    queries = np.asarray(wl.queries)
+    keys, scores, lengths = (wl.store.keys.cpu().numpy(),
+                             wl.store.scores.cpu().numpy(),
+                             wl.store.lengths.cpu().numpy())
+    lists = [(keys[p, :n], scores[p, :n]) for p, n in enumerate(lengths)]
+    t1 = time.perf_counter()
+    stores, gstats = distributed.shard_workload(lists, SHARD_RANKS)
+    shard_mb = sum(getattr(stores, f).numel() * 4
+                   for f in STORE_FIELDS) / SHARD_RANKS / 2**20
+    print(f"sharded workload: {len(lengths)} patterns x up to "
+          f"{keys.shape[1]} items over {SHARD_RANKS} hash partitions of "
+          f"{stores.keys.shape[-1]} items, {shard_mb:.1f} MiB a rank; "
+          f"workload {t1 - t0:.1f} s, shard_workload "
+          f"{time.perf_counter() - t1:.1f} s on the host")
+    plans = {c: engine.plan_query_batch(
+        wl.store, wl.relax, queries, dataclasses.replace(
+            cfg, cardinality_mode=c), "specqp", dev).cpu().numpy()
+        for c in ("exact", "sketch")}
+    full_scan = [engine.naive_full_scan(wl.store, wl.relax, q, cfg.k,
+                                        wl.n_entities, device=dev)
+                 for q in queries[:SHARD_UNCAPPED]]
+    full_scan = [(k.cpu().numpy(), s.cpu().numpy()) for k, s in full_scan]
+    # The one-device engine over the unsharded store under the exact plans
+    # (held equal to the sharded ones below), rings uncapped: the answer
+    # the sharded specqp must give, its key sets partitioning.
+    t1 = time.perf_counter()
+    whole_kg = on_host(engine.run_query_batch_with_masks(
+        wl.store, wl.relax, queries, torch.from_numpy(plans["exact"]).to(dev),
+        dataclasses.replace(cfg, seen_cap=None), device=dev))
+    print(f"one-device specqp over the unsharded store, rings uncapped: "
+          f"{time.perf_counter() - t1:.3f} s for {N_QUERIES} queries")
+    relax_np = (wl.relax.ids.cpu().numpy(), wl.relax.weights.cpu().numpy())
+    del wl
+
+    # Phase 5's corpus and queries, unsharded, for the sharded retrieval.
+    rcfg = tt.config()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    cand = clustered_corpus(np, torch, dev, gen, rcfg)
+    qs = torch.randn((N_QUERIES, rcfg.embed_dim), generator=gen, device=dev)
+    whole = [tuple(x.cpu().numpy() for x in tt.retrieve(q, cand, tt.TOPK,
+                                                         tt.TILE))
+             for q in qs]
+    del cand, qs
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="shards-") as tmp:
+        for i in range(SHARD_RANKS):
+            arrays = {f: getattr(stores, f)[i].numpy()
+                      for f in STORE_FIELDS}
+            arrays["sketch"] = arrays["sketch"].view(np.uint32)
+            np.savez(f"{tmp}/shard{i}.npz", **arrays)
+        del stores
+        t2 = time.perf_counter()
+        outs = meshlib.spawn(shard_rank, SHARD_MESH, SHARD_AXES,
+                             backend="gloo", device="cuda",
+                             args=(tmp, relax_np, gstats.numpy(), queries))
+    print(f"{SHARD_RANKS} gloo ranks ({outs[0]['device']}, one card shared) "
+          f"ran in {time.perf_counter() - t2:.1f} s, process start included")
+
+    launches = {n: 0 for n in ("rank_join_lookup", "merge_topk",
+                               "topk_score_pruned")}
+    for key in SHARD_STEPS:
+        runs = [o["kg"][key] for o in outs]
+        label = f"sharded {key[0]} {key[1]}"
+        merged = runs[0]["merged"]
+        for r, run in enumerate(runs):
+            if not all(np.array_equal(run["merged"][f], merged[f])
+                       for f in STEP_FIELDS):
+                fail(f"{label}: rank {r}'s result differs from rank 0's")
+            if not (run["launches"]["rank_join_lookup"] > 0
+                    and run["launches"]["merge_topk"] > 0):
+                fail(f"{label}: rank {r} launched no KG kernel: "
+                     f"{run['launches']}")
+            for n in ("rank_join_lookup", "merge_topk"):
+                launches[n] += run["launches"][n]
+        locs = [run["local"] for run in runs]
+        s, k = mesh_merge(np, SHARD_MESH, [x["scores"] for x in locs],
+                          [x["keys"] for x in locs], cfg.k)
+        if not (np.array_equal(s, merged["scores"])
+                and np.array_equal(k, merged["keys"])):
+            fail(f"{label}: merged top-k differs from the two-level stable "
+                 "top-k of the ranks' local results")
+        sums = {f: np.sum([x[f] for x in locs], 0)
+                for f in ("n_pulled", "n_answers")}
+        if not (all(np.array_equal(sums[f], merged[f]) for f in sums)
+                and np.array_equal(np.max([x["n_iters"] for x in locs], 0),
+                                   merged["n_iters"])
+                and not merged["n_wasted"].any()):
+            fail(f"{label}: counters are not the ranks' sums and maximum")
+        masks = ""
+        if key[1] == "specqp":
+            agree = int((merged["relax_mask"] == plans[key[0]]).all(
+                axis=(1, 2)).sum())
+            if key[0] == "exact" and agree != N_QUERIES:
+                fail(f"{label}: {N_QUERIES - agree} plans differ from the "
+                     "single-device plans over the unsharded store")
+            masks = (f" | masks equal to the single-device {key[0]} plans "
+                     f"on {agree}/{N_QUERIES}")
+        wall = max(run["wall"] for run in runs)
+        print(f"{label}: {N_QUERIES / wall:.2f} QPS ({wall:.3f} s a batch "
+              f"of {N_QUERIES}: every query's latency, p50 = p99) | mean "
+              f"n_pulled {merged['n_pulled'].mean():.1f} | mean n_iters "
+              f"{merged['n_iters'].mean():.1f}{masks} | launches by rank "
+              f"{[r['launches']['rank_join_lookup'] for r in runs]} + "
+              f"{[r['launches']['merge_topk'] for r in runs]}")
+        print(f"{label}, the step's parts apart (slowest rank): plan "
+              f"{max(r['plan_s'] for r in runs):.4f} s, local rank join "
+              f"{max(r['local_s'] for r in runs):.3f} s, merge + counter "
+              f"collectives {max(r['merge_s'] for r in runs):.4f} s a batch")
+    print("every rank's merged result is equal; merged top-k = the "
+          "two-level stable top-k of the ranks' local top-k (each "
+          "run_query_batch_with_masks on its shard under the step's plans); "
+          "n_pulled, n_answers = their sums, n_iters = their maximum")
+
+    def same_top_k(got, want, label):
+        """Scores within rtol 1e-5 and keys equal at every place whose
+        score is more than 1e-5 relative from both neighbours (the k-th
+        place's lower one unknown: never clear); returns how many queries
+        have every key equal. Near-equal sums may swap: a key's score is
+        summed in the order its patterns reached it, which the partition
+        changes."""
+        gs, ws = got["scores"], want["scores"]
+        if not np.allclose(gs, ws, rtol=1e-5):
+            fail(f"{label}: scores differ beyond rtol 1e-5")
+        with np.errstate(invalid="ignore"):
+            gap = np.abs(ws[:, :-1] - ws[:, 1:]) > 1e-5 * np.abs(ws[:, :-1])
+        clear = np.zeros_like(ws, bool)
+        clear[:, :-1] = gap
+        clear[:, 1:-1] &= gap[:, :-1]
+        if not ((got["keys"] == want["keys"]) | ~clear).all():
+            fail(f"{label}: keys differ at a place with no near-tie")
+        return int((got["keys"] == want["keys"]).all(1).sum())
+
+    unc = outs[0]["uncapped"]
+    if not np.array_equal(unc["specqp"]["relax_mask"], plans["exact"]):
+        fail("sharded specqp (no seen cap): plans differ from the "
+             "single-device exact plans")
+    same_keys = same_top_k(unc["specqp"], whole_kg,
+                           "sharded specqp (no seen cap)")
+    print(f"sharded specqp (no seen cap) == the one-device engine over the "
+          f"unsharded store under the same plans on all {N_QUERIES} "
+          f"queries (scores rtol 1e-5, keys wherever no near-tie; keys "
+          f"identical on {same_keys})")
+    key_match = 0
+    for i, (bk, bs) in enumerate(full_scan):
+        if not np.allclose(unc["trinit"]["scores"][i], bs, rtol=1e-5):
+            fail(f"sharded trinit (no seen cap) query {i} differs from "
+                 "naive_full_scan over the unsharded store")
+        key_match += int(np.array_equal(unc["trinit"]["keys"][i], bk))
+    print(f"sharded trinit (no seen cap) == naive_full_scan on "
+          f"{SHARD_UNCAPPED} queries (scores rtol 1e-5; keys identical on "
+          f"{key_match})")
+
+    rr = outs[0]["retrieval"]
+    for r, o in enumerate(outs):
+        if o["retrieval"]["launches"]["topk_score_pruned"] != N_QUERIES:
+            fail(f"sharded retrieval: rank {r} launched topk_score_pruned "
+                 f"{o['retrieval']['launches']['topk_score_pruned']} times "
+                 f"for {N_QUERIES} queries")
+        launches["topk_score_pruned"] += \
+            o["retrieval"]["launches"]["topk_score_pruned"]
+    tiles, tiles_whole = 0, 0
+    for qi, ((s, i, n), (ws, wi, wn)) in enumerate(zip(rr["res"], whole)):
+        if not (np.array_equal(i, wi) and np.allclose(s, ws, rtol=1e-5)):
+            fail(f"sharded retrieval query {qi} differs from the unsharded "
+                 "retrieve")
+        tiles += n
+        tiles_whole += int(wn)
+    lat = np.array(rr["lat"]) * 1e3
+    print(f"sharded retrieval: {N_QUERIES} queries' top-{tt.TOPK} equal the "
+          f"unsharded retrieve (indices exactly, scores rtol 1e-5) | tiles "
+          f"scored, summed over the ranks, {tiles} against {tiles_whole} "
+          f"unsharded | {N_QUERIES / (lat.sum() / 1e3):.1f} QPS, p50 "
+          f"{np.percentile(lat, 50):.3f} ms p99 {np.percentile(lat, 99):.3f} "
+          f"ms a query")
+    print(f"(4 gloo ranks share one card: these times are not a "
+          f"deployment's)")
+
+    t3 = time.perf_counter()
+    one = meshlib.spawn(nccl_rank, (1, 1), SHARD_AXES, backend="nccl",
+                        device="cuda")[0]
+    nccl_launches = {}
+    for mode, run in one.items():
+        m, b = run["merged"], run["batch"]
+        same = (np.array_equal(m["keys"], b["keys"])
+                and np.array_equal(m["scores"], b["scores"])
+                and all(np.array_equal(m[f], b[f]) for f in
+                        ("n_pulled", "n_answers", "n_iters")))
+        if not same:
+            fail(f"NCCL world-1 {mode} serve step differs from "
+                 "run_query_batch on the same store")
+        if served is not None and not all(
+                np.array_equal(m["keys"][i], r.keys)
+                and np.array_equal(m["scores"][i], r.scores)
+                and all(int(m[f][i]) == getattr(r, f)
+                        for f in ("n_pulled", "n_answers", "n_iters"))
+                for i, r in enumerate(served[mode])):
+            fail(f"NCCL world-1 {mode} serve step differs from phase 4's "
+                 "offline pass")
+        if not (run["launches"]["rank_join_lookup"] > 0
+                and run["launches"]["merge_topk"] > 0):
+            fail(f"NCCL world-1 {mode}: a KG kernel was never launched")
+        nccl_launches[mode] = run["launches"]
+        print(f"NCCL world-1 {mode}: {N_QUERIES / run['wall']:.2f} QPS "
+              f"({run['wall']:.3f} s a batch) | equal to run_query_batch"
+              + (" and to phase 4's offline pass" if served is not None
+                 else "") + f" | launches {run['launches']['rank_join_lookup']}"
+              f" + {run['launches']['merge_topk']}")
+    print(f"NCCL world-1 run took {time.perf_counter() - t3:.1f} s")
+    print(f"sharded path launches (summed over ranks): {launches}")
+    return launches, nccl_launches
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {pathlib.Path(__file__).name}: run "
@@ -2009,6 +2437,14 @@ def main() -> None:
         print(f"chip_smoke --gather-only took "
               f"{time.perf_counter() - T_START:.1f} s")
         return
+    if "--shard-only" in sys.argv[1:]:
+        # Phases 1-2 and phase 9 alone: the sharded paths.
+        launches, nccl = shard_path(np, torch, ops, dev)
+        print(json.dumps({"sharded_launches": launches,
+                          "nccl_world1_launches": nccl}))
+        print(f"chip_smoke --shard-only took "
+              f"{time.perf_counter() - T_START:.1f} s")
+        return
     rows = check_kernels(np, torch, ops, dev)
     print(f"phases 1-3 done at {time.perf_counter() - t0:.1f} s")
     if "--kg-only" in sys.argv[1:]:
@@ -2032,6 +2468,10 @@ def main() -> None:
         rows[row["name"]] = row
         torch.cuda.empty_cache()
         print(f"{path.__name__} done at {time.perf_counter() - t0:.1f} s")
+    sharded, _ = shard_path(np, torch, ops, dev, state["served"])
+    print(f"shard_path done at {time.perf_counter() - t0:.1f} s")
+    for name, n in sharded.items():
+        rows[name]["sharded_launches"] = n
     kernels = [rows[n] for n in ("rank_join_lookup", "merge_topk",
                                  "topk_score_pruned", "embedding_bag",
                                  "flash_attention", "neigh_softmax_agg")]

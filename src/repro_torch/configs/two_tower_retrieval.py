@@ -5,12 +5,15 @@ fit one 80 GB card whole.
 Counterpart of ``repro.configs.two_tower_retrieval``: the configuration,
 the serving constants, the online serving function (``serve``, the
 ``serve_p99`` / ``serve_bulk`` shapes) and speculative retrieval over a
-candidate corpus (``retrieve``, the ``retrieval_cand`` shape). The sharded
-branch of ``retrieve`` and the training cell are not ported yet.
+candidate corpus (``retrieve``, the ``retrieval_cand`` shape), unsharded
+or over the ranks of a ``launch.mesh.Mesh``. The training cell is not
+ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
+
+import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models import recsys as model
@@ -44,8 +47,24 @@ def serve(params: model.TwoTower, batch, cand_emb, k: int = TOPK):
     return model.serve_batch(params, params.cfg, batch, cand_emb, k)
 
 
-def retrieve(query, cand_emb, k: int = TOPK, tile: int = TILE):
-    """Speculative top-k of one query over an unsharded corpus (N, D):
-    Cauchy–Schwarz tile bounds, then the pruned scoring kernel."""
+def retrieve(query, cand_emb, k: int = TOPK, tile: int = TILE, mesh=None):
+    """Speculative top-k of one query: Cauchy–Schwarz tile bounds, then the
+    pruned scoring kernel. Returns (scores (k,), ids (k,), tiles scored).
+
+    With ``mesh``, ``cand_emb`` is this rank's block of a corpus split in
+    row-major rank order over every mesh axis: each rank scores its block
+    with local bounds, its ids are made global, and a gather + top-k per
+    axis merges the ranks' top-k (``Mesh.merge_top_k``, as the KG engine
+    merges); the tiles scored are summed over the ranks.
+    """
     bounds = kops.block_bounds_cauchy(query, cand_emb, tile)
-    return kops.topk_score_pruned(query, cand_emb, bounds, k, tile)
+    s, i, n = kops.topk_score_pruned(query, cand_emb, bounds, k, tile)
+    if mesh is None:
+        return s, i, n
+    axes = mesh.axis_names
+    i = torch.where(i >= 0, i + mesh.flat_index(axes) * cand_emb.shape[0],
+                    -1)
+    s, i = mesh.merge_top_k(s, i, k, axes)
+    for ax in axes:
+        n = mesh.psum(n, ax)
+    return s, i, n

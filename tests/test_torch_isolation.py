@@ -26,7 +26,7 @@ def test_port_imports_no_jax_and_no_repro():
               "models.gnn.padded",
               "kernels.neigh_agg", "configs.gnn_common", "configs.gat_cora",
               "core.sketches", "examples.quickstart", "examples.serve_kg",
-              "examples.serve_soak"):
+              "examples.serve_soak", "core.distributed", "launch.mesh"):
         assert f"repro_torch.{m}" in mods, m
     code = "\n".join(
         ["import importlib, sys"]
