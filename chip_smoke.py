@@ -110,11 +110,34 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    scores rtol 1e-5); then the serve step under NCCL at world size 1 over
    phase 4's whole store, equal to ``engine.run_query_batch`` on it and to
    phase 4's offline pass. A failing rank fails the run;
-10. print the kernel table as one JSON line (``launches``: each kernel's
+10. training: the two-tower model at the published widths with the
+   vocab cut to 10 M a table and the batch to 16,384 (the state of 20 M
+   tables, 123 GB, does not fit the card), ``TRAIN_CFG`` (bf16 moments).
+   Before the optimizer state exists, ``embedding_bag_backward`` is held
+   against its plain version on the first batch's own ids and dout for
+   each table, then on a quarter of the slots -1, hot ids (every bag
+   repeating one of 64 ids, values on a dyadic grid so the sums are exact
+   and the kernel must be bit-equal), ids above 2**23 and the weights'
+   gradient, each case twice (touched rows within rtol 1e-5 atol 1e-6,
+   every other row exactly 0), and timed by graph replay beside the
+   (V, D) zero-fill, its bound, the plain version and F.embedding_bag's
+   backward. Then 6 steps of ``make_train_step`` on the example's batches
+   with the counters set to 0 just before and read just after (2
+   ``embedding_bag`` and 2 ``embedding_bag_backward`` launches a step),
+   each step timed, the last split into gradients, global norm and
+   update, peak memory printed. Then ``examples/train_retrieval.py``'s
+   ``main`` at its defaults with failures injected before and after the
+   first checkpoint (restores read back bit for bit, the loss falls, the
+   final loss within rtol 1e-3 of a run without failures, the speculative
+   top-10 exact), and one gat-cora train step at the ``full_graph_sm``
+   shape, its gradients held against the CPU's;
+11. print the kernel table as one JSON line (``launches``: each kernel's
    count on its own path, so 0 for ``neigh_softmax_agg`` on
-   ``gat.apply``; its ``check_launches`` are those of the drive over the
-   layers' data; rows 1-3 add ``sharded_launches``, summed over phase 9's
-   ranks), then the result line ``{"ok": true, "device": {...}}`` last.
+   ``gat.apply``, and phase 10's steps for ``embedding_bag_backward``;
+   ``neigh_softmax_agg``'s ``check_launches`` are those of the drive over
+   the layers' data; rows 1-3 add ``sharded_launches``, summed over phase
+   9's ranks), then the result line ``{"ok": true, "device": {...}}``
+   last.
 
 It exits non-zero without CUDA and when ``src/repro_torch`` is not beside
 it. It imports nothing of JAX. ``--attention-only`` runs phases 1-2 and
@@ -125,7 +148,8 @@ result line; ``--kg-only`` runs phases 1-3 and stops the same way;
 ``neigh_softmax_agg`` (phase 8's, with the NaN check), without the towers
 or the graph, and stops the same way; ``--shard-only`` runs phases 1-2
 and phase 9 (the NCCL run then checked against ``run_query_batch``
-alone), and stops the same way.
+alone), and stops the same way; ``--train-only`` runs phases 1-2 and
+phase 10, and stops the same way.
 ``--profile`` adds ``torch.profiler``
 windows (device busy share, time by kernel) over one retrieval query in
 each mode, the serving batches, one LM prefill with 4 decode steps, one
@@ -1215,6 +1239,7 @@ def serving_path(np, torch, ops, dev, prof: bool = False):
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     model = recsys.init(cfg, seed=SEED, device=dev)
+    model.requires_grad_(False)         # serving: no gradients
     torch.cuda.synchronize()
     n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     print(f"two-tower model {cfg.name}: {n_bytes / 1e9:.3f} GB of f32 "
@@ -2379,6 +2404,468 @@ def shard_path(np, torch, ops, dev, served=None):
     return launches, nccl_launches
 
 
+# Phase 10: training. Two-tower at the published widths with two cuts
+# (vocab 20 M -> 10 M a table: 2 x 20 M x 256 x (4 param + 4 grad + 2 m +
+# 2 v) B is 123 GB, over the card's 80 GB, and 61.4 GB at 10 M;
+# train_batch 65,536 -> 16,384: a (B, B) f32 logits buffer is 17.2 GB at
+# 65,536 and the loss holds about three, 1.07 GB each at 16,384), steps
+# timed; the example with injected failures; GAT at the Cora shape.
+TRAIN_VOCAB = 10_000_000
+TRAIN_BATCH = 16_384
+TRAIN_STEPS = 6          # the last one split into grads, norm and update
+# embedding_bag_backward against its plain version: the touched rows
+# within this (float32 atomics add repeated ids in any order); untouched
+# rows exactly 0.
+BAG_BWD_RTOL, BAG_BWD_ATOL = 1e-5, 1e-6
+# Hot-id case: every bag repeats one id from this many (contention).
+HOT_IDS = 64
+EXAMPLE_FAILS = (50, 150)      # before and after the first checkpoint
+EXAMPLE_LOSS_RTOL = 1e-3
+# GAT at the Cora shape: card gradients against the CPU's, rtol and an
+# atol of this share of the leaf's largest gradient (the card's index_add_
+# adds edges in another order).
+GAT_GRAD_RTOL, GAT_GRAD_ATOL_OF_SCALE = 1e-4, 1e-5
+
+
+def bag_backward_case(np, torch, table, dev, rng, B, S, kind):
+    """Inputs of one embedding_bag_backward check: (ids, weights, dout).
+    ``hot``: every bag repeats one id of HOT_IDS, with weights and dout on
+    a dyadic grid, so every sum is exact in any order and the kernel must
+    equal plain bit for bit whatever order the atomics land in."""
+    V, D = table.shape
+    if kind == "hot":
+        ids = np.repeat(rng.integers(0, V, HOT_IDS)[rng.integers(
+            0, HOT_IDS, B)][:, None], S, 1)
+        w = rng.integers(1, 5, (B, S)) / 4.0
+        dout = rng.integers(-8, 9, (B, D)) / 64.0
+    else:
+        lo = 2**23 if kind == "above 2**23" else 0
+        ids = rng.integers(lo, V, (B, S))
+        if kind == "quarter -1":
+            ids[rng.random((B, S)) < 0.25] = -1
+        w = rng.random((B, S))
+        dout = rng.standard_normal((B, D))
+    return [torch.from_numpy(np.asarray(a, dt)).to(dev) for a, dt in
+            ((ids, np.int32), (w, np.float32), (dout, np.float32))]
+
+
+def check_bag_grads(torch, label, got, want, ids, V):
+    """(max abs err over touched rows, touched rows). Fails unless the
+    touched rows agree within BAG_BWD_RTOL/ATOL and every other row of
+    both is exactly 0."""
+    live = ids[ids >= 0].long()
+    touched = torch.zeros(V, dtype=torch.bool, device=ids.device)
+    touched[live] = True
+    rows = touched.nonzero().squeeze(1)
+    for name, g in (("kernel", got), ("plain", want)):
+        stray = g.ne(0).any(1) & ~touched
+        if bool(stray.any()):
+            fail(f"embedding_bag_backward {label}: {name} wrote "
+                 f"{int(stray.sum())} untouched rows")
+    a, b = got[rows], want[rows]
+    err = float((a - b).abs().max()) if rows.numel() else 0.0
+    if not torch.allclose(a, b, rtol=BAG_BWD_RTOL, atol=BAG_BWD_ATOL):
+        fail(f"embedding_bag_backward {label}: touched rows differ from "
+             f"plain (max abs err {err:.4g})")
+    return err, int(rows.numel())
+
+
+def check_embedding_bag_backward(np, torch, ops, model, real, dev):
+    """embedding_bag_backward against its plain version before the
+    optimizer state exists: on the first training batch's own ids and
+    dout for each table (``real``: the calls recorded during a real
+    backward), then on the user table at (TRAIN_BATCH, 32) with a quarter
+    of the slots -1, hot ids, ids above 2**23 and the weights' gradient,
+    each case run twice. Timed at the batch's two shapes by device time
+    (graph replay into a zeroed buffer) and per call, beside the memset of
+    the dense (V, D) gradient, the bound, the plain version and
+    F.embedding_bag's backward through torch.autograd.grad."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import ref
+
+    errs, rows = [], {}
+    for side, (dout, ids, w, table, got) in real.items():
+        want = ref.embedding_bag_backward(dout, ids, w, table)[0]
+        e, n = check_bag_grads(torch, f"{side} batch", got, want, ids,
+                               table.shape[0])
+        del want, got
+        real[side][4] = None        # the gradient's 10 GB, no longer needed
+        errs.append(e)
+        print(f"embedding_bag_backward on training batch 0's {side} bags "
+              f"{tuple(ids.shape)}: {n} touched rows within rtol "
+              f"{BAG_BWD_RTOL} atol {BAG_BWD_ATOL} of plain (max abs err "
+              f"{e:.3g}), every other row 0")
+    table = model.user.table.detach()
+    V, D = table.shape
+    rng = np.random.default_rng(SEED + 10)
+    for kind in ("quarter -1", "hot", "above 2**23", "weights"):
+        ids, w, dout = bag_backward_case(np, torch, table, dev, rng,
+                                         TRAIN_BATCH, 32, kind)
+        runs = [ops.embedding_bag_backward(dout, ids, w, table,
+                                           weights_grad=kind == "weights")
+                for _ in range(2)]
+        want = ops.embedding_bag_backward(dout, ids, w, table,
+                                          weights_grad=kind == "weights",
+                                          impl="ref")
+        torch.cuda.synchronize()
+        for got in runs:
+            e, n = check_bag_grads(torch, kind, got[0], want[0], ids, V)
+            errs.append(e)
+            if kind == "weights":
+                ew = float((got[1] - want[1]).abs().max())
+                if not torch.allclose(got[1], want[1], rtol=BAG_BWD_RTOL,
+                                      atol=BAG_BWD_ATOL):
+                    fail(f"embedding_bag_backward's weights' gradient "
+                         f"differs from plain (max abs err {ew:.4g})")
+                errs.append(ew)
+        if kind == "hot" and not all(torch.equal(g[0], want[0])
+                                     for g in runs):
+            fail("embedding_bag_backward, hot ids on a dyadic grid: not "
+                 "bit-equal to plain")
+        between = float((runs[0][0] - runs[1][0]).abs().max())
+        print(f"embedding_bag_backward V={V} D={D} B={TRAIN_BATCH} S=32 "
+              f"({kind}): {n} touched rows within rtol {BAG_BWD_RTOL} atol "
+              f"{BAG_BWD_ATOL} of plain, every other row 0"
+              + (", the weights' gradient too" if kind == "weights" else "")
+              + (", bit-equal (exact sums)" if kind == "hot" else "")
+              + f"; two runs differ by at most {between:.3g}")
+        del runs, want
+    # Timings at the batch's shapes, on its own ids and dout.
+    floor_ms = empty_launch_ms(torch)
+    for side, (dout, ids, w, table, _) in real.items():
+        table = table.detach()
+        buf = torch.zeros_like(table)
+        live = ids[ids >= 0]
+        n_rows = int(torch.unique(live).numel())
+        B, S = ids.shape
+        nbytes = B * D * 4 + B * S * 8 + 2 * n_rows * D * 4
+        tl = table.detach().requires_grad_()
+        lib_out = F.embedding_bag(torch.where(ids >= 0, ids, 0), tl,
+                                  mode="sum", per_sample_weights=torch.where(
+                                      ids >= 0, w, 0.0))
+        rows[side] = dict(
+            ms=graph_ms(torch, lambda: eb.embedding_bag_backward(
+                dout, ids, w, table, out=buf)),
+            call_ms=cuda_ms(torch, lambda: eb.embedding_bag_backward(
+                dout, ids, w, table, out=buf)),
+            alloc_call_ms=cuda_ms(torch, lambda: eb.embedding_bag_backward(
+                dout, ids, w, table), blocks=5, per_block=2),
+            memset_ms=graph_ms(torch, lambda: buf.zero_(), blocks=5,
+                               per_block=4),
+            memset_bound_ms=1e3 * V * D * 4 / HBM_BYTES_PER_S,
+            plain_ms=cuda_ms(torch, lambda: ops.embedding_bag_backward(
+                dout, ids, w, table, impl="ref"), blocks=5, per_block=2),
+            library_ms=cuda_ms(torch, lambda: torch.autograd.grad(
+                lib_out, tl, dout, retain_graph=True), blocks=5,
+                per_block=2),
+            bound=bound(nbytes, 2 * int(live.numel()) * D),
+            shape=f"V={V} D={D} B={B} S={S}, {int(live.numel())} live "
+                  f"slots, {n_rows} distinct rows")
+        del buf, lib_out, tl
+        r = rows[side]
+        print(f"embedding_bag_backward {side} {r['shape']}: device "
+              f"{r['ms']:.4f} ms ({100 * r['bound'][0] / r['ms']:.1f} % of "
+              f"the bound's rate), per call {r['call_ms']:.4f} ms; with its "
+              f"(V, D) zero-fill per call {r['alloc_call_ms']:.4f} ms (the "
+              f"fill alone {r['memset_ms']:.4f} ms, bound "
+              f"{r['memset_bound_ms']:.4f}); plain {r['plain_ms']:.4f} ms; "
+              f"F.embedding_bag backward {r['library_ms']:.4f} ms; bound "
+              f"{r['bound'][0]:.5f} ms ({r['bound'][1]}); empty launch "
+              f"{floor_ms:.4f} ms")
+    u, i = rows["user"], rows["item"]
+    return dict(name="embedding_bag_backward", route="cuda",
+                source="src/repro_torch/kernels/csrc/embedding_bag.cu",
+                replaces="src/repro/kernels/ref.py:85",
+                note="port kernel, no TPU counterpart: the reference "
+                     "differentiates embedding_bag_ref with jax.grad",
+                max_abs_err=max(errs), ms=u["ms"], call_ms=u["call_ms"],
+                alloc_call_ms=u["alloc_call_ms"], memset_ms=u["memset_ms"],
+                memset_bound_ms=u["memset_bound_ms"],
+                plain_ms=u["plain_ms"], bound_ms=u["bound"][0],
+                bound_by=u["bound"][1], library_ms=u["library_ms"],
+                floor_ms=floor_ms, item_ms=i["ms"],
+                item_call_ms=i["call_ms"], item_plain_ms=i["plain_ms"],
+                item_bound_ms=i["bound"][0],
+                item_library_ms=i["library_ms"],
+                shape=f"user {u['shape']}; item {i['shape']}")
+
+
+def train_two_tower(np, torch, ops, dev):
+    """Phase 10 (a): the two-tower model at the published widths, vocab
+    and batch cut (TRAIN_VOCAB, TRAIN_BATCH), TRAIN_CFG (bf16 moments).
+    embedding_bag_backward checked before the optimizer state exists;
+    then TRAIN_STEPS steps of make_train_step on the example's batches
+    with the launch counters read around them, each step timed and its
+    metrics printed, the last split into gradients, norm and update."""
+    from repro_torch.configs import two_tower_retrieval as tt
+    from repro_torch.examples import train_retrieval
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.models import recsys
+    from repro_torch.train import loop, optimizer as opt_lib, tree
+
+    cfg = dataclasses.replace(tt.config(), user_vocab=TRAIN_VOCAB,
+                              item_vocab=TRAIN_VOCAB)
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = recsys.init(cfg, seed=SEED, device=dev)
+    params = recsys.param_tree(model)
+
+    def loss(p, b):
+        return recsys.loss_fn(p, cfg, b)
+
+    batches = [train_retrieval.make_batch(cfg, TRAIN_BATCH, s, dev)
+               for s in range(TRAIN_STEPS)]
+    # The backward kernel's inputs during one real backward.
+    recorded, orig = [], eb.embedding_bag_backward
+
+    def record(dout, ids, weights, table, **kw):
+        # The wrapper counts its launch on its own module-level name.
+        eb.embedding_bag_backward = orig
+        try:
+            out = orig(dout, ids, weights, table, **kw)
+        finally:
+            eb.embedding_bag_backward = record
+        recorded.append((dout.clone(), ids, weights, table, out[0]))
+        return out
+
+    eb.embedding_bag_backward = record
+    try:
+        _, _, grads = loop.value_and_grad(loss, params, batches[0])
+    finally:
+        eb.embedding_bag_backward = orig
+    side_of = {id(model.user.table): "user", id(model.item.table): "item"}
+    real = {side_of[id(r[3])]: list(r) for r in recorded}
+    del recorded
+    for side in ("user", "item"):
+        if real[side][4] is not grads[side]["table"]:
+            fail(f"the {side} table's gradient is not the backward "
+                 f"kernel's output")
+    del grads
+    row = check_embedding_bag_backward(np, torch, ops, model, real, dev)
+    del real
+    torch.cuda.empty_cache()
+
+    state = loop.make_train_state(params, tt.TRAIN_CFG)
+    n_bytes = sum(t.numel() * t.element_size() for t in tree.leaves(
+        [state["params"], state["opt"]["m"], state["opt"]["v"]]))
+    print(f"two-tower training: embed {cfg.embed_dim}, MLP "
+          f"{cfg.tower_mlp}, vocab {cfg.user_vocab} + {cfg.item_vocab}, "
+          f"batch {TRAIN_BATCH}, moments {tt.TRAIN_CFG.opt.moment_dtype}: "
+          f"{n_bytes / 1e9:.3f} GB of parameters and moments "
+          f"({torch.cuda.memory_allocated(dev) / 1e9:.3f} GB allocated)")
+    step = loop.make_train_step(loss, tt.TRAIN_CFG)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    step_ms, hist = [], []
+    for s, b in enumerate(batches):
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        if s < TRAIN_STEPS - 1:
+            e[0].record()
+            state, m = step(state, b)
+            e[3].record()
+        else:
+            # The same step in its three parts.
+            e[0].record()
+            grads, m = loop.compute_grads(loss, state["params"], b)
+            e[1].record()
+            opt_lib.global_norm(grads)
+            e[2].record()
+            _, _, om = opt_lib.apply_updates(state["params"], grads,
+                                             state["opt"], tt.TRAIN_CFG.opt)
+            e[3].record()
+            m = dict(m, **om)
+            del grads
+        e[3].synchronize()
+        step_ms.append(e[0].elapsed_time(e[3]))
+        hist.append({k: float(v) for k, v in m.items()})
+        print(f"train step {s}: loss {hist[-1]['loss']:.6f} grad_norm "
+              f"{hist[-1]['grad_norm']:.6f} lr {hist[-1]['lr']:.3g} "
+              f"in_batch_acc {hist[-1]['in_batch_acc']:.4f} "
+              f"({step_ms[-1]:.3f} ms)")
+    launches = ops.launches()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    fwd_bwd, norm = e[0].elapsed_time(e[1]), e[1].elapsed_time(e[2])
+    update = e[2].elapsed_time(e[3]) - norm      # apply_updates norms too
+    print(f"two-tower train step (median of {TRAIN_STEPS}): "
+          f"{float(np.median(step_ms)):.3f} ms; the last split: forward + "
+          f"backward {fwd_bwd:.3f} ms, global norm {norm:.3f} ms, update "
+          f"{update:.3f} ms; peak allocated {peak_gb:.3f} GB")
+    print(f"training launches: {launches}")
+    if not all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+               for h in hist):
+        fail(f"a training step's loss or norm is not finite: {hist}")
+    if int(state["opt"]["step"]) != TRAIN_STEPS:
+        fail(f"opt.step is {int(state['opt']['step'])} after "
+             f"{TRAIN_STEPS} steps")
+    for name in ("embedding_bag", "embedding_bag_backward"):
+        if launches[name] != 2 * TRAIN_STEPS:
+            fail(f"training launched {name} {launches[name]} times, not "
+                 f"once a tower a step: {launches}")
+    row.update(step_ms=float(np.median(step_ms)), fwd_bwd_ms=fwd_bwd,
+               norm_ms=norm, update_ms=update, train_peak_gb=peak_gb)
+    return row, launches
+
+
+def train_example(np, torch, ops, dev):
+    """Phase 10 (b): examples/train_retrieval.py's main at its defaults on
+    the card, once with a failure injected before the first checkpoint
+    and one after it, once without; every restore read back bit for bit
+    against the state saved (or the initial snapshot), checkpoints in a
+    temporary directory removed afterwards."""
+    import tempfile
+    from repro_torch.examples import train_retrieval
+    from repro_torch.train import checkpoint, fault_tolerance as ft, tree
+
+    saved, checked = {}, []
+    orig_save, orig_restore = checkpoint.AsyncCheckpointer.save, \
+        checkpoint.restore
+    orig_copy = ft._copy_into
+
+    def save(self, step, state):
+        saved[step] = checkpoint.host_copy(state)
+        return orig_save(self, step, state)
+
+    def restore(ckpt_dir, step, template):
+        out = orig_restore(ckpt_dir, step, template)
+        if not all(torch.equal(a.detach().cpu(), b) for a, b in zip(
+                tree.leaves(out), tree.leaves(saved[step]))):
+            fail(f"the checkpoint of step {step} did not read back bit "
+                 f"for bit")
+        checked.append(f"checkpoint {step}")
+        return out
+
+    def copy_into(dst, src):
+        out = orig_copy(dst, src)
+        if not all(torch.equal(a.detach().cpu(), b.detach().cpu())
+                   for a, b in zip(tree.leaves(out), tree.leaves(src))):
+            fail("a restart's state is not the state restored")
+        checked.append("restart")
+        return out
+
+    fails_left = set(EXAMPLE_FAILS)
+
+    def hook(step):
+        if step in fails_left:
+            fails_left.discard(step)
+            raise RuntimeError(f"injected failure at step {step}")
+
+    checkpoint.AsyncCheckpointer.save = save
+    checkpoint.restore, ft._copy_into = restore, copy_into
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            broken = train_retrieval.main(
+                ["--ckpt-dir", f"{d}/a", "--device", str(dev)],
+                fail_hook=hook)
+            launches = ops.launches()
+            broken_s = time.perf_counter() - t0
+            whole = train_retrieval.main(
+                ["--ckpt-dir", f"{d}/b", "--device", str(dev)])
+    finally:
+        checkpoint.AsyncCheckpointer.save = orig_save
+        checkpoint.restore, ft._copy_into = orig_restore, orig_copy
+    h, hw = broken["history"], whole["history"]
+    first, last, ref_last = h[0]["loss"], h[-1]["loss"], hw[-1]["loss"]
+    diff = max(float((a.detach() - b.detach()).abs().max()) for a, b in zip(
+        tree.leaves(broken["state"]["params"]),
+        tree.leaves(whole["state"]["params"])))
+    print(f"train_retrieval example on the card: {len(h)} step records, "
+          f"{broken['failures']} injected failures (steps {EXAMPLE_FAILS}), "
+          f"{broken_s:.2f} s; loss {first:.6f} -> {last:.6f}; a run without "
+          f"failures ends at {ref_last:.6f}; restores read back bit for "
+          f"bit: {checked}; largest parameter difference between the two "
+          f"runs {diff:.3g} (the backward's atomics add a row's terms from "
+          f"different bags in varying order); launches {launches}")
+    if broken["failures"] != len(EXAMPLE_FAILS) or fails_left:
+        fail(f"the example saw {broken['failures']} failures")
+    if sorted(checked) != ["checkpoint 100", "restart", "restart"]:
+        fail(f"restores checked: {checked}")
+    if not last < first:
+        fail(f"the example's loss did not fall: {first} -> {last}")
+    if abs(last - ref_last) > EXAMPLE_LOSS_RTOL * abs(ref_last):
+        fail(f"final loss {last} is not within rtol {EXAMPLE_LOSS_RTOL} of "
+             f"the failure-free run's {ref_last}")
+    s, i, _ = broken["result"]
+    exact_s, exact_i = stable_topk(torch, broken["cand"] @ broken["query"],
+                                   10)
+    ok, clear = agrees_with_exact(torch, s, i, exact_s, exact_i, 10)
+    if not ok:
+        fail("the example's speculative retrieval differs from the exact "
+             "top-k")
+    print(f"train_retrieval example: speculative top-10 equals the exact "
+          f"top-10 (indices at {clear} places with no near-tie)")
+    for name in ("embedding_bag", "embedding_bag_backward",
+                 "topk_score_pruned"):
+        if not launches[name]:
+            fail(f"the example did not launch {name}: {launches}")
+    return launches
+
+
+def train_gat(np, torch, dev):
+    """Phase 10 (c): one train step of gat-cora at the full_graph_sm shape
+    (Cora's 2,708 nodes, 10,556 edges, 1,433 features, 7 classes) on the
+    card, its gradients against the same step's on the CPU; and
+    gnn_common.smoke_run on the card."""
+    from repro_torch.configs import gat_cora, gnn_common
+    from repro_torch.data import graph_synth
+    from repro_torch.models.gnn import gat
+    from repro_torch.train import loop, tree
+
+    cfg = gnn_common.shape_config(gat_cora.config(), "full_graph_sm")
+    sh = gnn_common.GNN_SHAPES["full_graph_sm"]
+    gk = dict(n_nodes=sh["n_nodes"], n_edges=sh["n_edges"],
+              d_feat=sh["d_feat"], n_classes=sh["n_classes"], seed=SEED,
+              geometric=False)
+    g_cpu = graph_synth.random_graph(device="cpu", **gk)
+    g_dev = graph_synth.random_graph(device=dev, **gk)
+    p_cpu = gat.init(cfg, torch.Generator().manual_seed(SEED), device="cpu")
+    p_dev = tree.tree_map(lambda t: t.to(dev), p_cpu)
+    tc = gnn_common.TRAIN_CFG
+    s_cpu = loop.make_train_state(p_cpu, tc)
+    s_dev = loop.make_train_state(p_dev, tc)
+
+    def loss(p, g):
+        return gat.loss_fn(p, cfg, g)
+
+    want, _ = loop.compute_grads(loss, s_cpu["params"], g_cpu)
+    got, m = loop.compute_grads(loss, s_dev["params"], g_dev)
+    worst = 0.0
+    for (name, a), b in zip(tree.flatten(got), tree.leaves(want)):
+        a = a.cpu()
+        atol = GAT_GRAD_ATOL_OF_SCALE * float(b.abs().max())
+        worst = max(worst, float(((a - b).abs() / (atol + GAT_GRAD_RTOL
+                                                   * b.abs())).max()))
+        if not torch.allclose(a, b, rtol=GAT_GRAD_RTOL, atol=atol):
+            fail(f"gat-cora gradient {name} on the card differs from the "
+                 f"CPU's: max abs err {float((a - b).abs().max()):.4g}")
+    _, sm = loop.make_train_step(loss, tc)(s_dev, g_dev)
+    smoke = gnn_common.smoke_run(gat, gat_cora.smoke_config(), False,
+                                 device=dev)
+    if not all(np.isfinite(float(x)) for x in (sm["loss"], smoke["loss"])):
+        fail(f"a GAT train step's loss is not finite: {sm}, {smoke}")
+    print(f"gat-cora at full_graph_sm ({sh['n_nodes']} nodes, "
+          f"{sh['n_edges']} edges, {sh['d_feat']} features): one train "
+          f"step on the card, loss {float(sm['loss']):.6f}, grad_norm "
+          f"{float(sm['grad_norm']):.6f}; its gradients within rtol "
+          f"{GAT_GRAD_RTOL} atol {GAT_GRAD_ATOL_OF_SCALE} x the leaf's "
+          f"largest of the CPU's (worst at {worst:.3f} of the tolerance); "
+          f"smoke_run on the card: loss {float(smoke['loss']):.6f}")
+
+
+def train_path(np, torch, ops, dev):
+    """Phase 10: training (a)-(c). Returns the embedding_bag_backward row
+    and the launches of the full-width steps."""
+    t0 = time.perf_counter()
+    row, launches = train_two_tower(np, torch, ops, dev)
+    torch.cuda.empty_cache()
+    row["example_launches"] = train_example(np, torch, ops, dev)
+    train_gat(np, torch, dev)
+    print(f"phase 10 took {time.perf_counter() - t0:.1f} s")
+    return row, launches
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {pathlib.Path(__file__).name}: run "
@@ -2437,6 +2924,14 @@ def main() -> None:
         print(f"chip_smoke --gather-only took "
               f"{time.perf_counter() - T_START:.1f} s")
         return
+    if "--train-only" in sys.argv[1:]:
+        # Phases 1-2 and phase 10 alone: the training paths.
+        row, launches = train_path(np, torch, ops, dev)
+        row["launches"] = launches["embedding_bag_backward"]
+        print(json.dumps(row))
+        print(f"chip_smoke --train-only took "
+              f"{time.perf_counter() - T_START:.1f} s")
+        return
     if "--shard-only" in sys.argv[1:]:
         # Phases 1-2 and phase 9 alone: the sharded paths.
         launches, nccl = shard_path(np, torch, ops, dev)
@@ -2472,8 +2967,15 @@ def main() -> None:
     print(f"shard_path done at {time.perf_counter() - t0:.1f} s")
     for name, n in sharded.items():
         rows[name]["sharded_launches"] = n
+    torch.cuda.empty_cache()
+    row, train_launches = train_path(np, torch, ops, dev)
+    row["launches"] = train_launches["embedding_bag_backward"]
+    rows["embedding_bag_backward"] = row
+    rows["embedding_bag"]["train_launches"] = train_launches["embedding_bag"]
+    print(f"train_path done at {time.perf_counter() - t0:.1f} s")
     kernels = [rows[n] for n in ("rank_join_lookup", "merge_topk",
                                  "topk_score_pruned", "embedding_bag",
+                                 "embedding_bag_backward",
                                  "flash_attention", "neigh_softmax_agg")]
     for k in kernels:
         print(f"{k['name']}: {k['launches']} launches on its path")

@@ -5,6 +5,7 @@ of the KG (DESIGN.md §2/§5), with the store geometry of one partition and
 the engine settings. ``serve_step`` answers a batch of star queries with
 the full Spec-QP pipeline (statistics → PLANGEN → rank-join execution →
 two-level top-k merge), as the reference's ``make_cell`` function does.
+``smoke`` is the TriniT-equals-full-scan check on the tiny workload.
 The TPU dry-run cell around it (``make_cell``'s ``CellSpec``,
 ``store_specs``) is not ported.
 """
@@ -40,3 +41,30 @@ def serve_step(mesh, mode: str = "specqp"):
 
 def smoke_config() -> EngineConfig:
     return EngineConfig(block=16, k=5, grid_bins=128)
+
+
+def smoke(device=None):
+    """Single-device Spec-QP == TriniT-exactness smoke (tiny workload):
+    per query, TriniT's scores equal ``naive_full_scan``'s (rtol 1e-5).
+    Returns [(trinit result, specqp result)] per query."""
+    import numpy as np
+    from repro_torch.core import engine
+    from repro_torch.data import kg_synth
+
+    wl = kg_synth.tiny_workload(seed=0, n_queries=4, device=device)
+    cfg = smoke_config()
+    outs = []
+    for i in range(len(wl.queries)):
+        q = np.asarray(wl.queries[i])
+        rt = engine.run_query(wl.store, wl.relax, q, cfg, "trinit",
+                              device=device)
+        rs = engine.run_query(wl.store, wl.relax, q, cfg, "specqp",
+                              device=device)
+        _, bs = engine.naive_full_scan(wl.store, wl.relax, q, cfg.k,
+                                       wl.n_entities, device=device)
+        if not np.allclose(bs.cpu().numpy(), rt.scores.cpu().numpy(),
+                           rtol=1e-5):
+            raise AssertionError(f"query {i}: TriniT differs from the "
+                                 "full scan")
+        outs.append((rt, rs))
+    return outs

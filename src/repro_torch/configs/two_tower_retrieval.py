@@ -3,20 +3,25 @@
 fit one 80 GB card whole.
 
 Counterpart of ``repro.configs.two_tower_retrieval``: the configuration,
-the serving constants, the online serving function (``serve``, the
-``serve_p99`` / ``serve_bulk`` shapes) and speculative retrieval over a
-candidate corpus (``retrieve``, the ``retrieval_cand`` shape), unsharded
-or over the ranks of a ``launch.mesh.Mesh``. The training cell is not
-ported yet.
+the serving constants, the training configuration (``TRAIN_CFG``, the
+``train_batch`` shape's optimizer), the online serving function
+(``serve``, the ``serve_p99`` / ``serve_bulk`` shapes), speculative
+retrieval over a candidate corpus (``retrieve``, the ``retrieval_cand``
+shape), unsharded or over the ranks of a ``launch.mesh.Mesh``, and
+``smoke``: one train step and a small speculative retrieval.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
+from repro_torch.core.types import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models import recsys as model
+from repro_torch.train import loop as train_loop
+from repro_torch.train import optimizer as opt_lib
 
 ARCH = "two-tower-retrieval"
 FAMILY = "recsys"
@@ -26,6 +31,9 @@ N_CAND = 1_000_000          # retrieval_cand logical size
 N_CAND_PAD = 1_048_576      # padded with zero rows to whole tiles
 TOPK = 100
 TILE = 512                  # scoring tile
+
+TRAIN_CFG = train_loop.TrainConfig(
+    opt=opt_lib.AdamWConfig(lr=1e-3, moment_dtype="bfloat16"))
 
 
 def config() -> model.TwoTowerConfig:
@@ -68,3 +76,41 @@ def retrieve(query, cand_emb, k: int = TOPK, tile: int = TILE, mesh=None):
     for ax in axes:
         n = mesh.psum(n, ax)
     return s, i, n
+
+
+def smoke(device=None):
+    """One train step of the smoke model on a seeded batch, then a
+    speculative top-8 over a small random corpus: (metrics, (scores, ids,
+    tiles scored)). The batch, corpus and query are the reference's numpy
+    draws; the parameters are the port's ``init`` (seed 0)."""
+    dev = resolve_device(device)
+    cfg = smoke_config()
+    params = model.init(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(0)
+    B = 32
+
+    def t(a, dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    f32, i32 = torch.float32, torch.int32
+    batch = {
+        "user_ids": t(rng.integers(0, cfg.user_vocab, (B, cfg.user_slots)),
+                      i32),
+        "user_w": torch.ones((B, cfg.user_slots), device=dev),
+        "user_dense": t(rng.standard_normal((B, cfg.n_dense_feat)), f32),
+        "item_ids": t(rng.integers(0, cfg.item_vocab, (B, cfg.item_slots)),
+                      i32),
+        "item_w": torch.ones((B, cfg.item_slots), device=dev),
+        "item_dense": t(rng.standard_normal((B, cfg.n_dense_feat)), f32),
+        "item_logq": torch.zeros((B,), device=dev),
+    }
+    tc = train_loop.TrainConfig(opt=opt_lib.AdamWConfig(lr=1e-3))
+    state = train_loop.make_train_state(model.param_tree(params), tc)
+    step = train_loop.make_train_step(
+        lambda p, b: model.loss_fn(p, cfg, b), tc)
+    state, metrics = step(state, batch)
+    # speculative retrieval exactness on a small corpus
+    cand = t(rng.standard_normal((1024, cfg.embed_dim)), f32)
+    q = t(rng.standard_normal((cfg.embed_dim,)), f32)
+    s, i, n = model.score_candidates(params, cfg, q, cand, 8)
+    return metrics, (s, i, n)

@@ -3,8 +3,8 @@ into the port.
 
 The arguments are numpy arrays: the ``TripleStore`` / ``RelaxTable``
 fields (the sketch as uint32 words), a two-tower, LM or GAT parameter
-tree. The results are the port's types on ``device``, so both
-packages then read the very same data.
+tree, or a two-tower or GAT train state. The results are the port's types
+on ``device``, so both packages then read the very same data.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ from repro_torch.models import moe
 from repro_torch.models import recsys
 from repro_torch.models import transformer as tf
 from repro_torch.models.gnn import gat
+from repro_torch.train import tree
 
 
 def store_from_numpy(keys, scores, lengths, sorted_keys, stats, sketch,
@@ -133,3 +134,38 @@ def gat_from_numpy(values, cfg: gat.GATConfig, device=None):
                                  f"config's is {shape}")
             params[name][k] = _tensor(a, dev)
     return params
+
+
+def train_state_from_numpy(values, cfg, device=None):
+    """The reference's train state ``{"params", "opt": {"m", "v", "step"},
+    ["err_fb"]}`` as numpy arrays → the port's (``train.loop``'s layout).
+    ``cfg`` is a ``TwoTowerConfig`` (params through
+    ``two_tower_from_numpy``, returned as its ``param_tree``, so the state
+    trains that model) or a ``GATConfig`` (``gat_from_numpy``). Moments
+    keep their dtype (float32 or bfloat16, bit for bit); ``step`` is a
+    0-d int32."""
+    dev = resolve_device(device)
+    if isinstance(cfg, recsys.TwoTowerConfig):
+        params = recsys.param_tree(
+            two_tower_from_numpy(values["params"], cfg, dev))
+    elif isinstance(cfg, gat.GATConfig):
+        params = gat_from_numpy(values["params"], cfg, dev)
+    else:
+        raise TypeError(f"no train state for a {type(cfg).__name__}")
+
+    def like_params(v):
+        if sorted(name for name, _ in tree.flatten(v)) != sorted(
+                name for name, _ in tree.flatten(params)):
+            raise ValueError("a moment tree does not match the parameters")
+        return tree.tree_map(lambda _, a: _tensor(a, dev), params, v)
+
+    for p in tree.leaves(params):
+        p.requires_grad_(True)
+    opt = values["opt"]
+    state = {"params": params,
+             "opt": {"m": like_params(opt["m"]), "v": like_params(opt["v"]),
+                     "step": torch.tensor(int(np.asarray(opt["step"])),
+                                          dtype=torch.int32, device=dev)}}
+    if "err_fb" in values:
+        state["err_fb"] = like_params(values["err_fb"])
+    return state

@@ -21,6 +21,7 @@ KERNELS = {"rank_join_lookup": _rank_join.rank_join_lookup,
            "merge_topk": _merge_topk.merge_topk,
            "topk_score_pruned": _topk_score.topk_score_pruned,
            "embedding_bag": _embedding_bag.embedding_bag,
+           "embedding_bag_backward": _embedding_bag.embedding_bag_backward,
            "flash_attention": _flash_attention.flash_attention,
            "neigh_softmax_agg": _neigh_agg.neigh_softmax_agg}
 
@@ -65,10 +66,24 @@ block_bounds_cauchy = _topk_score.block_bounds_cauchy
 
 
 def embedding_bag(table, ids, weights, impl: str = "auto"):
-    """Weighted bag: (V, D), (B, S), (B, S) → (B, D)."""
+    """Weighted bag: (V, D), (B, S), (B, S) → (B, D). Differentiable: on
+    the card through the backward kernel, on the CPU by autograd through
+    the plain version."""
     if _plain(table, impl):
         return _ref.embedding_bag(table, ids, weights)
     return _embedding_bag.embedding_bag(table, ids, weights)
+
+
+def embedding_bag_backward(dout, ids, weights, table, *,
+                           table_grad: bool = True,
+                           weights_grad: bool = False, impl: str = "auto"):
+    """The bag's gradients from dout (B, D) → (dtable (V, D) or None,
+    dweights (B, S) or None)."""
+    kw = dict(table_grad=table_grad, weights_grad=weights_grad)
+    if _plain(dout, impl):
+        return _ref.embedding_bag_backward(dout, ids, weights, table, **kw)
+    return _embedding_bag.embedding_bag_backward(dout, ids, weights, table,
+                                                 **kw)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None,

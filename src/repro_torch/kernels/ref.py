@@ -342,6 +342,30 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
     return torch.einsum("bsd,bs->bd", gathered, w)
 
 
+def embedding_bag_backward(dout: torch.Tensor, ids: torch.Tensor,
+                           weights: torch.Tensor, table: torch.Tensor, *,
+                           table_grad: bool = True,
+                           weights_grad: bool = False):
+    """The bag's gradients: dtable[ids[b,s]] += w[b,s]·dout[b] over the
+    live slots (``index_add_`` of the weighted rows into a zero (V, D)
+    array), and dweights[b,s] = ⟨table[ids[b,s]], dout[b]⟩ (0 where
+    ids < 0). Returns (dtable or None, dweights or None)."""
+    ok = ids >= 0
+    dtable = dweights = None
+    if table_grad:
+        live = ok.reshape(-1)
+        rows = (dout[:, None, :] * weights[..., None]).reshape(
+            -1, dout.shape[1])[live]
+        dtable = torch.zeros(table.shape, dtype=torch.float32,
+                             device=dout.device).index_add_(
+            0, ids.reshape(-1)[live].long(), rows)
+    if weights_grad:
+        gathered = table[torch.where(ok, ids, 0).long()]      # (B, S, D)
+        dweights = torch.where(ok, (gathered * dout[:, None, :]).sum(-1),
+                               0.0)
+    return dtable, dweights
+
+
 def neigh_softmax_agg(logits: torch.Tensor, feats: torch.Tensor,
                       mask: torch.Tensor) -> torch.Tensor:
     """Fused edge softmax + neighbourhood aggregation (the GAT hot loop)

@@ -1,16 +1,20 @@
-"""GAT (Velickovic et al., arXiv:1710.10903): attention message passing,
-inference (counterpart of ``repro.models.gnn.gat``).
+"""GAT (Velickovic et al., arXiv:1710.10903): attention message passing
+(counterpart of ``repro.models.gnn.gat``).
 
 Edge scores a_src·h_i + a_dst·h_j, a softmax over each node's incoming
 edges, and the attention-weighted sum of the neighbours' features, all
 with the segment ops of ``graph`` as in the reference (whose ``apply``
 never calls the ``neigh_softmax_agg`` kernel; neither does this one).
+``forward`` is differentiable and ``loss_fn`` trains through it;
+``apply`` is the same forward for inference, without gradients.
 
 Messages are formed and scattered in chunks of ``EDGE_CHUNK`` edges: at
 ogbn-products scale (61,859,140 edges, 8 heads, 47 classes) the last
 layer's (E, H, d) message tensor alone would take 93 GB in f32, more than
 the card holds. A chunk of 2**23 edges takes 12.6 GB there. The sum is the
-same up to float order.
+same up to float order. Without gradients a chunk's messages are scaled in
+place (one chunk's buffer); with them, out of place, since autograd keeps
+the gathered features for the backward.
 """
 from __future__ import annotations
 
@@ -68,14 +72,16 @@ def init(cfg: GATConfig, generator: torch.Generator,
 def aggregate(g: G.Graph, alpha: torch.Tensor, hw: torch.Tensor,
               n_nodes: int) -> torch.Tensor:
     """Σ over incoming edges of alpha · hw[src]: (E, H), (N, H, d) →
-    (N, H, d), EDGE_CHUNK edges at a time (the messages are scaled in
-    place to keep one chunk's buffer)."""
+    (N, H, d), EDGE_CHUNK edges at a time (without gradients the messages
+    are scaled in place to keep one chunk's buffer)."""
     n_edges, chunk = g.edge_src.shape[0], EDGE_CHUNK
     out = hw.new_zeros((n_nodes + 1,) + hw.shape[1:])
+    in_place = not torch.is_grad_enabled()
     for lo in range(0, n_edges, chunk):
         gc = dataclasses.replace(g, edge_src=g.edge_src[lo:lo + chunk],
                                  edge_dst=g.edge_dst[lo:lo + chunk])
-        msgs = G.gather_src(gc, hw).mul_(alpha[lo:lo + chunk, :, None])
+        msgs, a = G.gather_src(gc, hw), alpha[lo:lo + chunk, :, None]
+        msgs = msgs.mul_(a) if in_place else msgs * a
         G.scatter_add_(out, gc, msgs)
         del msgs
     return out[:n_nodes]
@@ -107,13 +113,39 @@ def _gat_layer(lp, cfg: GATConfig, g: G.Graph, h: torch.Tensor,
     return finish_layer(aggregate(g, alpha, hw, n_nodes), concat)
 
 
-@torch.no_grad()
-def apply(params, cfg: GATConfig, g: G.Graph) -> torch.Tensor:
-    """Full-batch inference: (N, n_classes) logits, or (N, 1) per node for
-    ``task="graph_reg"``."""
+def forward(params, cfg: GATConfig, g: G.Graph) -> torch.Tensor:
+    """Full-batch forward: (N, n_classes) logits, or (N, 1) per node for
+    ``task="graph_reg"``; differentiable in ``params``."""
     n = g.node_mask.shape[0]
     h = g.node_feat
     for i in range(cfg.n_layers):
         h = _gat_layer(params[f"layer_{i}"], cfg, g, h, n,
                        concat=i < cfg.n_layers - 1)
     return h
+
+
+@torch.no_grad()
+def apply(params, cfg: GATConfig, g: G.Graph) -> torch.Tensor:
+    """Full-batch inference: ``forward`` without gradients."""
+    return forward(params, cfg, g)
+
+
+def loss_fn(params, cfg: GATConfig, g: G.Graph):
+    """``graph_reg``: mean squared error of each graph's summed node
+    outputs against its target. ``node_class``: mean cross-entropy over
+    the live nodes with a label ≥ 0. Returns (loss, {"loss"})."""
+    out = forward(params, cfg, g)
+    if cfg.task == "graph_reg":
+        n_graphs = int(g.labels.shape[0])
+        ids = g.graph_ids if g.graph_ids is not None else torch.zeros(
+            (out.shape[0],), dtype=torch.int32, device=out.device)
+        energy = out.new_zeros((n_graphs,)).index_add(
+            0, ids.long(), out[:, 0] * g.node_mask)
+        loss = torch.mean((energy - g.labels.float()) ** 2)
+        return loss, {"loss": loss}
+    mask = g.node_mask & (g.labels >= 0)
+    labels = torch.where(mask, g.labels, 0).long()
+    logp = F.log_softmax(out.float(), dim=-1)
+    nll = -logp.gather(1, labels[:, None])[:, 0]
+    loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
+    return loss, {"loss": loss}

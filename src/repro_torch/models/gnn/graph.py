@@ -101,8 +101,11 @@ def edge_softmax(g: Graph, logits: torch.Tensor,
                  n_nodes: int) -> torch.Tensor:
     """Softmax of edge logits over each destination's incoming edges."""
     mx = scatter_max(g, logits, n_nodes, fill=0.0)
-    ex = torch.exp(logits - gather_dst(g, mx))
-    ex = ex.masked_fill_(~_per_edge(edge_valid(g), ex.dim()), 0.0)
+    # exp(-inf) = 0 on padding edges; the fill is on exp's input, which
+    # autograd does not keep, so the softmax stays differentiable.
+    shifted = logits - gather_dst(g, mx)
+    ex = torch.exp(shifted.masked_fill_(
+        ~_per_edge(edge_valid(g), shifted.dim()), -math.inf))
     den = scatter_sum(g, ex, n_nodes)
     return ex / torch.clamp(gather_dst(g, den), min=1e-30)
 

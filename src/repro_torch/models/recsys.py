@@ -1,11 +1,15 @@
-"""Two-tower retrieval serving (counterpart of ``repro.models.recsys``).
+"""Two-tower retrieval (counterpart of ``repro.models.recsys``).
 
 Each tower reduces a multi-hot id bag through ``embedding_bag``, appends
-dense features and runs an MLP to an L2-normalised embedding.
+dense features and runs an MLP to an L2-normalised embedding. Training
+uses ``loss_fn``, the reference's in-batch sampled softmax with logQ
+correction, differentiated by autograd (on the card the bag's backward is
+the ``embedding_bag_backward`` kernel); ``param_tree`` gives the
+module's parameters as the reference's tree, for ``train.loop``.
 ``score_candidates`` scores one query against a candidate matrix through
-the Spec-QP speculative top-k kernel; ``serve_batch`` is the online path:
-user tower, then a hierarchical top-k against a cached item corpus.
-Training (``loss_fn``) is not ported yet, so parameters carry no gradient.
+the Spec-QP speculative top-k kernel; ``serve_batch`` is the online path,
+without gradients: user tower, then a hierarchical top-k against a cached
+item corpus.
 """
 from __future__ import annotations
 
@@ -36,14 +40,18 @@ class TwoTowerConfig:
 
 class Tower(nn.Module):
     """One tower's parameters: ``table`` (vocab, D) and MLP weights
-    ``w0``, ``w1``, … of shape (d_in, d_out), named as in the reference."""
+    ``w0``, ``w1``, … of shape (d_in, d_out), named as in the reference;
+    ``tower["w0"]`` reads one as the reference's dict does."""
 
     def __init__(self, table: torch.Tensor, mlp: list[torch.Tensor]):
         super().__init__()
-        self.table = nn.Parameter(table, requires_grad=False)
+        self.table = nn.Parameter(table)
         self.n_layers = len(mlp)
         for i, w in enumerate(mlp):
-            setattr(self, f"w{i}", nn.Parameter(w, requires_grad=False))
+            setattr(self, f"w{i}", nn.Parameter(w))
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return getattr(self, name)
 
     @property
     def mlp(self) -> list[torch.Tensor]:
@@ -56,6 +64,17 @@ class TwoTower(nn.Module):
         self.cfg = cfg
         self.user = user
         self.item = item
+
+    def __getitem__(self, name: str) -> Tower:
+        return getattr(self, name)
+
+
+def param_tree(model: TwoTower) -> dict:
+    """The model's own parameters as the reference's tree, ``{"user":
+    {"table", "w0", …}, "item": {…}}``: a train state built on it updates
+    the model in place."""
+    return {side: dict(model[side].named_parameters())
+            for side in ("user", "item")}
 
 
 def _tower_init(cfg: TwoTowerConfig, vocab: int, gen: torch.Generator,
@@ -81,17 +100,40 @@ def init(cfg: TwoTowerConfig, seed: int = 0, device=None) -> TwoTower:
                     _tower_init(cfg, cfg.item_vocab, gen, dev))
 
 
-def tower(p: Tower, cfg: TwoTowerConfig, ids, weights, dense):
-    """ids: (B, S) int32 multi-hot; weights: (B, S); dense: (B, F)."""
-    x = torch.cat([kops.embedding_bag(p.table, ids, weights), dense], dim=-1)
-    for i, w in enumerate(p.mlp):
-        x = x @ w
+def tower(p, cfg: TwoTowerConfig, ids, weights, dense):
+    """ids: (B, S) int32 multi-hot; weights: (B, S); dense: (B, F). ``p``
+    is a ``Tower`` or its parameter dict."""
+    x = torch.cat([kops.embedding_bag(p["table"], ids, weights), dense],
+                  dim=-1)
+    for i in range(len(cfg.tower_mlp)):
+        x = x @ p[f"w{i}"]
         if i < len(cfg.tower_mlp) - 1:
             x = F.silu(x)
     norm = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
     return x / torch.clamp(norm, min=1e-6)
 
 
+def loss_fn(params, cfg: TwoTowerConfig, batch):
+    """In-batch sampled softmax with logQ correction.
+
+    ``params``: a ``TwoTower`` or its ``param_tree``. batch: dict(user_ids,
+    user_w, user_dense, item_ids, item_w, item_dense, item_logq (B,)).
+    Returns (loss, {"loss", "in_batch_acc"}).
+    """
+    u = tower(params["user"], cfg, batch["user_ids"], batch["user_w"],
+              batch["user_dense"])
+    v = tower(params["item"], cfg, batch["item_ids"], batch["item_w"],
+              batch["item_dense"])
+    logits = (u @ v.T) / cfg.temperature
+    logits = logits - batch["item_logq"][None, :]   # logQ correction
+    labels = torch.arange(u.shape[0], device=u.device)
+    logp = F.log_softmax(logits.float(), dim=-1)
+    loss = -torch.mean(logp.gather(1, labels[:, None]))
+    acc = torch.mean((torch.argmax(logits, -1) == labels).float())
+    return loss, {"loss": loss, "in_batch_acc": acc}
+
+
+@torch.no_grad()
 def score_candidates(params, cfg: TwoTowerConfig, query, cand_emb, k: int,
                      speculative: bool = True):
     """Top-k of one query against a candidate matrix (N, D).
@@ -138,6 +180,7 @@ def _top_k(x: torch.Tensor, k: int):
 _top_k.full_sorts = 0
 
 
+@torch.no_grad()
 def serve_batch(params: TwoTower, cfg: TwoTowerConfig, batch, cand_emb,
                 k: int, n_blocks: int = 16, batch_chunk: int = 4096):
     """Online inference: user tower + dot top-k against a cached corpus.

@@ -15,7 +15,7 @@ def _modules():
 
 def test_port_imports_no_jax_and_no_repro():
     mods = _modules()
-    assert "repro_torch.core.engine" in mods and len(mods) >= 38
+    assert "repro_torch.core.engine" in mods and len(mods) >= 45
     for m in ("models.recsys", "configs.two_tower_retrieval",
               "kernels.topk_score", "kernels.embedding_bag",
               "examples.speculative_retrieval", "models.common",
@@ -26,7 +26,10 @@ def test_port_imports_no_jax_and_no_repro():
               "models.gnn.padded",
               "kernels.neigh_agg", "configs.gnn_common", "configs.gat_cora",
               "core.sketches", "examples.quickstart", "examples.serve_kg",
-              "examples.serve_soak", "core.distributed", "launch.mesh"):
+              "examples.serve_soak", "core.distributed", "launch.mesh",
+              "train.tree", "train.optimizer", "train.compression",
+              "train.loop", "train.checkpoint", "train.fault_tolerance",
+              "examples.train_retrieval", "configs.kg_specqp"):
         assert f"repro_torch.{m}" in mods, m
     code = "\n".join(
         ["import importlib, sys"]

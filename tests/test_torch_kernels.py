@@ -443,8 +443,9 @@ def test_embedding_bag_wrapper_checks():
         embedding_bag.check_args(torch.zeros((10, 6)), ids, w)
     with pytest.raises(TypeError):
         embedding_bag.check_args(table, ids.long(), w)
-    with pytest.raises(NotImplementedError):
-        embedding_bag.check_args(table.requires_grad_(), ids, w)
+    # A table that requires gradients is taken: the backward is a kernel.
+    assert embedding_bag.check_args(table.requires_grad_(), ids, w) == (
+        3, 2, 8)
 
 
 def test_dispatch_and_wrapper_checks():
@@ -461,11 +462,14 @@ def test_dispatch_and_wrapper_checks():
     ops.merge_topk(keys.view(1, 2, 4), scores.view(1, 2, 4), 4)
     ops.topk_score_pruned(cands[0], cands, bounds, 2, 4)
     ops.embedding_bag(cands, keys.view(2, 4), scores.view(2, 4))
+    ops.embedding_bag_backward(cands[:2], keys.view(2, 4), scores.view(2, 4),
+                               cands, weights_grad=True)
     qkv = torch.zeros((1, 2, 4, 128), dtype=torch.bfloat16)
     ops.flash_attention(qkv, qkv, qkv)
     ops.neigh_softmax_agg(cands, cands[..., None], cands > 0)
     assert ops.launches() == {"rank_join_lookup": 0, "merge_topk": 0,
                               "topk_score_pruned": 0, "embedding_bag": 0,
+                              "embedding_bag_backward": 0,
                               "flash_attention": 0, "neigh_softmax_agg": 0}
     with pytest.raises(ValueError):
         rank_join.rank_join_lookup(keys, scores, probes, cnt)
@@ -476,6 +480,9 @@ def test_dispatch_and_wrapper_checks():
     with pytest.raises(ValueError):
         embedding_bag.embedding_bag(cands, keys.view(2, 4),
                                     scores.view(2, 4))
+    with pytest.raises(ValueError):
+        embedding_bag.embedding_bag_backward(cands[:2], keys.view(2, 4),
+                                             scores.view(2, 4), cands)
     with pytest.raises(ValueError):
         flash_attention.flash_attention(qkv, qkv, qkv)
     with pytest.raises(ValueError):

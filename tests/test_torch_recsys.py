@@ -79,8 +79,9 @@ def test_convert_carries_every_parameter(params):
     for side in ("user", "item"):
         for name, v in values[side].items():
             got = getattr(getattr(model, side), name)
-            np.testing.assert_array_equal(got.numpy(), np.asarray(v))
-            assert not got.requires_grad
+            np.testing.assert_array_equal(got.detach().numpy(),
+                                          np.asarray(v))
+            assert got.requires_grad
     bad = {"user": {"table": np.zeros((4, 32))}, "item": {}}
     with pytest.raises(ValueError, match="tower keys"):
         convert.two_tower_from_numpy(bad, CFG, device="cpu")
@@ -125,7 +126,9 @@ def test_tower_matches_jax(params, side):
     ids = rng.integers(-1, vocab, (16, slots)).astype(np.int32)
     w = rng.random((16, slots)).astype(np.float32)
     dense = rng.standard_normal((16, CFG.n_dense_feat)).astype(np.float32)
-    got = recsys.tower(getattr(model, side), CFG, _t(ids), _t(w), _t(dense))
+    with torch.no_grad():
+        got = recsys.tower(getattr(model, side), CFG, _t(ids), _t(w),
+                           _t(dense))
     want = jrecsys.tower(values[side], jconf.smoke_config(),
                          jnp.asarray(ids), jnp.asarray(w), jnp.asarray(dense))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
@@ -189,8 +192,9 @@ def test_serve_batch_matches_jax(params):
     np.testing.assert_array_equal(i, ji)
     assert i.dtype == np.int32
     # == the full-matrix top-k
-    u = recsys.tower(model.user, CFG, _t(batch["user_ids"]),
-                     _t(batch["user_w"]), _t(batch["user_dense"]))
+    with torch.no_grad():
+        u = recsys.tower(model.user, CFG, _t(batch["user_ids"]),
+                         _t(batch["user_w"]), _t(batch["user_dense"]))
     es, ei = torch.sort(u @ _t(cand).T, dim=-1, descending=True, stable=True)
     np.testing.assert_allclose(s, es[:, :5].numpy(), rtol=1e-5)
     np.testing.assert_array_equal(i, ei[:, :5].numpy())
@@ -276,8 +280,9 @@ def test_cuda_two_tower_serving_matches_cpu(cuda):
     on_cpu = {n: _t(a) for n, a in
               _user_batch(np.random.default_rng(12), 8).items()}
     on_card = {n: t.to(cuda) for n, t in on_cpu.items()}
-    u_cpu = recsys.tower(cpu.user, CFG, *on_cpu.values())
-    u_card = recsys.tower(card.user, CFG, *on_card.values())
+    with torch.no_grad():
+        u_cpu = recsys.tower(cpu.user, CFG, *on_cpu.values())
+        u_card = recsys.tower(card.user, CFG, *on_card.values())
     torch.testing.assert_close(u_card.cpu(), u_cpu, rtol=1e-5, atol=1e-6)
     cand = _t(_one_hot_corpus(512, CFG.embed_dim))
     s_cpu, i_cpu = conf.serve(cpu, on_cpu, cand, 5)
