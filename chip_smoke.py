@@ -131,9 +131,29 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    final loss within rtol 1e-3 of a run without failures, the speculative
    top-10 exact), and one gat-cora train step at the ``full_graph_sm``
    shape, its gradients held against the CPU's;
-11. print the kernel table as one JSON line (``launches``: each kernel's
+11. LM training at the full width of gemma2-2b (``configs/gemma2_2b``,
+   bf16, remat "full", ``TRAIN_CFG``): ``flash_attention_backward`` held
+   against its plain twin (f32 math) at gemma2-2b's global and local layer
+   and starcoder2-3b's layer, with a no-softcap case and a control that
+   shows a backward without the softcap fails the check, and at its edges
+   (S off the tiles, Sq < Sk, Sq > Sk, non-causal, windows of 1, of its
+   tile of 64 keys +- 1 and of the forward's tile +- 1, GQA groups of 1,
+   2 and 12, (B, S, H, D) views),
+   each case twice and bit-equal, the forward's o bit-equal with its lse
+   output asked for and not, and lse against the twin's; timed at 4 x 4096
+   beside its bound, the forward with lse, the plain twin and SDPA's
+   backward. Then 4 steps at 4 x 4096 (cut from train_4k's 256 x 4096)
+   on ``launch/train.py``'s batches with the counters set to 0 just before
+   and read just after (52 ``flash_attention`` and 26
+   ``flash_attention_backward`` launches a step), each timed, the last
+   split into gradients, norm and update, peak memory printed; at B = 1,
+   S = 1024 every parameter's gradient against the einsum attention's;
+   then ``launch/train.py`` and ``examples/train_lm.py`` at smoke widths
+   (head_dim 128, bf16 compute) with two injected failures each;
+12. print the kernel table as one JSON line (``launches``: each kernel's
    count on its own path, so 0 for ``neigh_softmax_agg`` on
-   ``gat.apply``, and phase 10's steps for ``embedding_bag_backward``;
+   ``gat.apply``, phase 10's steps for ``embedding_bag_backward`` and
+   phase 11's for ``flash_attention_backward``;
    ``neigh_softmax_agg``'s ``check_launches`` are those of the drive over
    the layers' data; rows 1-3 add ``sharded_launches``, summed over phase
    9's ranks), then the result line ``{"ok": true, "device": {...}}``
@@ -149,11 +169,13 @@ result line; ``--kg-only`` runs phases 1-3 and stops the same way;
 or the graph, and stops the same way; ``--shard-only`` runs phases 1-2
 and phase 9 (the NCCL run then checked against ``run_query_batch``
 alone), and stops the same way; ``--train-only`` runs phases 1-2 and
-phase 10, and stops the same way.
+phase 10, and stops the same way; ``--lm-train-only`` runs phases 1-2
+and phase 11, and stops the same way.
 ``--profile`` adds ``torch.profiler``
 windows (device busy share, time by kernel) over one retrieval query in
 each mode, the serving batches, one LM prefill with 4 decode steps, one
-GAT forward and one specqp pass of the KG path.
+GAT forward, one full-width LM train step and one specqp pass of the KG
+path.
 """
 from __future__ import annotations
 
@@ -2866,6 +2888,465 @@ def train_path(np, torch, ops, dev):
     return row, launches
 
 
+# Phase 11: LM training at the full width of gemma2-2b, bf16, remat
+# "full", TRAIN_CFG. The batch is cut from train_4k's 256 x 4096 to
+# LM_TRAIN_BATCH x 4096: under full remat the 26 layers' saved bf16 inputs
+# alone take 256 x 4096 x 2304 x 2 B x 26 = 125.6 GB; at B = 4 they take
+# 2.0 GB beside about 21 GB of bf16 parameters, gradients and moments.
+LM_TRAIN_BATCH = 4
+LM_TRAIN_SEQ = 4096
+LM_TRAIN_STEPS = 4        # the last one split into grads, norm and update
+# flash_attention_backward against its plain twin (f32 math on the same
+# bf16 inputs, from its own f32 forward): each gradient's largest error
+# within FA_BWD_TOL of that gradient's scale, its largest |value|, or,
+# where the exact gradient cancels to 0 (a window of 1: dq = dk = 0), at
+# least 2**-10 of the bound on one term (max|do| max|v| sqrt(D), times
+# scale max|k| for dq and scale max|q| for dk).
+FA_BWD_TOL = 2e-2
+# The model-level check: at B = 1, S = LM_CHECK_SEQ each parameter's
+# gradient through the kernels against the einsum attention's, relative
+# L2 norm at most this (bf16 activations through 26 layers; a wrong
+# attention gradient moves it by about 1).
+LM_CHECK_SEQ = 1024
+LM_GRAD_REL_L2 = 0.1
+# The entry points on the card run the smoke configurations with
+# head_dim 128 and bf16 compute, the shapes the kernels take (the smoke
+# configurations' head_dim 16 in f32 is refused on CUDA tensors).
+LM_EXAMPLE_FAILS = (50, 120)   # before and after the checkpoint at 100
+LM_LAUNCH_FAILS = (2, 4)       # before and after the checkpoint at 3
+
+
+def fa_bwd_bound(B, Hq, Hkv, Sq, Sk, D, causal, window) -> tuple[float, str]:
+    """Least time in ms of the attention backward: 10·D flops per visible
+    pair and head at the bf16 tensor-core peak, against q, o, do, k, v and
+    lse read once and dq, dk, dv written once."""
+    flops = 10 * D * B * Hq * live_pairs(Sq, Sk, causal, window)
+    nbytes = 2 * D * B * (4 * Hq * Sq + 4 * Hkv * Sk) + 4 * B * Hq * Sq
+    t_ops, t_bytes = flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def fa_bwd_errors(torch, got, want, q, k, v, do, scale):
+    """Each gradient's largest error over its scale (FA_BWD_TOL's)."""
+    term = float(do.abs().max()) * float(v.abs().max()) * q.shape[-1] ** 0.5
+    floors = (2.0 ** -10 * term * scale * float(k.abs().max()),
+              2.0 ** -10 * term * scale * float(q.abs().max()),
+              2.0 ** -10 * term)
+    out = []
+    for g, w, f in zip(got, want, floors):
+        w = w.float()
+        out.append(float((g.float() - w).abs().max())
+                   / max(float(w.abs().max()), f))
+    return out
+
+
+def check_flash_backward(np, torch, ops, dev, cfg):
+    """flash_attention_backward against its plain twin at gemma2-2b's and
+    starcoder2-3b's layers and at the kernel's edges, logits of std
+    ATTN_LOGIT_STD; the forward's o bit-equal with lse asked for and not
+    and its lse against the twin's; each case run twice and bit-equal; a
+    control shows the backward without the softcap fails the check. Then
+    timed at B = LM_TRAIN_BATCH, S = LM_TRAIN_SEQ beside its bound, the
+    forward with lse, the plain twin and SDPA's backward. Returns the
+    kernel row (launches filled in later)."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import starcoder2_3b
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 11)
+    Hq, Hkv, D, cap = cfg.n_heads, cfg.n_kv, cfg.head_dim, cfg.attn_softcap
+    local = max(cfg.window_pattern)
+    sc = starcoder2_3b.config()
+    S, bt = LM_TRAIN_SEQ, fa.BWD_TILE
+
+    def edge_windows(d):
+        """1, the backward's tile +- 1, the forward's (its lse) +- 1."""
+        return (1, bt - 1, bt, bt + 1, fa.TILE_N[d] - 1, fa.TILE_N[d] + 1)
+    # (name, B, Hq, Hkv, Sq, Sk, D, causal, window, softcap, layout)
+    cases = [("global", 1, Hq, Hkv, S, S, D, True, 0, cap, ""),
+             ("local", 1, Hq, Hkv, S, S, D, True, local, cap, ""),
+             ("global, no softcap", 1, Hq, Hkv, S, S, D, True, 0, None, ""),
+             (sc.name, 1, sc.n_heads, sc.n_kv, 2048, 2048, sc.head_dim, True,
+              max(sc.window_pattern), None, ""),
+             ("S off the tiles", 1, Hq, Hkv, 1000, 1000, D, True, 300, cap,
+              ""),
+             ("Sq<Sk", 2, Hq, Hkv, 100, 1000, D, True, 0, cap, ""),
+             ("Sq<Sk, D=128", 1, 4, 2, 77, 300, 128, True, 0, None, ""),
+             ("Sq>Sk", 1, Hq, Hkv, 300, 130, D, True, 0, cap, ""),
+             ("non-causal", 1, Hq, Hkv, 500, 500, D, False, 0, None, ""),
+             *((f"window {w}", 1, Hq, Hkv, 600, 600, D, True, w, cap, "")
+               for w in edge_windows(D)),
+             *((f"window {w}, D=128", 1, 4, 2, 600, 600, 128, True, w, None,
+                "") for w in edge_windows(128)),
+             ("GQA 1", 1, 4, 4, 700, 700, D, True, 0, cap, ""),
+             ("GQA 12", 1, 24, 2, 700, 700, D, True, 0, cap, ""),
+             ("GQA 12, D=128", 1, 24, 2, 700, 700, 128, True, 0, None, ""),
+             ("(B, S, H, D)", 2, Hq, Hkv, 500, 500, D, True, 0, cap, "bshd"),
+             ("(B, S, H, D), D=128", 2, 24, 2, 500, 500, 128, True, 64, None,
+              "bshd")]
+    worst = 0.0
+    abs_err = 0.0
+    for name, B, hq, hkv, Sq, Sk, d, causal, win, c, layout in cases:
+        q, k, v = attn_inputs(torch, gen, dev, B, hq, hkv, Sq, Sk, d)
+        do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+        if layout == "bshd":
+            q, k, v, do = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                           for t in (q, k, v, do))
+        kw = dict(causal=causal, window=win, softcap=c)
+        o, lse = fa.flash_attention_fwd_stats(q, k, v, **kw)
+        o_plain_path = fa.flash_attention_fwd_stats(q, k, v, stats=False,
+                                                    **kw)[0]
+        got = ops.flash_attention_backward(q, k, v, o, lse, do, **kw)
+        again = ops.flash_attention_backward(q, k, v, o, lse, do, **kw)
+        po, plse = ref.flash_attention_fwd_stats(q.float(), k.float(),
+                                                 v.float(), **kw)
+        want = ref.flash_attention_bwd(q.float(), k.float(), v.float(), po,
+                                       plse, do.float(), **kw)
+        torch.cuda.synchronize()
+        shape = (f"B={B} Hq={hq} Hkv={hkv} Sq={Sq} Sk={Sk} D={d} causal="
+                 f"{causal} window={win} softcap={c} {layout}").strip()
+        if not torch.equal(o, o_plain_path):
+            fail(f"flash_attention ({name}: {shape}): o differs with lse "
+                 f"asked for")
+        live = torch.isfinite(plse)
+        if not torch.equal(live, torch.isfinite(lse)) or (
+                Sq > Sk and causal and live[:, :, :Sq - Sk].any()):
+            fail(f"flash_attention ({name}): lse is not -inf exactly on "
+                 f"the rows with no visible key")
+        lse_err = float((lse - plse)[live].abs().max()) if live.any() else 0
+        if lse_err > 1e-2:
+            fail(f"flash_attention ({name}: {shape}): lse differs from the "
+                 f"plain twin's by {lse_err:.4g}")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"flash_attention_backward ({name}: {shape}): two runs "
+                 f"differ")
+        errs = fa_bwd_errors(torch, got, want, q, k, v, do, d ** -0.5)
+        e_abs = max(float((g.float() - w).abs().max())
+                    for g, w in zip(got, want))
+        if max(errs) > FA_BWD_TOL:
+            fail(f"flash_attention_backward ({name}: {shape}) differs from "
+                 f"its plain twin: dq, dk, dv errors {errs} of their scales "
+                 f"(tolerance {FA_BWD_TOL})")
+        worst, abs_err = max(worst, max(errs)), max(abs_err, e_abs)
+        print(f"flash_attention_backward {name} ({shape}): dq, dk, dv "
+              f"within {[round(x, 5) for x in errs]} of their scales of the "
+              f"plain twin (tolerance {FA_BWD_TOL}, max abs err "
+              f"{e_abs:.4g}), two runs bit-equal; the forward's o bit-equal "
+              f"with lse asked for, lse within {lse_err:.3g} of the twin's")
+        if name == "global":
+            # Control: a backward that dropped the softcap fails the check.
+            nocap = fa.flash_attention_backward(q, k, v, o, lse, do,
+                                                causal=causal, window=win)
+            e = fa_bwd_errors(torch, nocap, want, q, k, v, do, d ** -0.5)
+            if max(e) <= FA_BWD_TOL:
+                fail(f"flash_attention_backward without its softcap is "
+                     f"within the tolerance of the softcapped twin ({e}): "
+                     f"the checks cannot see the softcap")
+            print(f"flash_attention_backward control: without the softcap "
+                  f"its errors are {[round(x, 4) for x in e]} of the "
+                  f"softcapped twin's scales, outside {FA_BWD_TOL}")
+            del nocap
+        del q, k, v, do, o, lse, got, again, want, po, plse
+    torch.cuda.empty_cache()
+
+    B = LM_TRAIN_BATCH
+    q, k, v = attn_inputs(torch, gen, dev, B, Hq, Hkv, S, S, D)
+    do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+
+    def sdpa_bwd(q, k, v, do):
+        qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+        try:
+            out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                                 enable_gqa=True)
+            return cuda_ms(torch, lambda: torch.autograd.grad(
+                out, (qs, ks, vs), do, retain_graph=True), blocks=5,
+                per_block=2)
+        except RuntimeError as e:     # no SDPA backend for these inputs
+            print(f"scaled_dot_product_attention's backward refused the "
+                  f"inputs: {e}")
+            return None
+
+    times = {}
+    for name, win, c in (("global", 0, cap), ("local", local, cap),
+                         ("no softcap", 0, None)):
+        kw = dict(window=win, softcap=c)
+        o, lse = fa.flash_attention_fwd_stats(q, k, v, **kw)
+        times[name] = dict(
+            ms=cuda_ms(torch, lambda: fa.flash_attention_backward(
+                q, k, v, o, lse, do, **kw), blocks=5, per_block=2),
+            fwd_ms=cuda_ms(torch, lambda: fa.flash_attention_fwd_stats(
+                q, k, v, **kw), blocks=5, per_block=2),
+            bound=fa_bwd_bound(B, Hq, Hkv, S, S, D, True, win))
+        if name == "global":
+            times[name]["plain_ms"] = cuda_ms(
+                torch, lambda: ref.flash_attention_bwd(q, k, v, o, lse, do,
+                                                       **kw),
+                blocks=2, per_block=1)
+        del o, lse
+        torch.cuda.empty_cache()
+    library_ms = sdpa_bwd(q, k, v, do)
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    sq, sk, sv = attn_inputs(torch, gen, dev, B, sc.n_heads, sc.n_kv, S, S,
+                             sc.head_dim)
+    sdo = torch.randn(sq.shape, generator=gen, device=dev).to(sq.dtype)
+    swin = max(sc.window_pattern)
+    so, slse = fa.flash_attention_fwd_stats(sq, sk, sv, window=swin)
+    d128 = dict(
+        ms=cuda_ms(torch, lambda: fa.flash_attention_backward(
+            sq, sk, sv, so, slse, sdo, window=swin), blocks=5, per_block=2),
+        bound=fa_bwd_bound(B, sc.n_heads, sc.n_kv, S, S, sc.head_dim, True,
+                           swin),
+        library_ms=sdpa_bwd(sq, sk, sv, sdo))
+    del sq, sk, sv, sdo, so, slse
+    torch.cuda.empty_cache()
+    for name, t in times.items():
+        b = t["bound"]
+        print(f"flash_attention_backward {name} layer (B={B} Hq={Hq} "
+              f"Hkv={Hkv} S={S} D={D}): kernel {t['ms']:.4f} ms, bound "
+              f"{b[0]:.4f} ms ({b[1]}), {100 * b[0] / t['ms']:.1f} % of the "
+              f"bound's rate; forward with lse {t['fwd_ms']:.4f} ms"
+              + (f"; plain twin {t['plain_ms']:.4f} ms" if "plain_ms" in t
+                 else ""))
+    print(f"flash_attention_backward without softcap: kernel "
+          f"{times['no softcap']['ms']:.4f} ms; scaled_dot_product_attention"
+          f"'s backward (is_causal, enable_gqa) {library_ms} ms")
+    b = d128["bound"]
+    print(f"flash_attention_backward {sc.name} layer (B={B} Hq={sc.n_heads} "
+          f"Hkv={sc.n_kv} S={S} D={sc.head_dim} window={swin}): kernel "
+          f"{d128['ms']:.4f} ms, bound {b[0]:.4f} ms ({b[1]}), "
+          f"{100 * b[0] / d128['ms']:.1f} % of the bound's rate; "
+          f"scaled_dot_product_attention's backward {d128['library_ms']} ms")
+    g = times["global"]
+    return dict(name="flash_attention_backward", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                replaces="src/repro/models/attention.py:299",
+                note="port kernel, no TPU counterpart: the reference's "
+                     "backward is XLA under jax.custom_vjp (_flash_bwd)",
+                max_abs_err=abs_err, max_err_of_scale=worst, ms=g["ms"],
+                plain_ms=g["plain_ms"], bound_ms=g["bound"][0],
+                bound_by=g["bound"][1], library_ms=library_ms,
+                library_vs="the kernel without softcap, nocap_ms",
+                nocap_ms=times["no softcap"]["ms"],
+                fwd_lse_ms=g["fwd_ms"], local_ms=times["local"]["ms"],
+                local_bound_ms=times["local"]["bound"][0],
+                d128_ms=d128["ms"], d128_bound_ms=b[0],
+                d128_library_ms=d128["library_ms"],
+                shape=f"B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} softcap={cap}, "
+                      f"global layer; d128_*: {sc.name}'s layer, B={B} "
+                      f"Hq={sc.n_heads} Hkv={sc.n_kv} S={S} D={sc.head_dim}")
+
+
+def train_lm_full(np, torch, ops, dev, prof: bool = False):
+    """Phase 11 (b): gemma2-2b at its published widths, LM_TRAIN_STEPS
+    steps of make_train_step at LM_TRAIN_BATCH x LM_TRAIN_SEQ on the
+    launcher's batches, the counters set to 0 just before and read just
+    after (each layer: one forward launch, one in the remat recompute, one
+    backward); each step timed, the last split into gradients, global norm
+    and update; with ``prof`` one more step under torch.profiler. Then at
+    B = 1, S = LM_CHECK_SEQ each parameter's gradient through the kernels
+    against the einsum attention's. Returns the launches."""
+    import dataclasses as dc
+
+    from repro_torch.configs import gemma2_2b, lm_common
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import loop, optimizer as opt_lib, tree
+
+    cfg = gemma2_2b.config()
+    tc = lm_common.TRAIN_CFG
+    B, S, n = LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    model = tf.init(cfg, gen, dev)
+    state = loop.make_train_state(tf.param_tree(model), tc)
+    n_bytes = sum(t.numel() * t.element_size() for t in tree.leaves(
+        [state["params"], state["opt"]["m"], state["opt"]["v"]]))
+    print(f"LM training {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.param_dtype} parameters, remat "
+          f"{cfg.remat}, batch {B} x {S}, moments {tc.opt.moment_dtype}: "
+          f"{n_bytes / 1e9:.3f} GB of parameters and moments")
+
+    def loss(p, b):
+        return tf.loss_fn(p, cfg, b["tokens"], b["labels"])
+
+    step = loop.make_train_step(loss, tc)
+    batches = [train_launch.synth_lm_batch(cfg, B, S, s, dev)
+               for s in range(n)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    step_ms, hist = [], []
+    for s, b in enumerate(batches):
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        if s < n - 1:
+            e[0].record()
+            state, m = step(state, b)
+            e[3].record()
+        else:
+            e[0].record()
+            grads, m = loop.compute_grads(loss, state["params"], b)
+            e[1].record()
+            opt_lib.global_norm(grads)
+            e[2].record()
+            _, _, om = opt_lib.apply_updates(state["params"], grads,
+                                             state["opt"], tc.opt)
+            e[3].record()
+            m = dict(m, **om)
+            del grads
+        e[3].synchronize()
+        step_ms.append(e[0].elapsed_time(e[3]))
+        hist.append({k: float(v) for k, v in m.items()})
+        print(f"LM train step {s}: loss {hist[-1]['loss']:.6f} grad_norm "
+              f"{hist[-1]['grad_norm']:.6f} lr {hist[-1]['lr']:.3g} "
+              f"({step_ms[-1]:.3f} ms)")
+    launches = ops.launches()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    fwd_bwd, norm = e[0].elapsed_time(e[1]), e[1].elapsed_time(e[2])
+    update = e[2].elapsed_time(e[3]) - norm      # apply_updates norms too
+    med = float(np.median(step_ms[1:]))
+    print(f"LM train step (median of the last {n - 1}): {med:.3f} ms, "
+          f"{B * S / med * 1e3:.1f} tokens/s; the last split: forward + "
+          f"backward {fwd_bwd:.3f} ms, global norm {norm:.3f} ms, update "
+          f"{update:.3f} ms; peak allocated {peak_gb:.3f} GB")
+    print(f"LM training launches: {launches}")
+    if not all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+               for h in hist):
+        fail(f"an LM training step's loss or norm is not finite: {hist}")
+    if int(state["opt"]["step"]) != n:
+        fail(f"opt.step is {int(state['opt']['step'])} after {n} steps")
+    want = {"flash_attention": 2 * cfg.n_layers * n,
+            "flash_attention_backward": cfg.n_layers * n}
+    for name, count in want.items():
+        if launches[name] != count:
+            fail(f"LM training launched {name} {launches[name]} times, not "
+                 f"{count}: {launches}")
+    if prof:
+        profile_window(torch, f"one LM train step of {B} x {S}",
+                       lambda: step(state, batches[0]))
+    del batches
+    torch.cuda.empty_cache()
+
+    # At B = 1: the kernels' gradients against the einsum attention's.
+    one = train_launch.synth_lm_batch(cfg, 1, LM_CHECK_SEQ, 99, dev)
+    ecfg = dc.replace(cfg, attn_impl="einsum")
+    _, _, gk = loop.value_and_grad(loss, state["params"], one)
+    _, _, ge = loop.value_and_grad(
+        lambda p, b: tf.loss_fn(p, ecfg, b["tokens"], b["labels"]),
+        state["params"], one)
+    rel = {}
+    for (name, a), b in zip(tree.flatten(gk), tree.leaves(ge)):
+        a, b = a.float(), b.float()
+        rel[name] = float(torch.linalg.vector_norm(a - b)
+                          / torch.linalg.vector_norm(b).clamp(min=1e-30))
+    worst = max(rel, key=rel.get)
+    med_rel = float(np.median(list(rel.values())))
+    print(f"LM B=1 S={LM_CHECK_SEQ} gradients, kernels vs einsum attention: "
+          f"relative L2 error median {med_rel:.4g}, worst {rel[worst]:.4g} ({worst}; tolerance {LM_GRAD_REL_L2}); "
+          f"embed {rel['embed']:.4g}, layer 0 wq "
+          f"{rel['layers/0/attn/wq']:.4g}")
+    if rel[worst] > LM_GRAD_REL_L2:
+        fail(f"the kernels' gradient of {worst} differs from the einsum "
+             f"attention's by {rel[worst]:.4g} (relative L2)")
+    del gk, ge, state, model
+    torch.cuda.empty_cache()
+    return launches, dict(step_ms=med, fwd_bwd_ms=fwd_bwd, norm_ms=norm,
+                          update_ms=update, train_peak_gb=peak_gb,
+                          train_losses=[h["loss"] for h in hist],
+                          grad_rel_l2_worst=rel[worst])
+
+
+def train_lm_examples(np, torch, ops, dev):
+    """Phase 11 (c): launch/train.py and examples/train_lm.py on the card
+    at smoke widths (head_dim 128 and bf16 compute, which the kernels
+    take), each with a failure injected before its first checkpoint and
+    one after it; the example's loss falls and ends within
+    EXAMPLE_LOSS_RTOL of a run without failures."""
+    import dataclasses as dc
+    import tempfile
+
+    from repro_torch.configs import gemma2_2b
+    from repro_torch.examples import train_lm
+    from repro_torch.launch import train as train_launch
+
+    orig = gemma2_2b.smoke_config
+
+    def card_smoke():
+        return dc.replace(orig(), head_dim=128, compute_dtype="bfloat16")
+
+    def hook_for(steps):
+        left = set(steps)
+
+        def hook(s):
+            if s in left:
+                left.discard(s)
+                raise RuntimeError(f"injected failure at step {s}")
+        return hook, left
+
+    gemma2_2b.smoke_config = card_smoke
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            hook, left = hook_for(LM_LAUNCH_FAILS)
+            out = train_launch.main(
+                ["--arch", "gemma2-2b", "--steps", "6", "--batch", "4",
+                 "--seq", "256", "--ckpt-every", "3", "--ckpt-dir",
+                 f"{d}/launch", "--device", str(dev)], fail_hook=hook)
+            if out["failures"] != 2 or left or int(
+                    out["state"]["opt"]["step"]) != 6:
+                fail(f"launch/train.py saw {out['failures']} failures and "
+                     f"ended at step {int(out['state']['opt']['step'])}")
+            hook, left = hook_for(LM_EXAMPLE_FAILS)
+            broken = train_lm.main(["--ckpt-dir", f"{d}/a", "--device",
+                                    str(dev)], fail_hook=hook)
+            launches = ops.launches()
+            whole = train_lm.main(["--ckpt-dir", f"{d}/b", "--device",
+                                   str(dev)])
+    finally:
+        gemma2_2b.smoke_config = orig
+    h, hw = broken["history"], whole["history"]
+    last, ref_last = h[-1]["loss"], hw[-1]["loss"]
+    print(f"launch/train.py and examples/train_lm.py on the card "
+          f"({time.perf_counter() - t0:.1f} s): launcher 6 steps with "
+          f"failures at {LM_LAUNCH_FAILS}, loss "
+          f"{out['history'][0]['loss']:.4f} -> "
+          f"{out['history'][-1]['loss']:.4f}; example "
+          f"{broken['failures']} failures at {LM_EXAMPLE_FAILS}, loss "
+          f"{h[0]['loss']:.4f} -> {last:.4f}, without failures "
+          f"{ref_last:.4f}; launches {launches}")
+    if broken["failures"] != 2 or left:
+        fail(f"the LM example saw {broken['failures']} failures")
+    if abs(last - ref_last) > EXAMPLE_LOSS_RTOL * abs(ref_last):
+        fail(f"the LM example's final loss {last} is not within rtol "
+             f"{EXAMPLE_LOSS_RTOL} of the failure-free run's {ref_last}")
+    for name in ("flash_attention", "flash_attention_backward"):
+        if not launches[name]:
+            fail(f"the LM example did not launch {name}: {launches}")
+    return launches
+
+
+def lm_train_path(np, torch, ops, dev, prof: bool = False):
+    """Phase 11: the attention backward checked and timed, gemma2-2b
+    trained at full width, the entry points on the card. Returns the
+    flash_attention_backward row and the full-width steps' launches."""
+    from repro_torch.configs import gemma2_2b
+
+    t0 = time.perf_counter()
+    row = check_flash_backward(np, torch, ops, dev, gemma2_2b.config())
+    print(f"phase 11's kernel checks and timings took "
+          f"{time.perf_counter() - t0:.1f} s")
+    launches, train = train_lm_full(np, torch, ops, dev, prof)
+    row.update(train)
+    row["example_launches"] = train_lm_examples(np, torch, ops, dev)
+    print(f"phase 11 took {time.perf_counter() - t0:.1f} s")
+    return row, launches
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {pathlib.Path(__file__).name}: run "
@@ -2932,6 +3413,15 @@ def main() -> None:
         print(f"chip_smoke --train-only took "
               f"{time.perf_counter() - T_START:.1f} s")
         return
+    if "--lm-train-only" in sys.argv[1:]:
+        # Phases 1-2 and phase 11 alone: the LM training path.
+        row, launches = lm_train_path(np, torch, ops, dev,
+                                      "--profile" in sys.argv[1:])
+        row["launches"] = launches["flash_attention_backward"]
+        print(json.dumps(row))
+        print(f"chip_smoke --lm-train-only took "
+              f"{time.perf_counter() - T_START:.1f} s")
+        return
     if "--shard-only" in sys.argv[1:]:
         # Phases 1-2 and phase 9 alone: the sharded paths.
         launches, nccl = shard_path(np, torch, ops, dev)
@@ -2973,10 +3463,18 @@ def main() -> None:
     rows["embedding_bag_backward"] = row
     rows["embedding_bag"]["train_launches"] = train_launches["embedding_bag"]
     print(f"train_path done at {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    row, lm_launches = lm_train_path(np, torch, ops, dev, prof)
+    row["launches"] = lm_launches["flash_attention_backward"]
+    rows["flash_attention_backward"] = row
+    rows["flash_attention"]["train_launches"] = lm_launches["flash_attention"]
+    print(f"lm_train_path done at {time.perf_counter() - t0:.1f} s")
     kernels = [rows[n] for n in ("rank_join_lookup", "merge_topk",
                                  "topk_score_pruned", "embedding_bag",
                                  "embedding_bag_backward",
-                                 "flash_attention", "neigh_softmax_agg")]
+                                 "flash_attention",
+                                 "flash_attention_backward",
+                                 "neigh_softmax_agg")]
     for k in kernels:
         print(f"{k['name']}: {k['launches']} launches on its path")
     if prof:

@@ -4,7 +4,7 @@ softcap 50, GeGLU, sandwich norms. About 2.61 B parameters, 5.23 GB in
 bf16: one card holds it whole.
 
 Counterpart of ``repro.configs.gemma2_2b``: the configuration, its reduced
-smoke configuration and the serving smoke run.
+smoke configuration and the smoke run (one train step, then serving).
 """
 from __future__ import annotations
 

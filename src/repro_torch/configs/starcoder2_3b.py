@@ -3,7 +3,8 @@ d_ff 12288, vocab 49152 — sliding-window 4096 on every layer, RoPE,
 plain-GELU MLP. (As in the reference: RMSNorm in place of LayerNorm.)
 
 Counterpart of ``repro.configs.starcoder2_3b``: the configuration, its
-reduced smoke configuration and the serving smoke run.
+reduced smoke configuration and the smoke run (one train step, then
+serving).
 """
 from __future__ import annotations
 

@@ -3,7 +3,7 @@ into the port.
 
 The arguments are numpy arrays: the ``TripleStore`` / ``RelaxTable``
 fields (the sketch as uint32 words), a two-tower, LM or GAT parameter
-tree, or a two-tower or GAT train state. The results are the port's types
+tree, or a two-tower, LM or GAT train state. The results are the port's types
 on ``device``, so both packages then read the very same data.
 """
 from __future__ import annotations
@@ -89,31 +89,47 @@ def lm_from_numpy(values, cfg: tf.LMConfig, device=None) -> tf.LM:
           | (set() if cfg.tie_embeddings else {"lm_head"}))
     layer_keys = {"attn_norm", "attn", "ffn_norm", "ffn"} | (
         {"attn_post", "ffn_post"} if cfg.post_norms else set())
-    layers = []
-    for si, (dense, _, count) in enumerate(stacks):
+    for si in range(len(stacks)):
         st = values[f"stack_{si}"]
         _keys(f"stack_{si}", st, layer_keys)
         _keys(f"stack_{si}.attn", st["attn"], {"wq", "wk", "wv", "wo"})
         _keys(f"stack_{si}.ffn", st["ffn"], {"w_in", "w_out"} | (
             {"w_gate"} if cfg.gated_ffn else set()))
-        for i in range(count):
-            a, f = st["attn"], st["ffn"]
-            layers.append(tf.Layer(
-                _tensor(st["attn_norm"][i], dev),
-                attn.GQA(*(_tensor(a[n][i], dev)
-                           for n in ("wq", "wk", "wv", "wo"))),
-                _tensor(st["ffn_norm"][i], dev),
-                moe.DenseFFN(_tensor(f["w_in"][i], dev),
-                             _tensor(f["w_out"][i], dev),
-                             _tensor(f["w_gate"][i], dev)
-                             if cfg.gated_ffn else None),
-                *((_tensor(st["attn_post"][i], dev),
-                   _tensor(st["ffn_post"][i], dev)) if cfg.post_norms
-                  else ())))
+    layers = []
+    for lv in _lm_layer_tree(values, cfg)["layers"]:
+        a, f = lv["attn"], lv["ffn"]
+        layers.append(tf.Layer(
+            _tensor(lv["attn_norm"], dev),
+            attn.GQA(*(_tensor(a[n], dev) for n in ("wq", "wk", "wv", "wo"))),
+            _tensor(lv["ffn_norm"], dev),
+            moe.DenseFFN(_tensor(f["w_in"], dev), _tensor(f["w_out"], dev),
+                         _tensor(f["w_gate"], dev) if cfg.gated_ffn
+                         else None),
+            *((_tensor(lv["attn_post"], dev), _tensor(lv["ffn_post"], dev))
+              if cfg.post_norms else ())))
     return tf.LM(_tensor(values["embed"], dev),
                  _tensor(values["final_norm"], dev), layers,
                  None if cfg.tie_embeddings
                  else _tensor(values["lm_head"], dev))
+
+
+def _lm_layer_tree(values, cfg: tf.LMConfig) -> dict:
+    """The reference's LM tree of arrays, each ``stack_<i>`` leaf with a
+    leading layers axis → ``transformer.param_tree``'s layout, one entry a
+    layer (views, bit for bit)."""
+    def layer(node, i):
+        return {k: layer(v, i) if isinstance(v, dict) else v[i]
+                for k, v in node.items()}
+
+    stacks = [f"stack_{si}" for si in range(len(cfg.stacks()))]
+    if not set(stacks) <= set(values):
+        raise ValueError(f"an LM tree needs {stacks}, got {sorted(values)}")
+    out = {k: values[k] for k in ("embed", "final_norm", "lm_head")
+           if k in values}
+    out["layers"] = [layer(values[f"stack_{si}"], i)
+                     for si, (_, _, count) in enumerate(cfg.stacks())
+                     for i in range(count)]
+    return out
 
 
 def gat_from_numpy(values, cfg: gat.GATConfig, device=None):
@@ -141,19 +157,27 @@ def train_state_from_numpy(values, cfg, device=None):
     ["err_fb"]}`` as numpy arrays → the port's (``train.loop``'s layout).
     ``cfg`` is a ``TwoTowerConfig`` (params through
     ``two_tower_from_numpy``, returned as its ``param_tree``, so the state
-    trains that model) or a ``GATConfig`` (``gat_from_numpy``). Moments
-    keep their dtype (float32 or bfloat16, bit for bit); ``step`` is a
-    0-d int32."""
+    trains that model), an ``LMConfig`` (``lm_from_numpy``, returned as
+    ``transformer.param_tree``: the reference's stacked layers and their
+    moments sliced into one entry a layer) or a ``GATConfig``
+    (``gat_from_numpy``). Moments keep their dtype (float32 or bfloat16,
+    bit for bit); ``step`` is a 0-d int32."""
     dev = resolve_device(device)
+    layout = None
     if isinstance(cfg, recsys.TwoTowerConfig):
         params = recsys.param_tree(
             two_tower_from_numpy(values["params"], cfg, dev))
+    elif isinstance(cfg, tf.LMConfig):
+        params = tf.param_tree(lm_from_numpy(values["params"], cfg, dev))
+        layout = _lm_layer_tree
     elif isinstance(cfg, gat.GATConfig):
         params = gat_from_numpy(values["params"], cfg, dev)
     else:
         raise TypeError(f"no train state for a {type(cfg).__name__}")
 
     def like_params(v):
+        if layout is not None:
+            v = layout(v, cfg)
         if sorted(name for name, _ in tree.flatten(v)) != sorted(
                 name for name, _ in tree.flatten(params)):
             raise ValueError("a moment tree does not match the parameters")

@@ -42,9 +42,13 @@
 // before ex2.approx. The running max m, the partial sums l and the
 // (64, D) accumulator stay in registers, in f32, with the TPU kernel's
 // m_safe / alpha handling of -inf and the final division by
-// max(l, 1e-30). Tiles that straddle the band's edge or the ragged end of
-// the keys are masked per element; rows past Sq are computed and not
-// stored. Blocks are numbered longest first across every (b, h): the
+// max(l, 1e-30). With an lse pointer the epilogue also writes each row's
+// log-sum-exp for the backward (csrc/flash_attention_bwd.cu): the one
+// conversion from the log2 domain to natural log, lse = (m_safe * cexp +
+// log2(l)) * ln 2, -inf for a row with no visible key; o is computed
+// exactly as without it. Tiles that straddle the band's edge or the
+// ragged end of the keys are masked per element; rows past Sq are
+// computed and not stored. Blocks are numbered longest first across every (b, h): the
 // last query tile of each head and batch, then the one before, so that
 // the longest causal rows start first and no long block starts last.
 // kernels/ref.py's flash_attention_tiles lists the tiles visited and
@@ -62,6 +66,7 @@ constexpr int THREADS = 3 * 128;    // producer + 2 consumer warpgroups
 constexpr int STAGES = 2;           // K and V buffers each
 constexpr int CONSUMER_WARPS = 8;   // arrivals on an empty barrier
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // Keys per tile. At D = 256 a consumer thread holds the (64, 256) f32
 // accumulator (128 registers), S (BN / 2) and P (BN / 4): 80 fits in 240
@@ -406,7 +411,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
-                       __nv_bfloat16* __restrict__ o, int Sq, int Sk,
+                       __nv_bfloat16* __restrict__ o,
+                       float* __restrict__ lse, int Sq, int Sk,
                        int Hq, int group, int64_t osb, int64_t osh,
                        int64_t oss, float mul, float cexp, int causal,
                        int window) {
@@ -567,11 +573,18 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
     }
     for (int t = z + 1; t <= t_hi; ++t) skip(t);
 
-    // out = acc / max(l, 1e-30), rows below Sq only.
+    // out = acc / max(l, 1e-30), rows below Sq only; lse where asked.
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      const int row = row0 + 16 * warp + lane / 4 + 8 * r;
+      if (lse != nullptr && kcol == 0 && row < rend) {
+        // m and l are the row's, reduced across its four threads above.
+        const float ms = m[r] == -INFINITY ? 0.0f : m[r] * cexp;
+        lse[(static_cast<int64_t>(b) * Hq + h) * Sq + row] =
+            (ms + log2f(l[r])) * LN2;
+      }
       l[r] = 1.0f / fmaxf(l[r], 1e-30f);
     }
     __nv_bfloat16* ob = o + b * osb + h * osh;
@@ -639,7 +652,8 @@ bool make_map(CUtensorMap* map, const void* ptr, int D, int S, int H, int B,
 }
 
 template <int D, bool CAP>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B,
            int Hq, int Hkv, int Sq, int Sk, const long long* st, float scale,
            int causal, int window, float cap, cudaStream_t stream) {
   using L = Layout<D>;
@@ -658,30 +672,33 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const float cexp = (CAP ? cap : scale) * LOG2E;
   const dim3 grid((Sq + BM - 1) / BM * Hq * B);
   flash_attention_kernel<D, CAP><<<grid, THREADS, L::BYTES, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq, Sk, Hq, Hq / Hkv,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, Sq, Sk, Hq, Hq / Hkv,
       st[9], st[10], st[11], mul, cexp, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
-int launch_d(const void* q, const void* k, const void* v, void* o, int B,
+int launch_d(const void* q, const void* k, const void* v, void* o, float* lse,
+             int B,
              int Hq, int Hkv, int Sq, int Sk, const long long* st,
              float scale, int causal, int window, float cap,
              cudaStream_t stream) {
   return cap > 0.0f
-             ? launch<D, true>(q, k, v, o, B, Hq, Hkv, Sq, Sk, st, scale,
-                               causal, window, cap, stream)
-             : launch<D, false>(q, k, v, o, B, Hq, Hkv, Sq, Sk, st, scale,
-                                causal, window, cap, stream);
+             ? launch<D, true>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, st,
+                               scale, causal, window, cap, stream)
+             : launch<D, false>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, st,
+                                scale, causal, window, cap, stream);
 }
 
 }  // namespace
 
 // strides: 12 element strides, (batch, head, seq) of q, k, v and o in that
 // order; the last axis of each is contiguous, every stride a multiple of 8
-// and every start 16-byte aligned (TMA's rules).
+// and every start 16-byte aligned (TMA's rules). lse: nullptr, or a
+// contiguous (B, Hq, Sq) f32 buffer for each row's log-sum-exp.
 extern "C" int flash_attention_bf16(const void* q, const void* k,
-                                    const void* v, void* o, int B, int Hq,
+                                    const void* v, void* o, float* lse,
+                                    int B, int Hq,
                                     int Hkv, int Sq, int Sk, int D,
                                     const long long* strides, float scale,
                                     int causal, int window, float cap,
@@ -693,11 +710,11 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 128:
-      return launch_d<128>(q, k, v, o, B, Hq, Hkv, Sq, Sk, strides, scale,
-                           causal, window, cap, s);
+      return launch_d<128>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, strides,
+                           scale, causal, window, cap, s);
     case 256:
-      return launch_d<256>(q, k, v, o, B, Hq, Hkv, Sq, Sk, strides, scale,
-                           causal, window, cap, s);
+      return launch_d<256>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, strides,
+                           scale, causal, window, cap, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

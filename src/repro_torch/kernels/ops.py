@@ -23,6 +23,8 @@ KERNELS = {"rank_join_lookup": _rank_join.rank_join_lookup,
            "embedding_bag": _embedding_bag.embedding_bag,
            "embedding_bag_backward": _embedding_bag.embedding_bag_backward,
            "flash_attention": _flash_attention.flash_attention,
+           "flash_attention_backward":
+               _flash_attention.flash_attention_backward,
            "neigh_softmax_agg": _neigh_agg.neigh_softmax_agg}
 
 
@@ -88,12 +90,30 @@ def embedding_bag_backward(dout, ids, weights, table, *,
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None,
                     softcap=None, scale=None, impl: str = "auto"):
-    """Attention forward: (B, Hq, Sq, D), (B, Hkv, Sk, D) ×2 → (B, Hq, Sq,
-    D); window 0 / None is global, softcap 0 / None is none."""
+    """Attention: (B, Hq, Sq, D), (B, Hkv, Sk, D) ×2 → (B, Hq, Sq, D);
+    window 0 / None is global, softcap 0 / None is none. Differentiable
+    through ``flash_attention.Attention``: on the card the forward kernel
+    with its lse and the backward kernel, on the CPU their plain twins."""
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
     if _plain(q, impl):
+        if _flash_attention.needs_grad(q, k, v):
+            return _flash_attention.Attention.apply(
+                q, k, v, kw, _ref.flash_attention_fwd_stats,
+                _ref.flash_attention_bwd)
         return _ref.flash_attention(q, k, v, **kw)
     return _flash_attention.flash_attention(q, k, v, **kw)
+
+
+def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = True,
+                             window=None, softcap=None, scale=None,
+                             impl: str = "auto"):
+    """The attention backward from the forward's o and lse (B, Hq, Sq) →
+    (dq, dk, dv)."""
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+    if _plain(q, impl):
+        return _ref.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    return _flash_attention.flash_attention_backward(q, k, v, o, lse, do,
+                                                     **kw)
 
 
 def neigh_softmax_agg(logits, feats, mask, impl: str = "auto"):

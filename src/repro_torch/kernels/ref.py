@@ -491,6 +491,36 @@ def neigh_softmax_agg_grouped(logits: torch.Tensor, feats: torch.Tensor,
     return out[:R].to(logits.device), read
 
 
+def _visible(Sq: int, Sk: int, causal: bool, window, device):
+    """(Sq, Sk) mask of the keys each query sees: query i at key position
+    Sk − Sq + i; causal keys at or before it; with ``window`` W the keys in
+    (pos − W, pos]."""
+    qpos = Sk - Sq + torch.arange(Sq, device=device)
+    kpos = torch.arange(Sk, device=device)
+    m = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        m &= kpos[None, :] <= qpos[:, None]
+    if window:
+        m &= kpos[None, :] > qpos[:, None] - window
+    return m
+
+
+def _masked_logits(q, k, causal, window, softcap, scale):
+    """f32 logits (B, Hq, Sq, Sk), scaled, softcapped, −inf where masked."""
+    Hq, Sq, D = q.shape[1:]
+    Sk = k.shape[2]
+    g = Hq // k.shape[1]
+    scale = D ** -0.5 if scale is None else scale
+    kk = k.float().repeat_interleave(g, dim=1)
+    # Out of place: a selective checkpoint (remat="dots") keeps the
+    # product's output and must not see it changed.
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * scale
+    if softcap:
+        logits = logits.div_(softcap).tanh_().mul_(softcap)
+    m = _visible(Sq, Sk, causal, window, q.device)
+    return logits.masked_fill_(~m, float("-inf"))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     softcap: float | None = None,
@@ -503,26 +533,80 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     f32 (``repro.kernels.ref.flash_attention_ref``'s math), returned in
     q's dtype; a row with no visible key gives 0.
     """
-    dt = q.dtype
-    Hq, Sq, D = q.shape[1:]
-    Sk = k.shape[2]
-    g = Hq // k.shape[1]
+    return flash_attention_fwd_stats(q, k, v, causal=causal, window=window,
+                                     softcap=softcap, scale=scale,
+                                     stats=False)[0]
+
+
+def flash_attention_fwd_stats(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *, causal: bool = True,
+                              window: int | None = None,
+                              softcap: float | None = None,
+                              scale: float | None = None,
+                              stats: bool = True):
+    """``flash_attention`` and each row's log-sum-exp of its visible
+    logits → (o in q's dtype, lse (B, Hq, Sq) f32, natural log; −inf for a
+    row with no visible key, whose o is 0). The plain twin of the CUDA
+    forward with its lse output; ``stats=False`` leaves lse None."""
+    g = q.shape[1] // k.shape[1]
+    logits = _masked_logits(q, k, causal, window, softcap, scale)
+    lse = torch.logsumexp(logits, dim=-1) if stats else None
+    vv = v.float().repeat_interleave(g, dim=1)
+    p = torch.softmax(logits, dim=-1)
+    p = p.nan_to_num_(nan=0.0)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vv).to(q.dtype), lse
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, causal: bool = True, window: int | None = None,
+                        softcap: float | None = None,
+                        scale: float | None = None, chunk_q: int = 512,
+                        chunk_k: int = 512):
+    """The attention backward from the forward's o and lse → (dq, dk, dv)
+    in q's, k's and v's dtypes; arguments as ``flash_attention``, do like
+    o. Plain f32, the reference's ``_flash_bwd``
+    (``repro/models/attention.py``): delta = Σ_d do·o per row; per
+    (q-chunk, k-chunk) pair that holds a visible key, p = exp(sc − lse)
+    recomputed from the scaled q, dv += pᵀ·do, ds = p·(do·vᵀ − delta)
+    (times 1 − (sc/cap)² under a softcap), dq += scale·ds·k, dk += dsᵀ·(scale
+    q); dk and dv summed over the g query heads of each KV head. A row
+    with no visible key contributes 0. The plain twin of
+    ``csrc/flash_attention_bwd.cu``; the CPU path's backward."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    g = Hq // Hkv
     scale = D ** -0.5 if scale is None else scale
+    qs = q.float() * scale
     kk = k.float().repeat_interleave(g, dim=1)
     vv = v.float().repeat_interleave(g, dim=1)
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk).mul_(scale)
-    if softcap:
-        logits = logits.div_(softcap).tanh_().mul_(softcap)
-    qpos = Sk - Sq + torch.arange(Sq, device=q.device)
-    kpos = torch.arange(Sk, device=q.device)
-    m = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        m &= kpos[None, :] <= qpos[:, None]
-    if window:
-        m &= kpos[None, :] > qpos[:, None] - window
-    p = torch.softmax(logits.masked_fill_(~m, float("-inf")), dim=-1)
-    p = p.nan_to_num_(nan=0.0)
-    return torch.einsum("bhqk,bhkd->bhqd", p, vv).to(dt)
+    dof = do.float()
+    delta = (dof * o.float()).sum(-1)
+    lse = lse.float()
+    vis = _visible(Sq, Sk, causal, window, q.device)
+    dq = torch.zeros((B, Hq, Sq, D), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((B, Hq, Sk, D), dtype=torch.float32, device=q.device)
+    dv = torch.zeros((B, Hq, Sk, D), dtype=torch.float32, device=q.device)
+    for q0 in range(0, Sq, chunk_q):
+        qr = slice(q0, min(q0 + chunk_q, Sq))
+        for k0 in range(0, Sk, chunk_k):
+            kr = slice(k0, min(k0 + chunk_k, Sk))
+            mask = vis[qr, kr]
+            if not bool(mask.any()):
+                continue
+            s = qs[:, :, qr] @ kk[:, :, kr].transpose(-1, -2)
+            sc = softcap * torch.tanh(s / softcap) if softcap else s
+            p = torch.where(mask, torch.exp(sc - lse[:, :, qr, None]), 0.0)
+            dv[:, :, kr] += p.transpose(-1, -2) @ dof[:, :, qr]
+            dp = dof[:, :, qr] @ vv[:, :, kr].transpose(-1, -2)
+            ds = p * (dp - delta[:, :, qr, None])
+            if softcap:
+                ds = ds * (1.0 - (sc / softcap) ** 2)
+            dq[:, :, qr] += (ds @ kk[:, :, kr]) * scale
+            dk[:, :, kr] += ds.transpose(-1, -2) @ qs[:, :, qr]
+    dk = dk.view(B, Hkv, g, Sk, D).sum(2)
+    dv = dv.view(B, Hkv, g, Sk, D).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def flash_attention_tiles(Sq: int, Sk: int, causal: bool, window: int,

@@ -6,7 +6,13 @@ Implementations (``impl``):
 * ``einsum`` — materialises the (B, H, Sq, Sk) logits; tests only.
 * ``blocked_causal``, ``blocked``, ``pallas`` — the ``flash_attention``
   kernel through ``kernels.ops`` with the layer's window: the CUDA kernel
-  for CUDA tensors, its plain version for CPU ones.
+  for CUDA tensors, its plain version for CPU ones. Differentiable: the
+  gradient comes from the backward kernel (or its plain twin), from the
+  forward's o and lse, as the reference's ``_flash`` custom VJP does.
+* ``blocked_ad``, ``blocked_causal_ad`` — the reference's ablation
+  ``_attend_blocked``: a plain online-softmax recurrence over (q-chunk,
+  k-chunk) pairs that autograd differentiates, each block under
+  ``torch.utils.checkpoint``.
 
 The reference's ``pallas`` branch passes ``window=None`` whatever the
 layer's window; the port passes the window, as its ``blocked_causal``
@@ -19,9 +25,11 @@ ported yet.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models import common as cm
@@ -29,6 +37,7 @@ from repro_torch.models.moe import normal_
 
 NEG_INF = -1e30
 KERNEL_IMPLS = ("blocked_causal", "blocked", "pallas")
+AD_IMPLS = ("blocked_ad", "blocked_causal_ad")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,6 +111,75 @@ def _attend_einsum(q, k, v, qpos, kpos, window, scale, cap):
     return out.reshape(B, Sq, H, Dh)
 
 
+def _block_pairs(Sq: int, Sk: int, cq: int, ck: int,
+                 causal_skip: bool) -> list[tuple[int, int]]:
+    """The reference's (q-chunk, k-chunk) pairs: whole chunks only, those
+    above the causal band skipped with ``causal_skip``."""
+    pairs = []
+    for qi in range(Sq // cq):
+        for ki in range(Sk // ck):
+            if causal_skip and ki * ck > (Sk - Sq) + (qi + 1) * cq - 1:
+                continue
+            pairs.append((qi, ki))
+    return pairs
+
+
+def _blocked_step(qc, kc, vc, qp, kp, acc, mx, den, *, window: int, cap,
+                  g: int):
+    """One block of the online softmax: (acc, mx, den) of the q chunk
+    updated by one k chunk. acc (B, cq, H, Dh); mx, den (B, H, cq)."""
+    B, cq, H, Dh = qc.shape
+    ck = kc.shape[1]
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qc.reshape(B, cq, H // g, g, Dh),
+                     kc.float()).reshape(B, H, cq, ck)
+    s = cm.softcap(s, cap)
+    mask = _band_mask(qp, kp, window)
+    s = s.masked_fill(~mask, NEG_INF)
+    m_new = torch.maximum(mx, s.amax(-1))
+    p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+    alpha = torch.exp(mx - m_new)
+    d_new = den * alpha + p.sum(-1)
+    pv = torch.einsum("bhgqk,bkhd->bqhgd", p.reshape(B, H // g, g, cq, ck),
+                      vc.float()).reshape(B, cq, H, Dh)
+    return acc * alpha.transpose(1, 2)[..., None] + pv, m_new, d_new
+
+
+def _attend_blocked(q, k, v, qpos, kpos, window: int, scale, cap,
+                    chunk_q: int, chunk_k: int, causal_skip: bool):
+    """The reference's ``_attend_blocked``: online softmax over the block
+    pairs, differentiated by autograd, each block recomputed in the
+    backward (``torch.utils.checkpoint``) instead of keeping its (B, H, cq,
+    ck) residuals. Rows past the last whole q chunk stay 0, as there.
+    q (B, Sq, H, Dh), k/v (B, Sk, Hkv, Dh) → (B, Sq, H, Dh) f32."""
+    B, Sq, H, Dh = q.shape
+    Sk = k.shape[1]
+    cq, ck = min(chunk_q, Sq), min(chunk_k, Sk)
+    qf = q.float() * scale
+    dev = q.device
+    acc = [torch.zeros((B, cq, H, Dh), device=dev) for _ in range(Sq // cq)]
+    mx = [torch.full((B, H, cq), NEG_INF, device=dev)
+          for _ in range(Sq // cq)]
+    den = [torch.zeros((B, H, cq), device=dev) for _ in range(Sq // cq)]
+    step = functools.partial(_blocked_step, window=window, cap=cap,
+                             g=H // k.shape[2])
+    for qi, ki in _block_pairs(Sq, Sk, cq, ck, causal_skip):
+        qs, ks = slice(qi * cq, (qi + 1) * cq), slice(ki * ck, (ki + 1) * ck)
+        args = (qf[:, qs], k[:, ks], v[:, ks], qpos[qs], kpos[ks], acc[qi],
+                mx[qi], den[qi])
+        if torch.is_grad_enabled():
+            out = ckpt.checkpoint(step, *args, use_reentrant=False)
+        else:
+            out = step(*args)
+        acc[qi], mx[qi], den[qi] = out
+    out = torch.zeros((B, Sq, H, Dh), device=dev)
+    if acc:
+        a = torch.cat(acc, dim=1)
+        d = torch.cat(den, dim=2).transpose(1, 2)
+        out = torch.cat([a / torch.clamp(d, min=1e-30)[..., None],
+                         out[:, a.shape[1]:]], dim=1)
+    return out
+
+
 def _attend(q, k, v, qpos, kpos, window: int, cfg: AttnConfig, impl,
             scale=None):
     """q (B, Sq, H, Dh), k/v (B, Sk, Hkv, Dh) → (B, Sq, H, Dh). The
@@ -111,6 +189,10 @@ def _attend(q, k, v, qpos, kpos, window: int, cfg: AttnConfig, impl,
     if impl == "einsum":
         return _attend_einsum(q, k, v, qpos, kpos, window, scale,
                               cfg.softcap)
+    if impl in AD_IMPLS:
+        return _attend_blocked(q, k, v, qpos, kpos, window, scale,
+                               cfg.softcap, cfg.attn_chunk_q,
+                               cfg.attn_chunk_k, impl == "blocked_causal_ad")
     if impl not in KERNEL_IMPLS:
         raise ValueError(impl)
     out = kops.flash_attention(

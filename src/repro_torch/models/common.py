@@ -1,5 +1,6 @@
 """Model numerics shared by the LM blocks (counterpart of
-``repro.models.common``): RMSNorm, RoPE, softcap and GELU.
+``repro.models.common``): RMSNorm, RoPE, softcap, GELU and the LM loss
+(``cross_entropy``, ``chunked_cross_entropy``).
 
 The reference's ``param`` / ``split`` / ``stack_layers`` machinery is
 replaced by the port's own parameters (``nn.Module``s); the numerics are
@@ -9,6 +10,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
@@ -44,3 +46,54 @@ def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """GELU, tanh approximation (``jax.nn.gelu(approximate=True)``)."""
     return F.gelu(x, approximate="tanh")
+
+
+def _nll(logits, labels, softcap_val, ignore_id: int):
+    """Per-token negative log-likelihood in f32, 0 where ignored."""
+    logits = softcap(logits.float(), softcap_val)
+    mask = labels != ignore_id
+    safe = torch.where(mask, labels, 0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    return (lse - gold) * mask
+
+
+def cross_entropy(logits, labels, *, softcap_val: float | None = None,
+                  ignore_id: int = -1):
+    """Mean token cross-entropy in f32; labels == ignore_id are masked."""
+    mask = labels != ignore_id
+    return (_nll(logits, labels, softcap_val, ignore_id).sum()
+            / torch.clamp(mask.sum(), min=1))
+
+
+def _chunk_nll_sum(xb, head, lb, softcap_val, ignore_id: int):
+    return _nll(xb @ head, lb, softcap_val, ignore_id).sum()
+
+
+def chunked_cross_entropy(x, head, labels, *, softcap_val=None,
+                          ignore_id: int = -1, chunk: int = 512):
+    """The head's matmul and the softmax cross-entropy over sequence
+    chunks. x (B, S, D), head (D, V), labels (B, S).
+
+    Never holds the (B, S, V) logits: each chunk's logits (in x's dtype,
+    then f32) are computed under ``torch.utils.checkpoint`` and computed
+    again in the backward. When S is not a multiple of ``chunk`` the
+    whole sequence is one chunk, as in the reference. The chunks' sums add
+    in order.
+    """
+    B, S, _ = x.shape
+    c = min(chunk, S)
+    if S % c:
+        c = S
+    nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    n_tok = torch.zeros((), dtype=torch.int64, device=x.device)
+    for lo in range(0, S, c):
+        xb, lb = x[:, lo:lo + c], labels[:, lo:lo + c]
+        if torch.is_grad_enabled():
+            part = ckpt.checkpoint(_chunk_nll_sum, xb, head, lb, softcap_val,
+                                   ignore_id, use_reentrant=False)
+        else:
+            part = _chunk_nll_sum(xb, head, lb, softcap_val, ignore_id)
+        nll_sum = nll_sum + part
+        n_tok = n_tok + (lb != ignore_id).sum()
+    return nll_sum / torch.clamp(n_tok, min=1)

@@ -1,21 +1,28 @@
-"""Decoder-only LM serving (counterpart of ``repro.models.transformer``):
-the dense configurations (gemma2 / gemma3: local:global alternation,
-softcaps, GeGLU, sandwich norms; starcoder2: sliding window, plain GELU).
+"""Decoder-only LM (counterpart of ``repro.models.transformer``): the
+dense configurations (gemma2 / gemma3: local:global alternation, softcaps,
+GeGLU, sandwich norms; starcoder2: sliding window, plain GELU).
 
 Layers are an ``nn.ModuleList`` walked in order, where the reference scans
-stacked layers. ``prefill`` runs a batch of prompts and builds one KV cache
-per layer (a W-slot ring for a window-W layer, ``max_seq`` slots for a
-global one); ``caches_by_run`` regroups them into the reference's runs.
-``decode_step`` writes the caches in place. Training (``loss_fn``), MTP,
-MLA and MoE are not ported yet and raise.
+stacked layers. ``loss_fn`` is the causal LM loss through the chunked
+cross-entropy, with the reference's ``remat`` per layer (``full``: each
+layer under ``torch.utils.checkpoint``; ``dots``: a selective checkpoint
+that keeps the matmul outputs; ``none``). ``param_tree`` gives a model's
+own parameters as a tree for ``train.loop``, and ``loss_fn`` takes the
+model or that tree. ``prefill`` runs a batch of prompts and builds one KV
+cache per layer (a W-slot ring for a window-W layer, ``max_seq`` slots for
+a global one); ``caches_by_run`` regroups them into the reference's runs.
+``decode_step`` writes the caches in place. MTP, MLA and MoE are not
+ported yet and raise.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.core.types import resolve_device
 from repro_torch.models import attention as attn
@@ -186,17 +193,95 @@ def _positions(tokens):
                         device=tokens.device).expand(B, S)
 
 
+class _Tree:
+    """Attribute access to a ``param_tree``: ``p.layers[0].attn.wq`` is the
+    tree's own tensor (so gradients reach its leaves); a key the tree does
+    not hold reads None, as the module's absent parameters do."""
+
+    def __init__(self, tree: dict):
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                val = _Tree(val)
+            elif isinstance(val, list):
+                val = [_Tree(v) for v in val]
+            setattr(self, key, val)
+
+    def __getattr__(self, name):
+        return None
+
+
+def param_tree(model: LM) -> dict:
+    """The model's own parameters as a tree: ``{"embed", "final_norm",
+    ["lm_head"], "layers": [{"attn": {"wq", "wk", "wv", "wo"},
+    "attn_norm", "ffn": {"w_in", "w_out", ["w_gate"]}, "ffn_norm",
+    ["attn_post", "ffn_post"]}, …]}``, one entry a layer where the
+    reference stacks them. A train state built on it updates the model in
+    place."""
+    def nested(mod):
+        out: dict = {}
+        for name, p in mod.named_parameters():
+            *path, leaf = name.split(".")
+            node = out
+            for key in path:
+                node = node.setdefault(key, {})
+            node[leaf] = p
+        return out
+
+    tree = {"embed": model.embed, "final_norm": model.final_norm}
+    if model.lm_head is not None:
+        tree["lm_head"] = model.lm_head
+    tree["layers"] = [nested(lp) for lp in model.layers]
+    return tree
+
+
+def _as_model(params):
+    return _Tree(params) if isinstance(params, dict) else params
+
+
+# Selective checkpoint of remat="dots": keep the matmuls' outputs (the
+# reference's checkpoint_dots_with_no_batch_dims), recompute the rest.
+_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default}
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, remat: str, *args):
+    """``fn(*args)`` under the config's remat policy (only where a
+    gradient is being recorded)."""
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    if remat == "full":
+        return ckpt.checkpoint(fn, *args, use_reentrant=False)
+    if remat == "dots":
+        return ckpt.checkpoint(
+            fn, *args, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _dots_policy))
+    raise ValueError(f"remat must be none, full or dots, got {remat!r}")
+
+
 def backbone(params: LM, cfg: LMConfig, tokens):
-    """tokens (B, S) → final hidden states (B, S, D), aux loss."""
+    """tokens (B, S) → final hidden states (B, S, D), aux loss (a 0-d f32
+    tensor). Each layer runs under ``cfg.remat``."""
     _check_supported(cfg)
+    params = _as_model(params)
     x = _embed(params, cfg, tokens)
     positions = _positions(tokens)
-    aux_total = 0.0
-    for lp, dense, w in zip(params.layers, cfg.dense_layers(),
-                            cfg.windows()):
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def layer(lp, dense, w, x):
         x, aux, _ = _layer_fwd(lp, cfg, dense, x, lambda h: (attn.forward(
             lp.attn, cfg.attn_cfg(), h, positions, w, cfg.attn_impl), None))
-        aux_total += aux
+        return x, aux
+
+    for lp, dense, w in zip(params.layers, cfg.dense_layers(),
+                            cfg.windows()):
+        x, aux = _remat(functools.partial(layer, lp, dense, w), cfg.remat, x)
+        aux_total = aux_total + aux
     return x, aux_total
 
 
@@ -206,6 +291,25 @@ def logits_from_hidden(params: LM, cfg: LMConfig, x):
     x = cm.rms_norm(x, params.final_norm, cfg.norm_eps)
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
     return x @ head.to(x.dtype)
+
+
+def _lm_head_loss(params, cfg: LMConfig, x, labels):
+    x = cm.rms_norm(x, params.final_norm, cfg.norm_eps)
+    head = params.embed.T if cfg.tie_embeddings else params.lm_head
+    return cm.chunked_cross_entropy(x, head.to(x.dtype), labels,
+                                    softcap_val=cfg.logit_softcap)
+
+
+def loss_fn(params, cfg: LMConfig, tokens, labels):
+    """Causal LM loss (+ the aux balance loss, 0 for dense FFNs).
+    tokens / labels (B, S); ``params`` an ``LM`` or its ``param_tree``.
+    Returns (loss, {"lm_loss", "aux_loss", "loss"})."""
+    _check_supported(cfg)
+    params = _as_model(params)
+    x, aux = backbone(params, cfg, tokens)
+    loss = _lm_head_loss(params, cfg, x, labels)
+    total = loss + cfg.aux_loss_weight * aux
+    return total, {"lm_loss": loss, "aux_loss": aux, "loss": total}
 
 
 def _runs(cfg: LMConfig, max_seq: int):

@@ -29,7 +29,8 @@ def test_port_imports_no_jax_and_no_repro():
               "examples.serve_soak", "core.distributed", "launch.mesh",
               "train.tree", "train.optimizer", "train.compression",
               "train.loop", "train.checkpoint", "train.fault_tolerance",
-              "examples.train_retrieval", "configs.kg_specqp"):
+              "examples.train_retrieval", "configs.kg_specqp",
+              "launch.train", "examples.train_lm"):
         assert f"repro_torch.{m}" in mods, m
     code = "\n".join(
         ["import importlib, sys"]

@@ -466,11 +466,15 @@ def test_dispatch_and_wrapper_checks():
                                cands, weights_grad=True)
     qkv = torch.zeros((1, 2, 4, 128), dtype=torch.bfloat16)
     ops.flash_attention(qkv, qkv, qkv)
+    ops.flash_attention_backward(qkv, qkv, qkv, qkv,
+                                 torch.zeros((1, 2, 4)), qkv)
     ops.neigh_softmax_agg(cands, cands[..., None], cands > 0)
     assert ops.launches() == {"rank_join_lookup": 0, "merge_topk": 0,
                               "topk_score_pruned": 0, "embedding_bag": 0,
                               "embedding_bag_backward": 0,
-                              "flash_attention": 0, "neigh_softmax_agg": 0}
+                              "flash_attention": 0,
+                              "flash_attention_backward": 0,
+                              "neigh_softmax_agg": 0}
     with pytest.raises(ValueError):
         rank_join.rank_join_lookup(keys, scores, probes, cnt)
     with pytest.raises(ValueError):
@@ -485,6 +489,9 @@ def test_dispatch_and_wrapper_checks():
                                              scores.view(2, 4), cands)
     with pytest.raises(ValueError):
         flash_attention.flash_attention(qkv, qkv, qkv)
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention_backward(
+            qkv, qkv, qkv, qkv, torch.zeros((1, 2, 4)), qkv)
     with pytest.raises(ValueError):
         neigh_agg.neigh_softmax_agg(cands, cands[..., None], cands > 0)
     with pytest.raises(ValueError):

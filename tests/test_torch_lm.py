@@ -251,11 +251,15 @@ def test_bf16_prefill_matches_jax():
 
 
 def test_smoke_run_serves(models):
-    """lm_common.smoke_run: prefill → argmax → one decode step, finite."""
+    """lm_common.smoke_run: one train step, then prefill → argmax → one
+    decode step of the updated model; metrics and logits finite."""
     cfg = models[2]
-    logits = lm_common.smoke_run(cfg, seq=20, batch=2, device="cpu")
+    metrics, logits = lm_common.smoke_run(cfg, seq=20, batch=2,
+                                          device="cpu")
     assert logits.shape == (2, cfg.vocab)
     assert torch.isfinite(logits).all()
+    assert {"loss", "grad_norm"} <= set(metrics)
+    assert all(torch.isfinite(v).all() for v in metrics.values())
 
 
 def test_init_matches_reference_tree(models):
