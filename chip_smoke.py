@@ -136,9 +136,10 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    against its plain twin (f32 math) at gemma2-2b's global and local layer
    and starcoder2-3b's layer, with a no-softcap case and a control that
    shows a backward without the softcap fails the check, and at its edges
-   (S off the tiles, Sq < Sk, Sq > Sk, non-causal, windows of 1, of its
-   tile of 64 keys +- 1 and of the forward's tile +- 1, GQA groups of 1,
-   2 and 12, (B, S, H, D) views),
+   (S off the tiles, S one off the dQ pass's 128-row block, Sq < Sk, Sq >
+   Sk, non-causal, windows of 1, of its 64 x 64 tile +- 1, of its dK/dV
+   block's keys (128 at D = 128) +- 1 and of the forward's tile +- 1, GQA
+   groups of 1, 2 and 12, (B, S, H, D) views),
    each case twice and bit-equal, the forward's o bit-equal with its lse
    output asked for and not, and lse against the twin's; timed at 4 x 4096
    beside its bound, the forward with lse, the plain twin and SDPA's
@@ -170,7 +171,10 @@ or the graph, and stops the same way; ``--shard-only`` runs phases 1-2
 and phase 9 (the NCCL run then checked against ``run_query_batch``
 alone), and stops the same way; ``--train-only`` runs phases 1-2 and
 phase 10, and stops the same way; ``--lm-train-only`` runs phases 1-2
-and phase 11, and stops the same way.
+and phase 11, and stops the same way; ``--attention-bwd-only`` runs phases
+1-2 and phase 11's ``flash_attention_backward`` checks and timings, with
+``--profile`` its time by kernel at the global and starcoder2-3b layers,
+and stops the same way.
 ``--profile`` adds ``torch.profiler``
 windows (device busy share, time by kernel) over one retrieval query in
 each mode, the serving batches, one LM prefill with 4 decode steps, one
@@ -2927,20 +2931,6 @@ def fa_bwd_bound(B, Hq, Hkv, Sq, Sk, D, causal, window) -> tuple[float, str]:
                                        else "bytes")
 
 
-def fa_bwd_errors(torch, got, want, q, k, v, do, scale):
-    """Each gradient's largest error over its scale (FA_BWD_TOL's)."""
-    term = float(do.abs().max()) * float(v.abs().max()) * q.shape[-1] ** 0.5
-    floors = (2.0 ** -10 * term * scale * float(k.abs().max()),
-              2.0 ** -10 * term * scale * float(q.abs().max()),
-              2.0 ** -10 * term)
-    out = []
-    for g, w, f in zip(got, want, floors):
-        w = w.float()
-        out.append(float((g.float() - w).abs().max())
-                   / max(float(w.abs().max()), f))
-    return out
-
-
 def check_flash_backward(np, torch, ops, dev, cfg):
     """flash_attention_backward against its plain twin at gemma2-2b's and
     starcoder2-3b's layers and at the kernel's edges, logits of std
@@ -2961,11 +2951,15 @@ def check_flash_backward(np, torch, ops, dev, cfg):
     Hq, Hkv, D, cap = cfg.n_heads, cfg.n_kv, cfg.head_dim, cfg.attn_softcap
     local = max(cfg.window_pattern)
     sc = starcoder2_3b.config()
-    S, bt = LM_TRAIN_SEQ, fa.BWD_TILE
+    S, bt = LM_TRAIN_SEQ, fa.BWD_ROWS
 
     def edge_windows(d):
-        """1, the backward's tile +- 1, the forward's (its lse) +- 1."""
-        return (1, bt - 1, bt, bt + 1, fa.TILE_N[d] - 1, fa.TILE_N[d] + 1)
+        """1, the backward's 64 x 64 tile +- 1, its dK/dV block's keys
+        (BWD_TILE[d]) +- 1, the forward's tile (its lse) +- 1."""
+        return tuple(sorted({1, bt - 1, bt, bt + 1, fa.BWD_TILE[d] - 1,
+                             fa.BWD_TILE[d] + 1, fa.TILE_N[d] - 1,
+                             fa.TILE_N[d] + 1}))
+    qr = fa.BWD_QROWS
     # (name, B, Hq, Hkv, Sq, Sk, D, causal, window, softcap, layout)
     cases = [("global", 1, Hq, Hkv, S, S, D, True, 0, cap, ""),
              ("local", 1, Hq, Hkv, S, S, D, True, local, cap, ""),
@@ -2974,6 +2968,10 @@ def check_flash_backward(np, torch, ops, dev, cfg):
               max(sc.window_pattern), None, ""),
              ("S off the tiles", 1, Hq, Hkv, 1000, 1000, D, True, 300, cap,
               ""),
+             *((f"S={n}", 1, Hq, Hkv, n, n, D, True, 0, cap, "")
+               for n in (qr - 1, qr + 1)),
+             *((f"S={n}, D=128", 1, 4, 2, n, n, 128, True, 0, None, "")
+               for n in (qr - 1, qr + 1)),
              ("Sq<Sk", 2, Hq, Hkv, 100, 1000, D, True, 0, cap, ""),
              ("Sq<Sk, D=128", 1, 4, 2, 77, 300, 128, True, 0, None, ""),
              ("Sq>Sk", 1, Hq, Hkv, 300, 130, D, True, 0, cap, ""),
@@ -3024,7 +3022,8 @@ def check_flash_backward(np, torch, ops, dev, cfg):
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             fail(f"flash_attention_backward ({name}: {shape}): two runs "
                  f"differ")
-        errs = fa_bwd_errors(torch, got, want, q, k, v, do, d ** -0.5)
+        errs = ref.flash_attention_bwd_errors(got, want, q, k, v, do,
+                                             d ** -0.5)
         e_abs = max(float((g.float() - w).abs().max())
                     for g, w in zip(got, want))
         if max(errs) > FA_BWD_TOL:
@@ -3041,7 +3040,8 @@ def check_flash_backward(np, torch, ops, dev, cfg):
             # Control: a backward that dropped the softcap fails the check.
             nocap = fa.flash_attention_backward(q, k, v, o, lse, do,
                                                 causal=causal, window=win)
-            e = fa_bwd_errors(torch, nocap, want, q, k, v, do, d ** -0.5)
+            e = ref.flash_attention_bwd_errors(nocap, want, q, k, v, do,
+                                               d ** -0.5)
             if max(e) <= FA_BWD_TOL:
                 fail(f"flash_attention_backward without its softcap is "
                      f"within the tolerance of the softcapped twin ({e}): "
@@ -3141,6 +3141,33 @@ def check_flash_backward(np, torch, ops, dev, cfg):
                       f"Hq={sc.n_heads} Hkv={sc.n_kv} S={S} D={sc.head_dim}")
 
 
+def profile_flash_backward(torch, dev, cfg):
+    """Five flash_attention_backward calls under torch.profiler (time by
+    kernel) at gemma2-2b's global layer and at starcoder2-3b's, B =
+    LM_TRAIN_BATCH, S = LM_TRAIN_SEQ."""
+    from repro_torch.configs import starcoder2_3b
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 12)
+    sc = starcoder2_3b.config()
+    B, S = LM_TRAIN_BATCH, LM_TRAIN_SEQ
+    for name, hq, hkv, d, win, c in (
+            ("global", cfg.n_heads, cfg.n_kv, cfg.head_dim, 0,
+             cfg.attn_softcap),
+            (sc.name, sc.n_heads, sc.n_kv, sc.head_dim,
+             max(sc.window_pattern), None)):
+        q, k, v = attn_inputs(torch, gen, dev, B, hq, hkv, S, S, d)
+        do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+        kw = dict(window=win, softcap=c)
+        o, lse = fa.flash_attention_fwd_stats(q, k, v, **kw)
+        profile_window(torch, f"5 backward calls, {name}", lambda: [
+            fa.flash_attention_backward(q, k, v, o, lse, do, **kw)
+            for _ in range(5)])
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+
+
 def train_lm_full(np, torch, ops, dev, prof: bool = False):
     """Phase 11 (b): gemma2-2b at its published widths, LM_TRAIN_STEPS
     steps of make_train_step at LM_TRAIN_BATCH x LM_TRAIN_SEQ on the
@@ -3226,8 +3253,14 @@ def train_lm_full(np, torch, ops, dev, prof: bool = False):
             fail(f"LM training launched {name} {launches[name]} times, not "
                  f"{count}: {launches}")
     if prof:
-        profile_window(torch, f"one LM train step of {B} x {S}",
-                       lambda: step(state, batches[0]))
+        events = profile_window(torch, f"one LM train step of {B} x {S}",
+                                lambda: step(state, batches[0]))
+        for kernel in ("flash_attention_kernel", "delta_kernel",
+                       "dkdv_kernel", "dq_kernel"):
+            ms = sum(t for key, t, _ in events if kernel in key)
+            calls = sum(n for key, _, n in events if kernel in key)
+            print(f"profile (LM train step): {kernel} {ms:.3f} ms of "
+                  f"device time over {calls} launches")
     del batches
     torch.cuda.empty_cache()
 
@@ -3411,6 +3444,18 @@ def main() -> None:
         row["launches"] = launches["embedding_bag_backward"]
         print(json.dumps(row))
         print(f"chip_smoke --train-only took "
+              f"{time.perf_counter() - T_START:.1f} s")
+        return
+    if "--attention-bwd-only" in sys.argv[1:]:
+        # Phases 1-2 and phase 11's flash_attention_backward checks and
+        # timings alone; with --profile its time by kernel.
+        from repro_torch.configs import gemma2_2b
+        cfg = gemma2_2b.config()
+        row = check_flash_backward(np, torch, ops, dev, cfg)
+        if "--profile" in sys.argv[1:]:
+            profile_flash_backward(torch, dev, cfg)
+        print(json.dumps(row))
+        print(f"chip_smoke --attention-bwd-only took "
               f"{time.perf_counter() - T_START:.1f} s")
         return
     if "--lm-train-only" in sys.argv[1:]:

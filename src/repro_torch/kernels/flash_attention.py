@@ -14,7 +14,7 @@ input's stride order.
 runs ``Attention``, whose forward is the forward kernel with its lse output
 and whose backward is the backward kernel. ``flash_attention.launches``
 counts forward launches, ``flash_attention_backward.launches`` backward
-calls (each three kernels: delta, dK/dV, dQ).
+calls (each three kernels: the stat pass, dK/dV, dQ).
 """
 from __future__ import annotations
 
@@ -34,8 +34,13 @@ HEAD_DIMS = (128, 256)
 # chip_smoke.py place their edge cases with them.
 TILE_N = {128: 128, 256: 80}
 WARPGROUP_ROWS = 64
-# Query rows and keys per tile of csrc/flash_attention_bwd.cu (BT).
-BWD_TILE = 64
+# csrc/flash_attention_bwd.cu's tiles: keys a dK/dV block by head_dim
+# (KvTile<D>::BN), and the q rows and keys of the 64 x 64 tile that each
+# consumer warpgroup masks and multiplies (BM) in both passes.
+BWD_TILE = {128: 128, 256: 64}
+BWD_ROWS = 64
+# q rows of a dQ block (QROWS); the stat scratch is padded to a multiple.
+BWD_QROWS = 128
 
 
 def _fn():
@@ -135,13 +140,15 @@ def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = True,
         do = do.contiguous()
     fn = _bwd_fn()
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    # Each row's lse * log2 e and delta, rows padded to the dQ block.
+    sqp = -(-Sq // BWD_QROWS) * BWD_QROWS
+    stat = torch.empty((B, Hq, 2, sqp), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 24)(*(s for t in (q, k, v, o, do, dq, dk,
                                                      dv)
                                          for s in t.stride()[:3]))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+             do.data_ptr(), lse.data_ptr(), stat.data_ptr(), dq.data_ptr(),
              dk.data_ptr(), dv.data_ptr(), B, Hq, Hkv, Sq, Sk, D, strides,
              _scale(scale, D), int(causal), int(window or 0),
              float(softcap or 0.0), stream)

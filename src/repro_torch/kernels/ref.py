@@ -697,3 +697,144 @@ def flash_attention_blocked(q: torch.Tensor, k: torch.Tensor,
             acc = acc + pending[0] @ pending[1]
         out[:, :, rows] = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.to(q.dtype)
+
+
+def flash_attention_bwd_tiles(Sq: int, Sk: int, causal: bool, window: int,
+                              BM: int = 64, BN: int = 64):
+    """The tiles the CUDA ``flash_attention_backward`` visits for one (b,
+    head), each a consumer warpgroup's BM q rows by BN keys (64 by 64 in
+    both passes, ``csrc/flash_attention_bwd.cu``'s BM): ``(dkdv, dq)``,
+    where ``dkdv`` lists (key-tile, q-tile, masked) in the dK/dV pass's
+    order (key tiles ascending, each walking the q tiles of its keys' band,
+    ``q_band``; the kernel repeats each key tile's walk for every query head
+    of the group, head-major) and ``dq`` lists (q-tile, key-tile, masked) in
+    the dQ pass's (each q tile walking the key tiles of its rows' band
+    ascending, ``k_band``). ``masked`` is the kernel's ``tile_edge``: the
+    tile holds a pair that is not visible (past Sq or Sk, after the row or
+    out of its window), so it is masked per element. The passes add in no
+    other order and use no atomics. Used by the tests, never on the main
+    path."""
+    off = Sk - Sq
+
+    def edge(r0, k0):
+        return (r0 + BM > Sq or k0 + BN > Sk
+                or (causal and k0 + BN - 1 > off + r0)
+                or (window > 0 and k0 <= off + r0 + BM - 1 - window))
+
+    dkdv = []
+    for kt in range(-(-Sk // BN)):
+        k_first, k_last = kt * BN, min(kt * BN + BN, Sk) - 1
+        q_lo = max(0, k_first - off) if causal else 0
+        q_hi = (min(Sq - 1, k_last + window - 1 - off) if window > 0
+                else Sq - 1)
+        if q_hi < q_lo:
+            continue
+        for qt in range(q_lo // BM, q_hi // BM + 1):
+            dkdv.append((kt, qt, edge(qt * BM, kt * BN)))
+    dq = []
+    for qt in range(-(-Sq // BM)):
+        r0, r1 = qt * BM, min(qt * BM + BM, Sq)
+        k_lo = max(0, off + r0 - window + 1) if window > 0 else 0
+        k_hi = min(Sk - 1, off + r1 - 1) if causal else Sk - 1
+        if k_hi < k_lo:
+            continue
+        for kt in range(k_lo // BN, k_hi // BN + 1):
+            dq.append((qt, kt, edge(qt * BM, kt * BN)))
+    return dkdv, dq
+
+
+def flash_attention_bwd_blocked(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, o: torch.Tensor,
+                                lse: torch.Tensor, do: torch.Tensor, *,
+                                causal: bool = True,
+                                window: int | None = None,
+                                softcap: float | None = None,
+                                scale: float | None = None, BM: int = 64,
+                                BN: int = 64):
+    """A plain model of the CUDA ``flash_attention_backward``'s arithmetic,
+    arguments as ``flash_attention_bwd``: delta = Σ do·o in f32; the
+    tiles of ``flash_attention_bwd_tiles`` in order, each recomputing p in
+    the log2 domain (ex2 of cexp · s, or of cexp · tanh(mul · s), minus
+    lse · log2 e; masked tiles set p to 0 where not visible) and ds = p
+    (dp − delta) (· (1 − tanh²)); P and dS rounded to bf16 before they
+    multiply dO, Q and K; dV and dK summed over the group's heads, head by
+    head, each head's q tiles in order; dQ over its key tiles in order; dq
+    and dk times scale, all three rounded to bf16. Used by the tests,
+    never on the main path."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    scale = D ** -0.5 if scale is None else scale
+    log2e = 1.4426950408889634
+    mul = scale / softcap if softcap else 0.0
+    cexp = (softcap if softcap else scale) * log2e
+    win = int(window or 0)
+    qf = q.float().view(B, Hkv, g, Sq, D)
+    dof = do.float().view(B, Hkv, g, Sq, D)
+    kf, vf = k.float(), v.float()
+    delta = (do.float() * o.float()).sum(-1).view(B, Hkv, g, Sq)
+    lse2 = (lse.float() * log2e).view(B, Hkv, g, Sq)
+    vis = _visible(Sq, Sk, causal, win, q.device)
+
+    def p_ds(j, rows, keys, masked):
+        """p and ds (B, Hkv, rows, keys) of head j of every group."""
+        s = qf[:, :, j, rows] @ kf[:, :, keys].transpose(-1, -2)
+        if softcap:
+            th = torch.tanh(s * mul)
+            x, dcap = th * cexp, 1.0 - th * th
+        else:
+            x, dcap = s * cexp, 1.0
+        p = torch.exp2(x - lse2[:, :, j, rows, None])
+        if masked:
+            p = torch.where(vis[rows, keys], p, 0.0)
+        dp = dof[:, :, j, rows] @ vf[:, :, keys].transpose(-1, -2)
+        ds = p * (dp - delta[:, :, j, rows, None]) * dcap
+        return (p.to(torch.bfloat16).float(), ds.to(torch.bfloat16).float())
+
+    dk = torch.zeros((B, Hkv, Sk, D), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    dq = torch.zeros((B, Hkv, g, Sq, D), dtype=torch.float32,
+                     device=q.device)
+    dkdv, dqv = flash_attention_bwd_tiles(Sq, Sk, causal, win, BM, BN)
+    by_key: dict[int, list] = {}
+    for kt, qt, masked in dkdv:
+        by_key.setdefault(kt, []).append((qt, masked))
+    for kt, visits in by_key.items():
+        keys = slice(kt * BN, min(kt * BN + BN, Sk))
+        for j in range(g):
+            for qt, masked in visits:
+                rows = slice(qt * BM, min(qt * BM + BM, Sq))
+                p, ds = p_ds(j, rows, keys, masked)
+                dv[:, :, keys] += p.transpose(-1, -2) @ dof[:, :, j, rows]
+                dk[:, :, keys] += ds.transpose(-1, -2) @ qf[:, :, j, rows]
+    for qt, kt, masked in dqv:
+        rows = slice(qt * BM, min(qt * BM + BM, Sq))
+        keys = slice(kt * BN, min(kt * BN + BN, Sk))
+        for j in range(g):
+            _, ds = p_ds(j, rows, keys, masked)
+            dq[:, :, j, rows] += ds @ kf[:, :, keys]
+    return ((dq * scale).view(B, Hq, Sq, D).to(q.dtype),
+            (dk * scale).to(k.dtype), dv.to(v.dtype))
+
+
+def flash_attention_bwd_errors(got, want, q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, do: torch.Tensor,
+                               scale: float | None = None) -> list[float]:
+    """Each of (dq, dk, dv)'s largest error against ``want`` over its scale:
+    the largest |value| of ``want``'s gradient or, where the exact gradient
+    cancels to near 0 (a window of 1: dq = dk = 0), 2^-10 of the bound on
+    one of its terms (max|do| max|v| sqrt(D), times scale max|k| for dq and
+    scale max|q| for dk). The measure that ``chip_smoke.py`` (FA_BWD_TOL)
+    and the tests hold the backward to; never on the main path."""
+    D = q.shape[-1]
+    scale = D ** -0.5 if scale is None else scale
+    term = float(do.abs().max()) * float(v.abs().max()) * D ** 0.5
+    floors = (2.0 ** -10 * term * scale * float(k.abs().max()),
+              2.0 ** -10 * term * scale * float(q.abs().max()),
+              2.0 ** -10 * term)
+    out = []
+    for g, w, f in zip(got, want, floors):
+        w = w.float()
+        out.append(float((g.float() - w).abs().max())
+                   / max(float(w.abs().max()), f))
+    return out

@@ -585,15 +585,26 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("D,Hq,Hkv,S,window,cap", [
+# (D, Hq, Hkv, S, window, softcap) of the card's backward tests.
+CUDA_BWD_CASES = [
     (256, 8, 4, 300, 0, 50.0), (256, 8, 4, 300, 81, None),
-    (128, 24, 2, 257, 0, None), (128, 4, 4, 200, 1, None)])
-def test_cuda_backward_matches_plain(cuda, D, Hq, Hkv, S, window, cap):
-    """On the card: the forward's o bit-equal with lse asked for or not,
-    lse within 1e-3 of the plain twin's, and the backward kernel within
-    rtol / atol 2e-2 of the plain twin (f32 math on the same bf16 inputs
-    and the kernel's own o and lse), twice bit-equal."""
+    (128, 24, 2, 257, 0, None), (128, 4, 4, 200, 1, None),
+    # The backward's tile edges at each head_dim: S and the window one
+    # off its 64-row tile (and, at D = 128, its 128-key dK/dV block) and
+    # one off the dQ pass's 128-row block.
+    (256, 8, 4, 63, 0, 50.0), (256, 8, 4, 65, 0, 50.0),
+    (256, 8, 4, 127, 0, None), (256, 8, 4, 129, 0, 50.0),
+    (256, 8, 4, 300, 63, 50.0), (256, 8, 4, 300, 65, None),
+    (128, 24, 2, 63, 0, None), (128, 24, 2, 65, 0, None),
+    (128, 24, 2, 127, 0, None), (128, 4, 2, 129, 0, 50.0),
+    (128, 4, 2, 300, 127, None), (128, 4, 2, 300, 129, 50.0)]
+
+
+def _cuda_backward(cuda, D, Hq, Hkv, S, window, cap):
+    """The forward's o bit-equal with lse asked for or not, lse within 1e-3
+    of the plain twin's; → the backward kernel twice, the plain twin (f32
+    math on the same bf16 inputs and the kernel's own o and lse), and the
+    inputs."""
     gen = torch.Generator(device=cuda).manual_seed(0)
 
     def rnd(h, mul=1.0):
@@ -612,6 +623,30 @@ def test_cuda_backward_matches_plain(cuda, D, Hq, Hkv, S, window, cap):
     again = ops.flash_attention_backward(q, k, v, o, lse, do, **kw)
     want = ref.flash_attention_bwd(q.float(), k.float(), v.float(),
                                    o.float(), lse, do.float(), **kw)
+    return got, again, want, (q, k, v, do)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,Hq,Hkv,S,window,cap", CUDA_BWD_CASES)
+def test_cuda_backward_matches_plain(cuda, D, Hq, Hkv, S, window, cap):
+    """On the card: the forward's o bit-equal with lse asked for or not,
+    lse within 1e-3 of the plain twin's, and the backward kernel within
+    rtol / atol 2e-2 of the plain twin (f32 math on the same bf16 inputs
+    and the kernel's own o and lse), twice bit-equal."""
+    got, again, want, _ = _cuda_backward(cuda, D, Hq, Hkv, S, window, cap)
     for g, a, w in zip(got, again, want):
         assert torch.equal(g, a)
         torch.testing.assert_close(g.float(), w, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,Hq,Hkv,S,window,cap", CUDA_BWD_CASES)
+def test_cuda_backward_within_its_scale(cuda, D, Hq, Hkv, S, window, cap):
+    """On the card, the bar chip_smoke.py holds the kernel to (FA_BWD_TOL):
+    each gradient's largest error within 2e-2 of its scale
+    (``ref.flash_attention_bwd_errors``); twice bit-equal."""
+    got, again, want, (q, k, v, do) = _cuda_backward(cuda, D, Hq, Hkv, S,
+                                                     window, cap)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    errs = ref.flash_attention_bwd_errors(got, want, q, k, v, do)
+    assert max(errs) <= 2e-2, errs
