@@ -116,12 +116,14 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    Before the optimizer state exists, ``embedding_bag_backward`` is held
    against its plain version on the first batch's own ids and dout for
    each table, then on a quarter of the slots -1, hot ids (every bag
-   repeating one of 64 ids, values on a dyadic grid so the sums are exact
-   and the kernel must be bit-equal), ids above 2**23 and the weights'
-   gradient, each case twice (touched rows within rtol 1e-5 atol 1e-6,
-   every other row exactly 0), and timed by graph replay beside the
-   (V, D) zero-fill, its bound, the plain version and F.embedding_bag's
-   backward. Then 6 steps of ``make_train_step`` on the example's batches
+   repeating one of 64 ids; values on a dyadic grid and not), ids above
+   2**23 and the weights' gradient, each case twice: the touched rows
+   bit-equal to the plain version run on the CPU over those rows alone
+   (``bag_oracle``), every other row exactly 0, the two runs equal, the
+   weights' gradient within rtol 1e-5 atol 1e-6. Timed by graph replay
+   and per call at both sides of the batch and at the hot ids, beside the
+   (V, D) zero-fill, the write-only bound and the old read-and-write one,
+   the plain version and F.embedding_bag's backward. Then 6 steps of ``make_train_step`` on the example's batches
    with the counters set to 0 just before and read just after (2
    ``embedding_bag`` and 2 ``embedding_bag_backward`` launches a step),
    each step timed, the last split into gradients, global norm and
@@ -174,6 +176,9 @@ phase 10, and stops the same way; ``--lm-train-only`` runs phases 1-2
 and phase 11, and stops the same way; ``--attention-bwd-only`` runs phases
 1-2 and phase 11's ``flash_attention_backward`` checks and timings, with
 ``--profile`` its time by kernel at the global and starcoder2-3b layers,
+and stops the same way; ``--bag-bwd-only`` runs phases 1-2 and phase 10's
+``embedding_bag_backward`` checks and timings without the steps, with
+``--profile`` its time by kernel (the sort's passes, the segment pass),
 and stops the same way.
 ``--profile`` adds ``torch.profiler``
 windows (device busy share, time by kernel) over one retrieval query in
@@ -2439,11 +2444,12 @@ def shard_path(np, torch, ops, dev, served=None):
 TRAIN_VOCAB = 10_000_000
 TRAIN_BATCH = 16_384
 TRAIN_STEPS = 6          # the last one split into grads, norm and update
-# embedding_bag_backward against its plain version: the touched rows
-# within this (float32 atomics add repeated ids in any order); untouched
-# rows exactly 0.
+# embedding_bag_backward's table gradient is held bit for bit against the
+# plain version on the CPU (the kernel sums each row in ascending slot
+# order, as index_add_ on the CPU does; the card's index_add_ uses atomics);
+# its weights' gradient (a shuffle tree) within this of the plain version.
 BAG_BWD_RTOL, BAG_BWD_ATOL = 1e-5, 1e-6
-# Hot-id case: every bag repeats one id from this many (contention).
+# Hot-id cases: every bag repeats one id of this many (8,192 slots an id).
 HOT_IDS = 64
 EXAMPLE_FAILS = (50, 150)      # before and after the first checkpoint
 EXAMPLE_LOSS_RTOL = 1e-3
@@ -2451,125 +2457,178 @@ EXAMPLE_LOSS_RTOL = 1e-3
 # atol of this share of the leaf's largest gradient (the card's index_add_
 # adds edges in another order).
 GAT_GRAD_RTOL, GAT_GRAD_ATOL_OF_SCALE = 1e-4, 1e-5
+BAG_KERNELS = ("bag_sort_hist_kernel", "bag_sort_scan_kernel",
+               "bag_sort_scatter_kernel", "bag_segment_kernel",
+               "bag_long_run_kernel")
 
 
 def bag_backward_case(np, torch, table, dev, rng, B, S, kind):
     """Inputs of one embedding_bag_backward check: (ids, weights, dout).
-    ``hot``: every bag repeats one id of HOT_IDS, with weights and dout on
-    a dyadic grid, so every sum is exact in any order and the kernel must
-    equal plain bit for bit whatever order the atomics land in."""
+    ``hot``: every bag repeats one id of HOT_IDS; ``hot (dyadic)`` the same
+    with weights and dout on a dyadic grid, so every sum is exact in any
+    order."""
     V, D = table.shape
-    if kind == "hot":
+    if kind.startswith("hot"):
         ids = np.repeat(rng.integers(0, V, HOT_IDS)[rng.integers(
             0, HOT_IDS, B)][:, None], S, 1)
-        w = rng.integers(1, 5, (B, S)) / 4.0
-        dout = rng.integers(-8, 9, (B, D)) / 64.0
     else:
         lo = 2**23 if kind == "above 2**23" else 0
         ids = rng.integers(lo, V, (B, S))
-        if kind == "quarter -1":
+        if kind in ("quarter -1", "weights"):
             ids[rng.random((B, S)) < 0.25] = -1
+    if kind == "hot (dyadic)":
+        w = rng.integers(1, 5, (B, S)) / 4.0
+        dout = rng.integers(-8, 9, (B, D)) / 64.0
+    else:
         w = rng.random((B, S))
         dout = rng.standard_normal((B, D))
     return [torch.from_numpy(np.asarray(a, dt)).to(dev) for a, dt in
             ((ids, np.int32), (w, np.float32), (dout, np.float32))]
 
 
-def check_bag_grads(torch, label, got, want, ids, V):
+def bag_oracle(torch, dout, ids, weights):
+    """The plain version on the CPU over the touched rows only: (rows,
+    grads), the distinct live ids ascending and their (n_rows, D) rows.
+    The ids are remapped to their rows' places and index_add_ adds the
+    same rounded products in the same slot order into (n_rows, D), so the
+    rows equal a (V, D) run's without its host buffer."""
+    from repro_torch.kernels import ref
+
+    ids = ids.cpu()
+    live = ids >= 0
+    rows, local = torch.unique(ids[live].long(), return_inverse=True)
+    remap = torch.full_like(ids, -1)
+    remap[live] = local.to(ids.dtype)
+    grads = ref.embedding_bag_backward(
+        dout.cpu(), remap, weights.cpu(),
+        torch.empty((rows.numel(), dout.shape[1])))[0]
+    return rows, grads
+
+
+def check_bag_grads(torch, label, got, ids, oracle):
     """(max abs err over touched rows, touched rows). Fails unless the
-    touched rows agree within BAG_BWD_RTOL/ATOL and every other row of
-    both is exactly 0."""
-    live = ids[ids >= 0].long()
-    touched = torch.zeros(V, dtype=torch.bool, device=ids.device)
-    touched[live] = True
-    rows = touched.nonzero().squeeze(1)
-    for name, g in (("kernel", got), ("plain", want)):
-        stray = g.ne(0).any(1) & ~touched
-        if bool(stray.any()):
-            fail(f"embedding_bag_backward {label}: {name} wrote "
-                 f"{int(stray.sum())} untouched rows")
-    a, b = got[rows], want[rows]
-    err = float((a - b).abs().max()) if rows.numel() else 0.0
-    if not torch.allclose(a, b, rtol=BAG_BWD_RTOL, atol=BAG_BWD_ATOL):
-        fail(f"embedding_bag_backward {label}: touched rows differ from "
-             f"plain (max abs err {err:.4g})")
+    touched rows equal the oracle's bit for bit and every other row is
+    exactly 0."""
+    rows, want = oracle
+    touched = torch.zeros(got.shape[0], dtype=torch.bool, device=got.device)
+    rows_dev = rows.to(got.device)
+    touched[rows_dev] = True
+    stray = got.ne(0).any(1) & ~touched
+    if bool(stray.any()):
+        fail(f"embedding_bag_backward {label}: wrote {int(stray.sum())} "
+             f"untouched rows")
+    a = got[rows_dev].cpu()
+    err = float((a - want).abs().max()) if rows.numel() else 0.0
+    if not torch.equal(a.view(torch.int32), want.view(torch.int32)):
+        fail(f"embedding_bag_backward {label}: touched rows not bit-equal "
+             f"to plain (max abs err {err:.4g}, "
+             f"{int(a.ne(want).any(1).sum())} rows differ)")
     return err, int(rows.numel())
 
 
-def check_embedding_bag_backward(np, torch, ops, model, real, dev):
-    """embedding_bag_backward against its plain version before the
-    optimizer state exists: on the first training batch's own ids and
-    dout for each table (``real``: the calls recorded during a real
-    backward), then on the user table at (TRAIN_BATCH, 32) with a quarter
-    of the slots -1, hot ids, ids above 2**23 and the weights' gradient,
-    each case run twice. Timed at the batch's two shapes by device time
-    (graph replay into a zeroed buffer) and per call, beside the memset of
-    the dense (V, D) gradient, the bound, the plain version and
-    F.embedding_bag's backward through torch.autograd.grad."""
+def profile_bag_backward(torch, cases) -> dict:
+    """Five embedding_bag_backward calls on each of ``cases`` (name →
+    (dout, ids, weights, table, _)) under torch.profiler: ms a call by
+    kernel (the sort's histogram, scan and scatter over its passes, the
+    segment pass)."""
+    from repro_torch.kernels import embedding_bag as eb
+
+    split = {}
+    for side, (dout, ids, w, table, _) in cases.items():
+        buf = torch.zeros_like(table)
+        events = profile_window(torch, f"5 embedding_bag_backward calls, "
+                                f"{side} bags", lambda: [
+            eb.embedding_bag_backward(dout, ids, w, table, out=buf)
+            for _ in range(5)])
+        split[side] = {k: sum(t for key, t, _ in events if k in key) / 5
+                       for k in BAG_KERNELS}
+        print(f"embedding_bag_backward {side} by kernel, ms a call: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in split[side].items()))
+        del buf
+    return split
+
+
+def check_embedding_bag_backward(np, torch, ops, model, real, dev,
+                                 prof: bool = False):
+    """embedding_bag_backward before the optimizer state exists: on the
+    first training batch's own ids and dout for each table (``real``: the
+    calls recorded during a real backward), then on the user table at
+    (TRAIN_BATCH, 32) with a quarter of the slots -1, hot ids (dyadic and
+    not), ids above 2**23 and the weights' gradient. Each case: the table
+    gradient bit-equal to ``bag_oracle``, every other row 0, a second run
+    torch.equal. Timed at the batch's two shapes by device time (graph
+    replay into a zeroed buffer) and per call, with the (V, D) zero-fill
+    and the fill alone, at the hot ids, beside the write-only bound and
+    the old read-and-write one, the plain version and F.embedding_bag's
+    backward through torch.autograd.grad; ``prof``: ms by kernel."""
     import torch.nn.functional as F
     from repro_torch.kernels import embedding_bag as eb
-    from repro_torch.kernels import ref
 
     errs, rows = [], {}
     for side, (dout, ids, w, table, got) in real.items():
-        want = ref.embedding_bag_backward(dout, ids, w, table)[0]
-        e, n = check_bag_grads(torch, f"{side} batch", got, want, ids,
-                               table.shape[0])
-        del want, got
+        e, n = check_bag_grads(torch, f"{side} batch", got,
+                               ids, bag_oracle(torch, dout, ids, w))
+        again = eb.embedding_bag_backward(dout, ids, w, table)[0]
+        if not torch.equal(again, got):
+            fail(f"embedding_bag_backward on the {side} batch: two runs "
+                 f"differ")
+        del again, got
         real[side][4] = None        # the gradient's 10 GB, no longer needed
         errs.append(e)
         print(f"embedding_bag_backward on training batch 0's {side} bags "
-              f"{tuple(ids.shape)}: {n} touched rows within rtol "
-              f"{BAG_BWD_RTOL} atol {BAG_BWD_ATOL} of plain (max abs err "
-              f"{e:.3g}), every other row 0")
+              f"{tuple(ids.shape)}: {n} touched rows bit-equal to plain on "
+              f"the CPU, every other row 0, two runs equal")
     table = model.user.table.detach()
     V, D = table.shape
     rng = np.random.default_rng(SEED + 10)
-    for kind in ("quarter -1", "hot", "above 2**23", "weights"):
+    hot = None
+    for kind in ("quarter -1", "hot (dyadic)", "hot", "above 2**23",
+                 "weights"):
         ids, w, dout = bag_backward_case(np, torch, table, dev, rng,
                                          TRAIN_BATCH, 32, kind)
         runs = [ops.embedding_bag_backward(dout, ids, w, table,
                                            weights_grad=kind == "weights")
                 for _ in range(2)]
-        want = ops.embedding_bag_backward(dout, ids, w, table,
-                                          weights_grad=kind == "weights",
-                                          impl="ref")
         torch.cuda.synchronize()
-        for got in runs:
-            e, n = check_bag_grads(torch, kind, got[0], want[0], ids, V)
-            errs.append(e)
-            if kind == "weights":
-                ew = float((got[1] - want[1]).abs().max())
-                if not torch.allclose(got[1], want[1], rtol=BAG_BWD_RTOL,
+        e, n = check_bag_grads(torch, kind, runs[0][0], ids,
+                               bag_oracle(torch, dout, ids, w))
+        errs.append(e)
+        if not torch.equal(runs[0][0], runs[1][0]):
+            fail(f"embedding_bag_backward ({kind}): two runs differ")
+        if kind == "weights":
+            want = ops.embedding_bag_backward(
+                dout, ids, w, table, table_grad=False, weights_grad=True,
+                impl="ref")[1]
+            for got in runs:
+                ew = float((got[1] - want).abs().max())
+                if not torch.allclose(got[1], want, rtol=BAG_BWD_RTOL,
                                       atol=BAG_BWD_ATOL):
                     fail(f"embedding_bag_backward's weights' gradient "
                          f"differs from plain (max abs err {ew:.4g})")
                 errs.append(ew)
-        if kind == "hot" and not all(torch.equal(g[0], want[0])
-                                     for g in runs):
-            fail("embedding_bag_backward, hot ids on a dyadic grid: not "
-                 "bit-equal to plain")
-        between = float((runs[0][0] - runs[1][0]).abs().max())
         print(f"embedding_bag_backward V={V} D={D} B={TRAIN_BATCH} S=32 "
-              f"({kind}): {n} touched rows within rtol {BAG_BWD_RTOL} atol "
-              f"{BAG_BWD_ATOL} of plain, every other row 0"
-              + (", the weights' gradient too" if kind == "weights" else "")
-              + (", bit-equal (exact sums)" if kind == "hot" else "")
-              + f"; two runs differ by at most {between:.3g}")
-        del runs, want
+              f"({kind}): {n} touched rows bit-equal to plain on the CPU, "
+              f"every other row 0, two runs equal"
+              + (f"; the weights' gradient within rtol {BAG_BWD_RTOL} atol "
+                 f"{BAG_BWD_ATOL}" if kind == "weights" else ""))
+        if kind == "hot":
+            hot = (ids, w, dout)
+        del runs
     # Timings at the batch's shapes, on its own ids and dout.
     floor_ms = empty_launch_ms(torch)
     for side, (dout, ids, w, table, _) in real.items():
         table = table.detach()
         buf = torch.zeros_like(table)
         live = ids[ids >= 0]
-        n_rows = int(torch.unique(live).numel())
         B, S = ids.shape
-        nbytes = B * D * 4 + B * S * 8 + 2 * n_rows * D * 4
+        touched = torch.unique(live.long())
+        lib_ids = torch.where(ids >= 0, ids, 0)
+        lib_w = torch.where(ids >= 0, w, 0.0)
         tl = table.detach().requires_grad_()
-        lib_out = F.embedding_bag(torch.where(ids >= 0, ids, 0), tl,
-                                  mode="sum", per_sample_weights=torch.where(
-                                      ids >= 0, w, 0.0))
+        lib_out = F.embedding_bag(lib_ids, tl, mode="sum",
+                                  per_sample_weights=lib_w)
+        reads = B * D * 4 + B * S * 8
+        n_rows = int(touched.numel())
         rows[side] = dict(
             ms=graph_ms(torch, lambda: eb.embedding_bag_backward(
                 dout, ids, w, table, out=buf)),
@@ -2579,26 +2638,43 @@ def check_embedding_bag_backward(np, torch, ops, model, real, dev):
                 dout, ids, w, table), blocks=5, per_block=2),
             memset_ms=graph_ms(torch, lambda: buf.zero_(), blocks=5,
                                per_block=4),
+            rows_fill_ms=graph_ms(torch, lambda: buf.index_fill_(
+                0, touched, 0.0)),
             memset_bound_ms=1e3 * V * D * 4 / HBM_BYTES_PER_S,
             plain_ms=cuda_ms(torch, lambda: ops.embedding_bag_backward(
                 dout, ids, w, table, impl="ref"), blocks=5, per_block=2),
             library_ms=cuda_ms(torch, lambda: torch.autograd.grad(
                 lib_out, tl, dout, retain_graph=True), blocks=5,
                 per_block=2),
-            bound=bound(nbytes, 2 * int(live.numel()) * D),
+            bound=bound(reads + n_rows * D * 4, 2 * int(live.numel()) * D),
+            rw_bound_ms=bound(reads + 2 * n_rows * D * 4,
+                              2 * int(live.numel()) * D)[0],
             shape=f"V={V} D={D} B={B} S={S}, {int(live.numel())} live "
                   f"slots, {n_rows} distinct rows")
-        del buf, lib_out, tl
+        del buf, lib_out, tl, touched
         r = rows[side]
         print(f"embedding_bag_backward {side} {r['shape']}: device "
               f"{r['ms']:.4f} ms ({100 * r['bound'][0] / r['ms']:.1f} % of "
-              f"the bound's rate), per call {r['call_ms']:.4f} ms; with its "
-              f"(V, D) zero-fill per call {r['alloc_call_ms']:.4f} ms (the "
-              f"fill alone {r['memset_ms']:.4f} ms, bound "
-              f"{r['memset_bound_ms']:.4f}); plain {r['plain_ms']:.4f} ms; "
-              f"F.embedding_bag backward {r['library_ms']:.4f} ms; bound "
-              f"{r['bound'][0]:.5f} ms ({r['bound'][1]}); empty launch "
-              f"{floor_ms:.4f} ms")
+              f"the write-only bound's rate), per call {r['call_ms']:.4f} "
+              f"ms; with its (V, D) zero-fill per call "
+              f"{r['alloc_call_ms']:.4f} ms (the fill alone "
+              f"{r['memset_ms']:.4f} ms, bound {r['memset_bound_ms']:.4f}); "
+              f"plain {r['plain_ms']:.4f} ms; F.embedding_bag backward "
+              f"{r['library_ms']:.4f} ms; the touched rows zeroed by "
+              f"index_fill_ {r['rows_fill_ms']:.4f} ms; bound "
+              f"{r['bound'][0]:.5f} ms "
+              f"({r['bound'][1]}; read and write {r['rw_bound_ms']:.5f}); "
+              f"empty launch {floor_ms:.4f} ms")
+    ids, w, dout = hot
+    buf = torch.zeros_like(table)
+    hot_ms = graph_ms(torch, lambda: eb.embedding_bag_backward(
+        dout, ids, w, table, out=buf), blocks=5, per_block=5)
+    del buf
+    print(f"embedding_bag_backward hot ids ({HOT_IDS} ids, "
+          f"{TRAIN_BATCH * 32 // HOT_IDS} slots an id): device "
+          f"{hot_ms:.4f} ms")
+    split = profile_bag_backward(torch, dict(
+        real, hot=(dout, ids, w, table, None))) if prof else None
     u, i = rows["user"], rows["item"]
     return dict(name="embedding_bag_backward", route="cuda",
                 source="src/repro_torch/kernels/csrc/embedding_bag.cu",
@@ -2609,21 +2685,29 @@ def check_embedding_bag_backward(np, torch, ops, model, real, dev):
                 alloc_call_ms=u["alloc_call_ms"], memset_ms=u["memset_ms"],
                 memset_bound_ms=u["memset_bound_ms"],
                 plain_ms=u["plain_ms"], bound_ms=u["bound"][0],
-                bound_by=u["bound"][1], library_ms=u["library_ms"],
-                floor_ms=floor_ms, item_ms=i["ms"],
-                item_call_ms=i["call_ms"], item_plain_ms=i["plain_ms"],
-                item_bound_ms=i["bound"][0],
-                item_library_ms=i["library_ms"],
+                bound_by=u["bound"][1], rw_bound_ms=u["rw_bound_ms"],
+                library_ms=u["library_ms"], floor_ms=floor_ms,
+                rows_fill_ms=u["rows_fill_ms"],
+                item_rows_fill_ms=i["rows_fill_ms"],
+                item_ms=i["ms"], item_call_ms=i["call_ms"],
+                item_alloc_call_ms=i["alloc_call_ms"],
+                item_plain_ms=i["plain_ms"], item_bound_ms=i["bound"][0],
+                item_rw_bound_ms=i["rw_bound_ms"],
+                item_library_ms=i["library_ms"], hot_ms=hot_ms,
+                split_ms=split,
                 shape=f"user {u['shape']}; item {i['shape']}")
 
 
-def train_two_tower(np, torch, ops, dev):
+def train_two_tower(np, torch, ops, dev, steps: bool = True,
+                    prof: bool = False):
     """Phase 10 (a): the two-tower model at the published widths, vocab
     and batch cut (TRAIN_VOCAB, TRAIN_BATCH), TRAIN_CFG (bf16 moments).
-    embedding_bag_backward checked before the optimizer state exists;
-    then TRAIN_STEPS steps of make_train_step on the example's batches
-    with the launch counters read around them, each step timed and its
-    metrics printed, the last split into gradients, norm and update."""
+    embedding_bag_backward checked and timed before the optimizer state
+    exists (``prof``: by kernel); then, with ``steps``, TRAIN_STEPS steps
+    of make_train_step on the example's batches with the launch counters
+    read around them, each step timed and its metrics printed, the last
+    split into gradients, norm and update. Returns (row, launches), the
+    launches None without ``steps``."""
     from repro_torch.configs import two_tower_retrieval as tt
     from repro_torch.examples import train_retrieval
     from repro_torch.kernels import embedding_bag as eb
@@ -2667,9 +2751,12 @@ def train_two_tower(np, torch, ops, dev):
             fail(f"the {side} table's gradient is not the backward "
                  f"kernel's output")
     del grads
-    row = check_embedding_bag_backward(np, torch, ops, model, real, dev)
+    row = check_embedding_bag_backward(np, torch, ops, model, real, dev,
+                                       prof)
     del real
     torch.cuda.empty_cache()
+    if not steps:
+        return row, None
 
     state = loop.make_train_state(params, tt.TRAIN_CFG)
     n_bytes = sum(t.numel() * t.element_size() for t in tree.leaves(
@@ -2802,8 +2889,7 @@ def train_example(np, torch, ops, dev):
           f"{broken_s:.2f} s; loss {first:.6f} -> {last:.6f}; a run without "
           f"failures ends at {ref_last:.6f}; restores read back bit for "
           f"bit: {checked}; largest parameter difference between the two "
-          f"runs {diff:.3g} (the backward's atomics add a row's terms from "
-          f"different bags in varying order); launches {launches}")
+          f"runs {diff:.3g}; launches {launches}")
     if broken["failures"] != len(EXAMPLE_FAILS) or fails_left:
         fail(f"the example saw {broken['failures']} failures")
     if sorted(checked) != ["checkpoint 100", "restart", "restart"]:
@@ -3444,6 +3530,16 @@ def main() -> None:
         row["launches"] = launches["embedding_bag_backward"]
         print(json.dumps(row))
         print(f"chip_smoke --train-only took "
+              f"{time.perf_counter() - T_START:.1f} s")
+        return
+    if "--bag-bwd-only" in sys.argv[1:]:
+        # Phases 1-2 and phase 10's embedding_bag_backward checks and
+        # timings alone, without the steps; with --profile its time by
+        # kernel.
+        row, _ = train_two_tower(np, torch, ops, dev, steps=False,
+                                 prof="--profile" in sys.argv[1:])
+        print(json.dumps(row))
+        print(f"chip_smoke --bag-bwd-only took "
               f"{time.perf_counter() - T_START:.1f} s")
         return
     if "--attention-bwd-only" in sys.argv[1:]:

@@ -4,9 +4,11 @@ and its backward.
 ``embedding_bag`` is the counterpart of
 ``repro.kernels.embedding_bag.embedding_bag``. Where gradients are wanted
 it runs as a ``torch.autograd.Function`` whose backward is the hand-written
-``embedding_bag_backward`` kernel (the table's dense gradient by float32
-atomics, and the weights' gradient when asked for); the reference has no
-VJP for its Pallas kernel and differentiates its plain version instead.
+``embedding_bag_backward`` kernel (the table's dense gradient: the live
+slots grouped by id with a stable radix sort, then each touched row
+summed in slot order and written once, bit-equal to the reference's; and
+the weights' gradient when asked for); the reference has no VJP for its
+Pallas kernel and differentiates its plain version instead.
 The plain versions are ``kernels.ref.embedding_bag`` and
 ``kernels.ref.embedding_bag_backward``; ``kernels.ops`` chooses by device.
 These wrappers take CUDA tensors only.
@@ -19,6 +21,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._checks import check, check_cuda
+from repro_torch.kernels.ref import BAG_BINS, BAG_TILE
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -34,9 +37,21 @@ def _fn():
 
 def _bwd_fn():
     fn = _build.load("embedding_bag").embedding_bag_backward
-    fn.argtypes = [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _P]
+    fn.argtypes = [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _LL, _P, _LL, _P]
     fn.restype = ctypes.c_int
     return fn
+
+
+# The table gradient's slot indices are int32 (csrc/embedding_bag.cu).
+MAX_SLOTS = 2**31 - 1
+
+
+def bwd_scratch_bytes(n: int) -> int:
+    """Scratch of the table gradient for n = B * S slots, as the C entry
+    point's ``embedding_bag_backward_scratch_bytes`` counts it: two key and
+    slot buffers, the sorted weights, two (digit, tile) count buffers, the
+    digits' totals and the live count, 32 bits each."""
+    return 4 * (5 * n + 2 * BAG_BINS * (-(-n // BAG_TILE)) + BAG_BINS + 1)
 
 
 def check_args(table, ids, weights):
@@ -107,24 +122,31 @@ def embedding_bag_backward(dout: torch.Tensor, ids: torch.Tensor,
                            out: torch.Tensor | None = None):
     """The bag's gradients from ``dout`` (B, D) f32, on the card:
     (dtable (V, D) or None, dweights (B, S) or None). ``table`` gives V
-    and D, and is read for ``dweights`` only. ``dtable`` is added into
-    ``out`` where given (a (V, D) f32 the caller zero-filled), else into a
-    new ``torch.zeros`` buffer: that fill is outside the kernel."""
+    and D, and is read for ``dweights`` only. The kernel writes each
+    touched row of ``dtable`` once (each row the sum of its slots' products
+    in slot order, from 0) and leaves every other row as it is, so ``out``
+    (a (V, D) f32, 16-byte aligned) must hold zeros where given; without
+    it a new ``torch.zeros`` buffer is filled, outside the kernel. The
+    sort's scratch is a ``torch.empty`` buffer of ``bwd_scratch_bytes``."""
     b, s, d = check_args(table, ids, weights)
     check("dout", dout, torch.float32, (b, d))
-    check_cuda(dout, ids, weights, table)
     if dout.data_ptr() % 16:
         raise ValueError("dout must be 16-byte aligned")
-    dtable = dweights = None
-    if table_grad:
-        if out is None:
-            out = torch.zeros(table.shape, dtype=torch.float32,
-                              device=table.device)
+    if table_grad and b * s > MAX_SLOTS:
+        raise ValueError(f"B * S = {b * s} slots: the table gradient's "
+                         f"slot index is int32 (at most {MAX_SLOTS})")
+    if table_grad and out is not None:
         check("out", out, torch.float32, tuple(table.shape))
-        check_cuda(out, table)
         if out.data_ptr() % 16:
             raise ValueError("out must be 16-byte aligned")
-        dtable = out
+    check_cuda(dout, ids, weights, table,
+               *(() if out is None or not table_grad else (out,)))
+    dtable = dweights = scratch = None
+    if table_grad:
+        dtable = out if out is not None else torch.zeros(
+            table.shape, dtype=torch.float32, device=table.device)
+        scratch = torch.empty(bwd_scratch_bytes(b * s), dtype=torch.uint8,
+                              device=table.device)
     if weights_grad:
         dweights = torch.empty((b, s), dtype=torch.float32,
                                device=table.device)
@@ -135,7 +157,8 @@ def embedding_bag_backward(dout: torch.Tensor, ids: torch.Tensor,
     err = fn(dout.data_ptr(), ids.data_ptr(), weights.data_ptr(),
              table.data_ptr(), None if dtable is None else dtable.data_ptr(),
              None if dweights is None else dweights.data_ptr(), b, s, d,
-             stream)
+             table.shape[0], None if scratch is None else scratch.data_ptr(),
+             0 if scratch is None else scratch.numel(), stream)
     if err:
         raise RuntimeError(f"embedding_bag_backward launch failed: CUDA "
                            f"error {err}")

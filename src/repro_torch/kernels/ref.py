@@ -366,6 +366,132 @@ def embedding_bag_backward(dout: torch.Tensor, ids: torch.Tensor,
     return dtable, dweights
 
 
+# csrc/embedding_bag.cu's table gradient: the sort's digit (RADIX_BITS),
+# warps a block (SORT_WARPS) and chunks of 32 slots a warp (ITEMS).
+BAG_RADIX_BITS = 8
+BAG_BINS = 1 << BAG_RADIX_BITS
+BAG_WARPS = 8
+BAG_ITEMS = 4
+BAG_TILE = 32 * BAG_WARPS * BAG_ITEMS       # slots a tile
+
+
+def bag_id_bits(V: int) -> int:
+    """Bits of an id the kernel's sort reads: ceil(log2 V), at most 31."""
+    bits = 0
+    while bits < 31 and (1 << bits) < V:
+        bits += 1
+    return bits
+
+
+def bag_sort_shifts(V: int) -> list[int]:
+    """The shift of each radix pass: one pass at least, BAG_RADIX_BITS a
+    pass, over ``bag_id_bits(V)`` bits."""
+    passes = max(1, -(-bag_id_bits(V) // BAG_RADIX_BITS))
+    return [BAG_RADIX_BITS * p for p in range(passes)]
+
+
+def _bag_ranks(dig: torch.Tensor):
+    """dig (T, BAG_TILE) int64, BAG_BINS at an empty place → (rank (T,
+    BAG_TILE), hist (T, BAG_BINS)): each slot's rank among its tile's
+    earlier slots of its digit, counted as the kernel counts it (the
+    earlier warps' counts, then the warp's earlier chunks', then the
+    chunk's lower lanes of that digit), and each tile's histogram."""
+    T = dig.shape[0]
+    d = dig.view(T, BAG_WARPS, BAG_ITEMS, 32)
+    chunk = torch.zeros((T, BAG_WARPS, BAG_ITEMS, BAG_BINS + 1),
+                        dtype=torch.int64).scatter_add_(
+        3, d, torch.ones_like(d))
+    warp = chunk.sum(2)
+    before = ((warp.cumsum(1) - warp)[:, :, None, :]
+              + chunk.cumsum(2) - chunk)
+    lower = torch.ones((32, 32), dtype=torch.bool).tril(-1)
+    in_chunk = ((d[..., :, None] == d[..., None, :]) & lower).sum(-1)
+    rank = before.gather(3, d) + in_chunk
+    return rank.view(T, BAG_TILE), warp.sum(1)[:, :BAG_BINS]
+
+
+def _bag_sort_pass(keys: torch.Tensor, slots: torch.Tensor, shift: int):
+    """One radix pass of the kernel: tile histograms, each digit's counts
+    scanned over the tiles and its base the smaller digits' totals, a
+    stable scatter.
+    keys −1 mark dead slots (the first pass drops them) → (keys, slots) of
+    the live slots, sorted stably by the digit at ``shift``."""
+    n = keys.numel()
+    T = -(-n // BAG_TILE)
+    pad = T * BAG_TILE - n
+    k = torch.nn.functional.pad(keys, (0, pad), value=-1).view(T, BAG_TILE)
+    s = torch.nn.functional.pad(slots, (0, pad)).view(T, BAG_TILE)
+    live = k >= 0
+    dig = torch.where(live, (k >> shift) & (BAG_BINS - 1), BAG_BINS)
+    rank, hist = _bag_ranks(dig)
+    totals = hist.sum(0)
+    offs = (totals.cumsum(0) - totals) + (hist.cumsum(0) - hist)
+    pos = offs.gather(1, dig.clamp(max=BAG_BINS - 1)) + rank
+    n_live = int(totals.sum())
+    out_k = torch.empty(n_live, dtype=torch.int64)
+    out_s = torch.empty(n_live, dtype=torch.int64)
+    out_k[pos[live]] = k[live]
+    out_s[pos[live]] = s[live]
+    return out_k, out_s
+
+
+def embedding_bag_group(ids: torch.Tensor, V: int):
+    """The kernel's grouping of the live slots by id, pass by pass: (keys,
+    slots) int64, the live slots' ids (their low ``bag_id_bits(V)`` bits)
+    and flat indices b·S + s, sorted stably by id."""
+    flat = ids.reshape(-1).long().cpu()
+    keys = torch.where(flat >= 0, flat & ((1 << bag_id_bits(V)) - 1), -1)
+    slots = torch.arange(flat.numel(), dtype=torch.int64)
+    if flat.numel() == 0:
+        return keys, slots
+    for shift in bag_sort_shifts(V):
+        keys, slots = _bag_sort_pass(keys, slots, shift)
+    return keys, slots
+
+
+def _bag_term(acc: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
+    """The kernel's step, acc + w·g with the product rounded first
+    (``__fadd_rn(acc, __fmul_rn(w, g))``)."""
+    return acc + w[:, None] * g
+
+
+def _bag_run_sums(w: torch.Tensor, g: torch.Tensor, starts: torch.Tensor,
+                  lens: torch.Tensor) -> torch.Tensor:
+    """Each run's sum, from 0, over its terms w[i]·g[i] in ascending
+    sorted order."""
+    acc = torch.zeros((starts.numel(), g.shape[1]), dtype=torch.float32)
+    for j in range(int(lens.max()) if lens.numel() else 0):
+        on = (lens > j).nonzero().squeeze(1)
+        at = starts[on] + j
+        acc[on] = _bag_term(acc[on], w[at], g[at])
+    return acc
+
+
+def embedding_bag_backward_grouped(dout: torch.Tensor, ids: torch.Tensor,
+                                   weights: torch.Tensor,
+                                   table: torch.Tensor) -> torch.Tensor:
+    """CPU model of ``csrc/embedding_bag.cu``'s table gradient: the live
+    slots grouped by ``embedding_bag_group``, then each run of one id < V
+    summed from 0 in its (ascending slot) order with rounded products and
+    written once into a zero (V, D) f32; runs of ids ≥ V are dropped."""
+    V, D = table.shape
+    dtable = torch.zeros((V, D), dtype=torch.float32)
+    keys, slots = embedding_bag_group(ids, V)
+    n = keys.numel()
+    if n == 0:
+        return dtable
+    head = torch.ones(n, dtype=torch.bool)
+    head[1:] = keys[1:] != keys[:-1]
+    starts = head.nonzero().squeeze(1)
+    lens = torch.diff(starts, append=torch.tensor([n]))
+    ok = keys[starts] < V
+    starts, lens = starts[ok], lens[ok]
+    w = weights.reshape(-1).float().cpu()[slots]
+    g = dout.float().cpu()[slots // ids.shape[1]]
+    dtable[keys[starts]] = _bag_run_sums(w, g, starts, lens)
+    return dtable
+
+
 def neigh_softmax_agg(logits: torch.Tensor, feats: torch.Tensor,
                       mask: torch.Tensor) -> torch.Tensor:
     """Fused edge softmax + neighbourhood aggregation (the GAT hot loop)

@@ -487,6 +487,22 @@ def test_dispatch_and_wrapper_checks():
     with pytest.raises(ValueError):
         embedding_bag.embedding_bag_backward(cands[:2], keys.view(2, 4),
                                              scores.view(2, 4), cands)
+    # The table gradient's refusals, before the device check: B * S past
+    # its int32 slot index (meta tensors: shapes without memory), and an
+    # ``out`` of the wrong shape or alignment.
+    big = torch.empty((2**16, 2**15 + 1), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="int32"):
+        embedding_bag.embedding_bag_backward(
+            torch.empty((2**16, 4), device="meta"), big,
+            big.float(), torch.empty((8, 4), device="meta"))
+    bag_args = (cands[:2], keys.view(2, 4), scores.view(2, 4), cands)
+    with pytest.raises(ValueError, match="out must have shape"):
+        embedding_bag.embedding_bag_backward(*bag_args,
+                                             out=torch.zeros((7, 4)))
+    with pytest.raises(ValueError, match="out must be 16-byte aligned"):
+        embedding_bag.embedding_bag_backward(
+            *bag_args, out=torch.zeros(33)[1:].view(8, 4))
+    assert embedding_bag.bwd_scratch_bytes(8) == 4 * (5 * 8 + 3 * 256 + 1)
     with pytest.raises(ValueError):
         flash_attention.flash_attention(qkv, qkv, qkv)
     with pytest.raises(ValueError):
