@@ -63,7 +63,8 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    against its plain version (f32 math) at the global- and local-layer
    shapes, Sq < Sk, non-causal, head_dim 128 and a ragged length, with
    logits large enough that the softcap of 50 bends them (a control shows
-   the kernel without softcap fails the same check), and timed at B = 4
+   the kernel without softcap fails the same check) and gemma3-27b's
+   local layer (32 / 16 heads of 128, window 1024), and timed at B = 4
    beside its bound, the plain version and
    ``scaled_dot_product_attention``; then, with the counters read around
    them, 3 prefills of 4 x 8192-token prompts (26 kernel launches each) and
@@ -153,14 +154,35 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    S = 1024 every parameter's gradient against the einsum attention's;
    then ``launch/train.py`` and ``examples/train_lm.py`` at smoke widths
    (head_dim 128, bf16 compute) with two injected failures each;
-12. print the kernel table as one JSON line (``launches``: each kernel's
+12. the MoE LM granite-moe-3b-a800m at its published widths
+   (``configs/granite_moe_3b_a800m``, 32 layers, 40 experts top-8, 24 / 8
+   heads of 64, bf16, random weights from a seed): ``flash_attention``
+   and ``flash_attention_backward`` at head_dim 64 held against their
+   plain versions at phase 7's and phase 11's bars (granite's layer, a
+   softcap of 50 and a control without it, a window of 129, Sq < Sk,
+   Sq > Sk, a ragged length, (B, S, H, D) views; each twice and
+   bit-equal) and timed beside their bounds, the plain versions and SDPA;
+   one MoE layer at full width in f32 through the card and through the
+   port on the CPU on random hidden states, a forced-drop batch and a
+   ragged length (the routing equal on 99.9 % of the tokens, zero rows
+   routed to experts 0..K-1, the dropped slots equal and more than 0 in
+   the forced-drop batch, the outputs within 1e-4 of each row's scale
+   where the routing is equal, aux within 1e-5); then, served as in phase
+   7 (32 ``flash_attention`` launches a prefill, none in decode; two
+   prefills' logits bit-equal), trained as in phase 11 at 8 x 4096 (cut
+   from train_4k's 256 x 4096; 64 forward and 32 backward launches a
+   step, the aux loss printed), and ``launch/train.py --arch
+   granite-moe-3b-a800m`` at smoke widths (head_dim 64, bf16 compute)
+   with two injected failures, every restore read back bit for bit;
+13. print the kernel table as one JSON line (``launches``: each kernel's
    count on its own path, so 0 for ``neigh_softmax_agg`` on
    ``gat.apply``, phase 10's steps for ``embedding_bag_backward`` and
    phase 11's for ``flash_attention_backward``;
    ``neigh_softmax_agg``'s ``check_launches`` are those of the drive over
    the layers' data; rows 1-3 add ``sharded_launches``, summed over phase
-   9's ranks), then the result line ``{"ok": true, "device": {...}}``
-   last.
+   9's ranks; the two attention rows add phase 12's ``d64_*`` timings and
+   ``granite_*`` launches and numbers), then the result line ``{"ok":
+   true, "device": {...}}`` last.
 
 It exits non-zero without CUDA and when ``src/repro_torch`` is not beside
 it. It imports nothing of JAX. ``--attention-only`` runs phases 1-2 and
@@ -179,15 +201,17 @@ and phase 11, and stops the same way; ``--attention-bwd-only`` runs phases
 and stops the same way; ``--bag-bwd-only`` runs phases 1-2 and phase 10's
 ``embedding_bag_backward`` checks and timings without the steps, with
 ``--profile`` its time by kernel (the sort's passes, the segment pass),
-and stops the same way.
+and stops the same way; ``--moe-only`` runs phases 1-2 and phase 12, and
+stops the same way.
 ``--profile`` adds ``torch.profiler``
 windows (device busy share, time by kernel) over one retrieval query in
-each mode, the serving batches, one LM prefill with 4 decode steps, one
-GAT forward, one full-width LM train step and one specqp pass of the KG
-path.
+each mode, the serving batches, one LM prefill with 4 decode steps (of
+gemma2-2b and of granite-moe-3b-a800m), one GAT forward, one full-width
+LM train step of each and one specqp pass of the KG path.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -1404,11 +1428,13 @@ def check_flash_attention(np, torch, ops, dev, cfg):
     later)."""
     import torch.nn.functional as F
 
-    from repro_torch.configs import starcoder2_3b
+    from repro_torch.configs import gemma3_27b, starcoder2_3b
     from repro_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 3)
+    g3 = gemma3_27b.config()
+    g3win = max(g3.window_pattern)
     Hq, Hkv, D, cap = cfg.n_heads, cfg.n_kv, cfg.head_dim, cfg.attn_softcap
     local = max(cfg.window_pattern)
     bn, bn128 = fa.TILE_N[D], fa.TILE_N[128]
@@ -1436,7 +1462,9 @@ def check_flash_attention(np, torch, ops, dev, cfg):
              ("GQA 12, D=128", 1, 24, 2, 700, 700, 128, True, 0, None, ""),
              ("(B, S, H, D)", 2, Hq, Hkv, 500, 500, D, True, 0, cap, "bshd"),
              ("(B, S, H, D), D=128", 2, 24, 2, 500, 500, 128, True, 64, None,
-              "bshd")]
+              "bshd"),
+             (f"{g3.name} local", 1, g3.n_heads, g3.n_kv, LM_SEQ, LM_SEQ,
+              g3.head_dim, True, g3win, g3.attn_softcap, "")]
     err = 0.0
     for name, B, hq, hkv, Sq, Sk, d, causal, win, c, layout in cases:
         q, k, v = attn_inputs(torch, gen, dev, B, hq, hkv, Sq, Sk, d)
@@ -1523,6 +1551,19 @@ def check_flash_attention(np, torch, ops, dev, cfg):
         library_ms=sdpa(sq, sk, sv))
     del sq, sk, sv
     torch.cuda.empty_cache()
+    # gemma3-27b's local layer at B = 1: 32 / 16 heads of 128, window 1024
+    # (SDPA has no window: timed causal over the whole sequence).
+    gq, gk, gv = attn_inputs(torch, gen, dev, 1, g3.n_heads, g3.n_kv, S, S,
+                             g3.head_dim)
+    g3t = dict(
+        ms=cuda_ms(torch, lambda: ops.flash_attention(gq, gk, gv,
+                                                      window=g3win),
+                   blocks=5, per_block=2),
+        bound=attn_bound(1, g3.n_heads, g3.n_kv, S, S, g3.head_dim, True,
+                         g3win),
+        library_ms=sdpa(gq, gk, gv))
+    del gq, gk, gv
+    torch.cuda.empty_cache()
     # A masked slot's features are never read: NaN there must not reach
     # the output (the plain version, as the reference, gives NaN).
     logits = torch.randn((130, 56), generator=gen, device=dev) * 3.0
@@ -1552,6 +1593,13 @@ def check_flash_attention(np, torch, ops, dev, cfg):
           f"window: kernel {d128['global_ms']:.4f} ms, bound {gb[0]:.4f} ms, "
           f"{100 * gb[0] / d128['global_ms']:.1f} %, "
           f"scaled_dot_product_attention {d128['library_ms']} ms")
+    b = g3t["bound"]
+    print(f"flash_attention {g3.name} local layer (B=1 Hq={g3.n_heads} Hkv="
+          f"{g3.n_kv} S={S} D={g3.head_dim} window={g3win}): kernel "
+          f"{g3t['ms']:.4f} ms, bound {b[0]:.4f} ms ({b[1]}), "
+          f"{100 * b[0] / g3t['ms']:.1f} % of the bound's rate; "
+          f"scaled_dot_product_attention (causal, no window) "
+          f"{g3t['library_ms']} ms")
     g, lo = times["global"], times["local"]
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1566,22 +1614,36 @@ def check_flash_attention(np, torch, ops, dev, cfg):
                 d128_global_ms=d128["global_ms"],
                 d128_global_bound_ms=gb[0],
                 d128_library_ms=d128["library_ms"],
+                gemma3_local_ms=g3t["ms"], gemma3_local_bound_ms=b[0],
+                gemma3_library_ms=g3t["library_ms"],
                 shape=f"B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} softcap={cap}, "
                       f"global layer; d128_*: {sc.name}'s layer, B={B} "
-                      f"Hq={sc.n_heads} Hkv={sc.n_kv} S={S} D={sc.head_dim}")
+                      f"Hq={sc.n_heads} Hkv={sc.n_kv} S={S} D={sc.head_dim}; "
+                      f"gemma3_*: {g3.name}'s local layer at B=1")
 
 
 def lm_path(np, torch, ops, dev, prof: bool = False):
     """Phase 7: gemma2-2b at full width on the card; flash_attention
-    checked and timed; then, with the launch counters read around them,
-    LM_PREFILLS prefills of LM_BATCH x LM_SEQ tokens and LM_DECODE greedy
-    decode steps; then the model-level checks at B = 1."""
-    import dataclasses as dc
-
+    checked and timed (``check_flash_attention``), then served
+    (``serve_lm``)."""
     from repro_torch.configs import gemma2_2b
-    from repro_torch.models import transformer as tf
 
     cfg = gemma2_2b.config()
+    return serve_lm(np, torch, ops, dev, cfg, prof, lambda: (
+        check_flash_attention(np, torch, ops, dev, cfg)))
+
+
+def serve_lm(np, torch, ops, dev, cfg, prof: bool, check):
+    """An LM at full width on the card, random weights from SEED; then
+    ``check()`` (the kernel checks, → the kernel row); then, with the
+    launch counters read around them, LM_PREFILLS prefills of LM_BATCH x
+    LM_SEQ tokens (the first's and the last's logits bit-equal) and
+    LM_DECODE greedy decode steps; then the model-level checks at B = 1.
+    Returns the row and the prefills' launches."""
+    import dataclasses as dc
+
+    from repro_torch.models import transformer as tf
+
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     t0 = time.perf_counter()
@@ -1595,8 +1657,10 @@ def lm_path(np, torch, ops, dev, prof: bool = False):
           f"{time.perf_counter() - t0:.2f} s ({cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv} heads of "
           f"{cfg.head_dim}, windows {cfg.window_pattern}, softcap "
-          f"{cfg.attn_softcap})")
-    row = check_flash_attention(np, torch, ops, dev, cfg)
+          f"{cfg.attn_softcap}"
+          + (f", {cfg.moe.n_experts} experts top-{cfg.moe.top_k} of "
+             f"{cfg.moe.d_ff_expert}" if cfg.moe else "") + ")")
+    row = check()
     torch.cuda.empty_cache()
 
     B, S, max_seq = LM_BATCH, LM_SEQ, LM_SEQ + LM_DECODE
@@ -1628,13 +1692,15 @@ def lm_path(np, torch, ops, dev, prof: bool = False):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         ops.reset_launches()
-        pf = []
+        pf, first_logits = [], None
         for _ in range(LM_PREFILLS):
             caches = None
             t = time.perf_counter()
             logits, caches = tf.prefill(model, cfg, toks, max_seq)
             torch.cuda.synchronize()
             pf.append(time.perf_counter() - t)
+            if first_logits is None:
+                first_logits = logits.clone()
         pf_launches = ops.launches()
         ops.reset_launches()
         lat, host = [], []
@@ -1655,6 +1721,13 @@ def lm_path(np, torch, ops, dev, prof: bool = False):
           f"{peak_gb:.3f} GB")
     print(f"LM launches: {LM_PREFILLS} prefills {pf_launches}; "
           f"{LM_DECODE} decode steps {dec_launches}")
+    if not torch.equal(first_logits, logits):
+        fail(f"two prefills of the same prompts give different logits: max "
+             f"abs diff {float((first_logits - logits).abs().max()):.4g}")
+    batched_last = logits[0, -1].float()
+    print(f"LM prefill logits bit-equal between the first and the last of "
+          f"the {LM_PREFILLS} prefills")
+    del first_logits
     if pf_launches["flash_attention"] != LM_PREFILLS * cfg.n_layers:
         fail(f"prefill did not launch flash_attention once a layer: "
              f"{pf_launches}")
@@ -1669,13 +1742,29 @@ def lm_path(np, torch, ops, dev, prof: bool = False):
     torch.cuda.empty_cache()
 
     # At B = 1: the kernel path against the plain einsum attention, and a
-    # decode step against the backbone over the extended prompt.
+    # decode step against the backbone over the extended prompt. An MoE
+    # model's second computation takes the first's experts
+    # (``held_routing``): a token whose K-th and (K+1)-th probabilities lie
+    # within bf16's rounding of each other may pick another expert, and
+    # that moves its whole row; the free-running differences are printed.
+    ccfg = cfg
+    if cfg.moe:
+        with torch.no_grad():
+            free_moe_diffs(torch, tf, model, cfg, toks, batched_last, S)
+        ccfg = dc.replace(cfg, n_layers=MOE_CHECK_LAYERS)
+        print(f"LM B=1 checks over the first {ccfg.n_layers} layer(s), the "
+              f"einsum attention and the decode step taking the kernel "
+              f"path's and the backbone's experts")
+    ecfg = dc.replace(ccfg, attn_impl="einsum")
     with torch.no_grad():
         one = toks[:1]
-        lk, caches = tf.prefill(model, cfg, one, S + 1)
-        lr, _ = tf.prefill(model, dc.replace(cfg, attn_impl="einsum"), one,
-                           S + 1)
-        lk, lr = lk[0, -1].float(), lr[0, -1].float()
+        routes = []
+        with held_routing(record=routes):
+            lk, caches = tf.prefill(model, ccfg, one, S + 1)
+        lk = lk[0, -1].float()
+        with held_routing(replay=routes):
+            lr, _ = tf.prefill(model, ecfg, one, S + 1)
+        lr = lr[0, -1].float()
         tol = LM_LOGIT_TOL_STD * float(lr.std())
         diff = float((lk - lr).abs().max())
         top2 = lr.topk(2).values
@@ -1689,10 +1778,17 @@ def lm_path(np, torch, ops, dev, prof: bool = False):
             fail("the kernel path's logits differ from the einsum "
                  "attention's")
         nxt = lk.argmax().view(1).to(torch.int32)
-        ld, _ = tf.decode_step(model, cfg, nxt, torch.full(
-            (1,), S, dtype=torch.int32, device=dev), caches, S)
-        x, _ = tf.backbone(model, cfg, torch.cat([one, nxt[:, None]], 1))
-        lf = tf.logits_from_hidden(model, cfg, x[:, -1])[0].float()
+        routes = []
+        with held_routing(record=routes):
+            x, _ = tf.backbone(model, ccfg, torch.cat([one, nxt[:, None]],
+                                                      1))
+        lf = tf.logits_from_hidden(model, ccfg, x[:, -1])[0].float()
+        pos = torch.full((1,), S, dtype=torch.int32, device=dev)
+        # The backbone's experts of position S, one layer after another.
+        routes = [r.reshape(-1, r.shape[-1])[S].view(1, 1, -1)
+                  for r in routes]
+        with held_routing(replay=routes):
+            ld, _ = tf.decode_step(model, ccfg, nxt, pos, caches, S)
         ld = ld[0].float()
         tol = LM_LOGIT_TOL_STD * float(lf.std())
         diff = float((ld - lf).abs().max())
@@ -1714,6 +1810,12 @@ def lm_path(np, torch, ops, dev, prof: bool = False):
             profile_window(torch, f"4 LM decode steps of {B}",
                            lambda: decode(caches, logits[:, -1].argmax(
                                -1).to(torch.int32), 4))
+    row.update(prefill_ms=float(np.median(pf_ms)),
+               decode_p50_ms=float(np.percentile(dec_ms, 50)),
+               decode_p99_ms=float(np.percentile(dec_ms, 99)),
+               serve_peak_gb=peak_gb)
+    del model
+    torch.cuda.empty_cache()
     return row, pf_launches
 
 
@@ -2820,14 +2922,11 @@ def train_two_tower(np, torch, ops, dev, steps: bool = True,
     return row, launches
 
 
-def train_example(np, torch, ops, dev):
-    """Phase 10 (b): examples/train_retrieval.py's main at its defaults on
-    the card, once with a failure injected before the first checkpoint
-    and one after it, once without; every restore read back bit for bit
-    against the state saved (or the initial snapshot), checkpoints in a
-    temporary directory removed afterwards."""
-    import tempfile
-    from repro_torch.examples import train_retrieval
+@contextlib.contextmanager
+def checked_restores(torch):
+    """While open, every checkpoint restored is held bit for bit against
+    the state saved, and every restart's state against the state restored
+    (or the initial snapshot); yields the list of what was checked."""
     from repro_torch.train import checkpoint, fault_tolerance as ft, tree
 
     saved, checked = {}, []
@@ -2856,6 +2955,25 @@ def train_example(np, torch, ops, dev):
         checked.append("restart")
         return out
 
+    checkpoint.AsyncCheckpointer.save = save
+    checkpoint.restore, ft._copy_into = restore, copy_into
+    try:
+        yield checked
+    finally:
+        checkpoint.AsyncCheckpointer.save = orig_save
+        checkpoint.restore, ft._copy_into = orig_restore, orig_copy
+
+
+def train_example(np, torch, ops, dev):
+    """Phase 10 (b): examples/train_retrieval.py's main at its defaults on
+    the card, once with a failure injected before the first checkpoint
+    and one after it, once without; every restore read back bit for bit
+    against the state saved (or the initial snapshot), checkpoints in a
+    temporary directory removed afterwards."""
+    import tempfile
+    from repro_torch.examples import train_retrieval
+    from repro_torch.train import tree
+
     fails_left = set(EXAMPLE_FAILS)
 
     def hook(step):
@@ -2863,22 +2981,16 @@ def train_example(np, torch, ops, dev):
             fails_left.discard(step)
             raise RuntimeError(f"injected failure at step {step}")
 
-    checkpoint.AsyncCheckpointer.save = save
-    checkpoint.restore, ft._copy_into = restore, copy_into
     ops.reset_launches()
     t0 = time.perf_counter()
-    try:
-        with tempfile.TemporaryDirectory() as d:
-            broken = train_retrieval.main(
-                ["--ckpt-dir", f"{d}/a", "--device", str(dev)],
-                fail_hook=hook)
-            launches = ops.launches()
-            broken_s = time.perf_counter() - t0
-            whole = train_retrieval.main(
-                ["--ckpt-dir", f"{d}/b", "--device", str(dev)])
-    finally:
-        checkpoint.AsyncCheckpointer.save = orig_save
-        checkpoint.restore, ft._copy_into = orig_restore, orig_copy
+    with checked_restores(torch) as checked, \
+            tempfile.TemporaryDirectory() as d:
+        broken = train_retrieval.main(
+            ["--ckpt-dir", f"{d}/a", "--device", str(dev)], fail_hook=hook)
+        launches = ops.launches()
+        broken_s = time.perf_counter() - t0
+        whole = train_retrieval.main(
+            ["--ckpt-dir", f"{d}/b", "--device", str(dev)])
     h, hw = broken["history"], whole["history"]
     first, last, ref_last = h[0]["loss"], h[-1]["loss"], hw[-1]["loss"]
     diff = max(float((a.detach() - b.detach()).abs().max()) for a, b in zip(
@@ -3254,9 +3366,10 @@ def profile_flash_backward(torch, dev, cfg):
         torch.cuda.empty_cache()
 
 
-def train_lm_full(np, torch, ops, dev, prof: bool = False):
-    """Phase 11 (b): gemma2-2b at its published widths, LM_TRAIN_STEPS
-    steps of make_train_step at LM_TRAIN_BATCH x LM_TRAIN_SEQ on the
+def train_lm_full(np, torch, ops, dev, prof: bool = False, cfg=None,
+                  B: int = LM_TRAIN_BATCH):
+    """Phase 11 (b): gemma2-2b (or ``cfg``) at its published widths,
+    LM_TRAIN_STEPS steps of make_train_step at B x LM_TRAIN_SEQ on the
     launcher's batches, the counters set to 0 just before and read just
     after (each layer: one forward launch, one in the remat recompute, one
     backward); each step timed, the last split into gradients, global norm
@@ -3270,9 +3383,9 @@ def train_lm_full(np, torch, ops, dev, prof: bool = False):
     from repro_torch.models import transformer as tf
     from repro_torch.train import loop, optimizer as opt_lib, tree
 
-    cfg = gemma2_2b.config()
+    cfg = cfg or gemma2_2b.config()
     tc = lm_common.TRAIN_CFG
-    B, S, n = LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS
+    S, n = LM_TRAIN_SEQ, LM_TRAIN_STEPS
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     model = tf.init(cfg, gen, dev)
@@ -3314,7 +3427,8 @@ def train_lm_full(np, torch, ops, dev, prof: bool = False):
         e[3].synchronize()
         step_ms.append(e[0].elapsed_time(e[3]))
         hist.append({k: float(v) for k, v in m.items()})
-        print(f"LM train step {s}: loss {hist[-1]['loss']:.6f} grad_norm "
+        print(f"LM train step {s}: loss {hist[-1]['loss']:.6f} aux_loss "
+              f"{hist[-1]['aux_loss']:.6f} grad_norm "
               f"{hist[-1]['grad_norm']:.6f} lr {hist[-1]['lr']:.3g} "
               f"({step_ms[-1]:.3f} ms)")
     launches = ops.launches()
@@ -3338,8 +3452,11 @@ def train_lm_full(np, torch, ops, dev, prof: bool = False):
         if launches[name] != count:
             fail(f"LM training launched {name} {launches[name]} times, not "
                  f"{count}: {launches}")
+    if cfg.moe and not all(h["aux_loss"] > 0 for h in hist):
+        fail(f"an MoE LM step's aux loss is not positive: {hist}")
     if prof:
-        events = profile_window(torch, f"one LM train step of {B} x {S}",
+        events = profile_window(torch, f"one {cfg.name} train step of {B} "
+                                       f"x {S}",
                                 lambda: step(state, batches[0]))
         for kernel in ("flash_attention_kernel", "delta_kernel",
                        "dkdv_kernel", "dq_kernel"):
@@ -3350,15 +3467,49 @@ def train_lm_full(np, torch, ops, dev, prof: bool = False):
     del batches
     torch.cuda.empty_cache()
 
-    # At B = 1: the kernels' gradients against the einsum attention's.
+    # At B = 1: the kernels' gradients against the einsum attention's, an
+    # MoE model's over its first MOE_CHECK_LAYERS layers, its einsum run
+    # taking the kernel run's experts in the same order of calls (remat's
+    # recomputations included).
     one = train_launch.synth_lm_batch(cfg, 1, LM_CHECK_SEQ, 99, dev)
+    if cfg.moe:
+        gk = loop.value_and_grad(loss, state["params"], one)[2]
+        ge = loop.value_and_grad(
+            lambda p, b: tf.loss_fn(p, dc.replace(cfg, attn_impl="einsum"),
+                                    b["tokens"], b["labels"]),
+            state["params"], one)[2]
+        free = max(float(torch.linalg.vector_norm(a.float() - b.float())
+                         / torch.linalg.vector_norm(b.float()).clamp(
+                             min=1e-30))
+                   for a, b in zip(tree.leaves(gk), tree.leaves(ge)))
+        print(f"LM B=1 S={LM_CHECK_SEQ} gradients over all {cfg.n_layers} "
+              f"layers, routing freely: worst relative L2 {free:.4g} "
+              f"(not held; see MOE_CHECK_LAYERS)")
+        del gk, ge
+        cfg = dc.replace(cfg, n_layers=MOE_CHECK_LAYERS)
+
+        def loss(p, b):
+            return tf.loss_fn(p, cfg, b["tokens"], b["labels"])
     ecfg = dc.replace(cfg, attn_impl="einsum")
-    _, _, gk = loop.value_and_grad(loss, state["params"], one)
-    _, _, ge = loop.value_and_grad(
-        lambda p, b: tf.loss_fn(p, ecfg, b["tokens"], b["labels"]),
-        state["params"], one)
+    routes = []
+    with held_routing(record=routes):
+        _, _, gk = loop.value_and_grad(loss, state["params"], one)
+    n_routes = len(routes)
+    with held_routing(replay=routes) as flips:
+        _, _, ge = loop.value_and_grad(
+            lambda p, b: tf.loss_fn(p, ecfg, b["tokens"], b["labels"]),
+            state["params"], one)
+    if routes:
+        fail(f"the einsum run routed {n_routes - len(routes)} times, the "
+             f"kernel run {n_routes}")
+    if cfg.moe:
+        print(f"LM B=1 S={LM_CHECK_SEQ} gradients: the einsum run's own "
+              f"experts differ for {flips[0]} tokens over {n_routes} router "
+              f"calls; it takes the kernel run's")
     rel = {}
     for (name, a), b in zip(tree.flatten(gk), tree.leaves(ge)):
+        if not (a.any() or b.any()):    # a layer past the check's depth
+            continue
         a, b = a.float(), b.float()
         rel[name] = float(torch.linalg.vector_norm(a - b)
                           / torch.linalg.vector_norm(b).clamp(min=1e-30))
@@ -3376,6 +3527,7 @@ def train_lm_full(np, torch, ops, dev, prof: bool = False):
     return launches, dict(step_ms=med, fwd_bwd_ms=fwd_bwd, norm_ms=norm,
                           update_ms=update, train_peak_gb=peak_gb,
                           train_losses=[h["loss"] for h in hist],
+                          train_aux=[h["aux_loss"] for h in hist],
                           grad_rel_l2_worst=rel[worst])
 
 
@@ -3464,6 +3616,440 @@ def lm_train_path(np, torch, ops, dev, prof: bool = False):
     row["example_launches"] = train_lm_examples(np, torch, ops, dev)
     print(f"phase 11 took {time.perf_counter() - t0:.1f} s")
     return row, launches
+
+
+# Phase 12: the MoE LM granite-moe-3b-a800m at its published widths, bf16,
+# random weights from SEED. Serving as phase 7 (LM_BATCH x LM_SEQ prefills
+# cut from prefill_32k's 32 x 32768, LM_DECODE decode steps at LM_BATCH cut
+# from decode_32k's 128 x 32768). Training at MOE_TRAIN_BATCH x 4096, cut
+# from train_4k's 256 x 4096: under full remat the 32 saved bf16 layer
+# inputs alone take 256 x 4096 x 1536 x 2 B x 32 = 103 GB; at 8 they take
+# 3.2 GB beside about 26 GB of bf16 parameters, gradients and moments.
+MOE_TRAIN_BATCH = 8
+# The layer check, one MoE layer in f32 on the card and on the CPU: a full
+# chunk of 4096 tokens (4 x 1024 at chunk 4096), the same with three in
+# four tokens one row (its 8 experts overflow C = 1024), and 4 x 1500
+# (sc = 1024: the second chunk holds 4 x 548 zero rows). The expert
+# indices equal on this share of the tokens at least, the outputs within
+# MOE_OUT_RTOL of each row's largest |value| where the routing is equal,
+# aux within MOE_AUX_TOL.
+MOE_LAYER_BATCH = 4
+MOE_LAYER_SEQ = 1024
+MOE_RAGGED_SEQ = 1500
+MOE_ROUTE_AGREE = 0.999
+MOE_OUT_RTOL = 1e-4
+MOE_AUX_TOL = 1e-5
+MOE_LAUNCH_FAILS = (2, 4)      # before and after the checkpoint at 3
+# The model-level checks at B = 1 (kernels against the einsum attention,
+# a decode step against the backbone, gradients) run an MoE model over its
+# first MOE_CHECK_LAYERS layers, the second computation taking the first's
+# experts. At the reference's init (experts at 1/sqrt(E)) each MoE layer
+# multiplies a perturbation of its input, so through 32 layers bf16
+# rounding alone moves a row by several std: the full-depth differences,
+# and those between the same prompt served at B = 1 and at B = 4 by the
+# same kernels, are printed beside.
+MOE_CHECK_LAYERS = 1
+
+
+def check_flash_64(np, torch, ops, dev, cfg):
+    """flash_attention and flash_attention_backward at head_dim 64 (the
+    kernels' D = 64 builds) against their plain versions at phase 7's bar
+    (rtol / atol 2e-2) and phase 11's (FA_BWD_TOL of each gradient's
+    scale): granite's layer (the forward at 1 x LM_SEQ, whose plain
+    (B, H, S, S) f32 logits take 6.4 GB; both at 1 x LM_TRAIN_SEQ), a
+    softcap of 50 with logits of std ATTN_LOGIT_STD (and a control: the
+    kernels without it fail), a window of 129, Sq < Sk, Sq > Sk, a ragged
+    length and (B, S, H, D) views, each twice and bit-equal. Then timed at
+    LM_BATCH x LM_SEQ (forward) and LM_BATCH x LM_TRAIN_SEQ (backward)
+    beside their bounds, the plain versions and SDPA's forward and
+    backward. Returns (forward entries, backward entries)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 25)
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    S, St = LM_SEQ, LM_TRAIN_SEQ
+    # (name, B, Sq, Sk, causal, window, softcap, layout, backward too)
+    cases = [("granite layer", 1, S, S, True, 0, None, "", False),
+             ("granite layer", 1, St, St, True, 0, None, "", True),
+             ("softcap 50", 1, 2048, 2048, True, 0, 50.0, "", True),
+             ("window 129", 1, 1500, 1500, True, 129, None, "", True),
+             ("Sq<Sk", 2, 300, 1000, True, 0, None, "", True),
+             ("Sq>Sk", 1, 700, 300, True, 0, None, "", True),
+             ("ragged", 1, 3001, 3001, True, 0, 50.0, "", True),
+             ("(B, S, H, D)", 2, 500, 500, True, 64, None, "bshd", True)]
+    f_err = b_abs = b_worst = 0.0
+    for name, B, Sq, Sk, causal, win, c, layout, bwd in cases:
+        q, k, v = attn_inputs(torch, gen, dev, B, Hq, Hkv, Sq, Sk, D)
+        do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+        if layout == "bshd":
+            q, k, v, do = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                           for t in (q, k, v, do))
+        kw = dict(causal=causal, window=win, softcap=c)
+        shape = (f"B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Sk={Sk} D={D} window="
+                 f"{win} softcap={c} {layout}").strip()
+        got = ops.flash_attention(q, k, v, **kw)
+        again = ops.flash_attention(q, k, v, **kw)
+        po, plse = ref.flash_attention_fwd_stats(q.float(), k.float(),
+                                                 v.float(), **kw)
+        torch.cuda.synchronize()
+        e = float((got.float() - po).abs().max())
+        if not torch.allclose(got.float(), po, rtol=2e-2, atol=2e-2):
+            fail(f"flash_attention D=64 ({name}: {shape}) differs from its "
+                 f"plain version: max abs err {e:.4g}")
+        if not torch.equal(got, again):
+            fail(f"flash_attention D=64 ({name}: {shape}): two runs differ")
+        if Sq > Sk and got[:, :, :Sq - Sk].abs().max() != 0:
+            fail(f"flash_attention D=64 ({name}): a row with no visible key "
+                 f"is not exactly 0")
+        f_err = max(f_err, e)
+        line = (f"flash_attention D=64 {name} ({shape}): within rtol/atol "
+                f"2e-2 of plain (max abs err {e:.4g}), two runs bit-equal")
+        if bwd:
+            o, lse = fa.flash_attention_fwd_stats(q, k, v, **kw)
+            if not torch.equal(o, got):
+                fail(f"flash_attention D=64 ({name}): o differs with lse "
+                     f"asked for")
+            live = torch.isfinite(plse)
+            lse_err = float((lse - plse)[live].abs().max())
+            if not torch.equal(live, torch.isfinite(lse)) or lse_err > 1e-2:
+                fail(f"flash_attention D=64 ({name}): lse differs from the "
+                     f"plain twin's ({lse_err:.4g})")
+            g = ops.flash_attention_backward(q, k, v, o, lse, do, **kw)
+            g2 = ops.flash_attention_backward(q, k, v, o, lse, do, **kw)
+            want = ref.flash_attention_bwd(q.float(), k.float(), v.float(),
+                                           po, plse, do.float(), **kw)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(g, g2)):
+                fail(f"flash_attention_backward D=64 ({name}): two runs "
+                     f"differ")
+            errs = ref.flash_attention_bwd_errors(g, want, q, k, v, do,
+                                                 D ** -0.5)
+            if max(errs) > FA_BWD_TOL:
+                fail(f"flash_attention_backward D=64 ({name}: {shape}) "
+                     f"differs from its plain twin: {errs} of the "
+                     f"gradients' scales (tolerance {FA_BWD_TOL})")
+            b_worst = max(b_worst, max(errs))
+            b_abs = max(b_abs, max(float((a.float() - w).abs().max())
+                                   for a, w in zip(g, want)))
+            line += (f"; backward within {[round(x, 5) for x in errs]} of "
+                     f"the scales (tolerance {FA_BWD_TOL}), two runs "
+                     f"bit-equal, lse within {lse_err:.3g}")
+            if c:
+                # Control: kernels that dropped the softcap fail the bars.
+                nocap = ops.flash_attention(q, k, v, causal=causal,
+                                            window=win).float()
+                nb = fa.flash_attention_backward(q, k, v, o, lse, do,
+                                                 causal=causal, window=win)
+                ne = ref.flash_attention_bwd_errors(nb, want, q, k, v, do,
+                                                    D ** -0.5)
+                if torch.allclose(nocap, po, rtol=2e-2, atol=2e-2) or (
+                        max(ne) <= FA_BWD_TOL):
+                    fail(f"flash_attention D=64 ({name}): the kernels "
+                         f"without the softcap pass the checks")
+                line += (f"; control: without the softcap forward max abs "
+                         f"err {float((nocap - po).abs().max()):.4g}, "
+                         f"backward {[round(x, 4) for x in ne]}")
+                del nocap, nb
+            del o, lse, g, g2, want
+        print(line)
+        del q, k, v, do, got, again, po, plse
+        torch.cuda.empty_cache()
+
+    def sdpa(q, k, v, do=None):
+        try:
+            if do is None:
+                return cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True), blocks=5,
+                    per_block=2)
+            qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+            out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                                 enable_gqa=True)
+            return cuda_ms(torch, lambda: torch.autograd.grad(
+                out, (qs, ks, vs), do, retain_graph=True), blocks=5,
+                per_block=2)
+        except RuntimeError as e:     # no SDPA backend for these inputs
+            print(f"scaled_dot_product_attention refused the inputs: {e}")
+            return None
+
+    B = LM_BATCH
+    q, k, v = attn_inputs(torch, gen, dev, B, Hq, Hkv, S, S, D)
+    fwd = dict(d64_ms=cuda_ms(torch, lambda: ops.flash_attention(q, k, v),
+                              blocks=5, per_block=2),
+               d64_bound_ms=attn_bound(B, Hq, Hkv, S, S, D, True, 0)[0],
+               d64_library_ms=sdpa(q, k, v),
+               d64_plain_b1_ms=cuda_ms(torch, lambda: ops.flash_attention(
+                   q[:1], k[:1], v[:1], impl="ref"), blocks=2, per_block=1),
+               d64_bound_b1_ms=attn_bound(1, Hq, Hkv, S, S, D, True, 0)[0],
+               d64_max_abs_err=f_err,
+               d64_shape=f"B={B} Hq={Hq} Hkv={Hkv} S={S} D={D}, "
+                         f"{cfg.name}'s layer; plain_b1 at B=1")
+    del q, k, v
+    torch.cuda.empty_cache()
+    q, k, v = attn_inputs(torch, gen, dev, B, Hq, Hkv, St, St, D)
+    do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+    o, lse = fa.flash_attention_fwd_stats(q, k, v)
+    bwd = dict(d64_ms=cuda_ms(torch, lambda: fa.flash_attention_backward(
+                   q, k, v, o, lse, do), blocks=5, per_block=2),
+               d64_bound_ms=fa_bwd_bound(B, Hq, Hkv, St, St, D, True, 0)[0],
+               d64_fwd_lse_ms=cuda_ms(
+                   torch, lambda: fa.flash_attention_fwd_stats(q, k, v),
+                   blocks=5, per_block=2),
+               d64_plain_ms=cuda_ms(torch, lambda: ref.flash_attention_bwd(
+                   q, k, v, o, lse, do), blocks=2, per_block=1),
+               d64_library_ms=sdpa(q, k, v, do),
+               d64_max_abs_err=b_abs, d64_max_err_of_scale=b_worst,
+               d64_shape=f"B={B} Hq={Hq} Hkv={Hkv} S={St} D={D}, "
+                         f"{cfg.name}'s layer")
+    del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+    for label, t, lib, plain in (
+            ("flash_attention", fwd, "", f"{fwd['d64_plain_b1_ms']:.4f} ms "
+             f"at B=1 (bound {fwd['d64_bound_b1_ms']:.4f} ms)"),
+            ("flash_attention_backward", bwd, "'s backward",
+             f"{bwd['d64_plain_ms']:.4f} ms; forward with lse "
+             f"{bwd['d64_fwd_lse_ms']:.4f} ms")):
+        print(f"{label} D=64 at {t['d64_shape']}: kernel {t['d64_ms']:.4f} "
+              f"ms, bound {t['d64_bound_ms']:.4f} ms (operations), "
+              f"{100 * t['d64_bound_ms'] / t['d64_ms']:.1f} % of the "
+              f"bound's rate; scaled_dot_product_attention{lib} "
+              f"{t['d64_library_ms']} ms; plain {plain}")
+    return fwd, bwd
+
+
+@contextlib.contextmanager
+def held_routing(record=None, replay=None):
+    """``moe.route`` patched while open: each call's experts (its idx)
+    appended to ``record``, or taken in order from ``replay`` in place of
+    the call's own top-K, so that two computations of an MoE model route
+    alike. Yields a one-element list: how many tokens' own top-K differed
+    from those taken."""
+    from repro_torch.models import moe
+
+    orig, flips = moe.route, [0]
+
+    def route(p, cfg, xs, idx=None):
+        r = orig(p, cfg, xs, idx)
+        if record is not None:
+            record.append(r.idx)
+        elif replay is not None:
+            want = replay.pop(0)
+            flips[0] += int((r.idx != want).any(-1).sum())
+            r = orig(p, cfg, xs, want)
+        return r
+
+    moe.route = route
+    try:
+        yield flips
+    finally:
+        moe.route = orig
+
+
+def free_moe_diffs(torch, tf, model, cfg, toks, batched_last, S):
+    """An MoE model at B = 1 over all its layers, each computation routing
+    freely: the kernel path's last logits against the einsum attention's
+    and against the same prompt's row of the B = LM_BATCH prefill (the same
+    kernels; only the batch differs), and the tokens whose experts differ
+    between the kernel and einsum paths. Printed, not held."""
+    import dataclasses as dc
+
+    one = toks[:1]
+    rk, re = [], []
+    with held_routing(record=rk):
+        lk = tf.prefill(model, cfg, one, S + 1)[0][0, -1].float()
+    with held_routing(record=re):
+        le = tf.prefill(model, dc.replace(cfg, attn_impl="einsum"), one,
+                        S + 1)[0][0, -1].float()
+    flips = sum(int((a != b).any(-1).sum()) for a, b in zip(rk, re))
+    std = float(lk.std())
+    d_e = float((lk - le).abs().max()) / std
+    d_b = float((lk - batched_last).abs().max()) / std
+    print(f"LM B=1 over all {cfg.n_layers} layers, routing freely: last "
+          f"logits kernel vs einsum attention max abs diff {d_e:.4f} std; "
+          f"kernel at B=1 vs its row at B={LM_BATCH} {d_b:.4f} std; the "
+          f"einsum path's top-{cfg.moe.top_k} differs from the kernel "
+          f"path's for {flips} of {cfg.n_layers * S} (token, layer) pairs")
+
+
+def check_moe_layer(np, torch, dev, cfg):
+    """One MoE layer of ``cfg`` at full width in f32, the same weights
+    (from SEED) and inputs through the card and through the port on the
+    CPU: random hidden states, one chunk of MOE_LAYER_BATCH x
+    MOE_LAYER_SEQ; the same with three in four tokens one row, so that its
+    experts overflow their capacity; MOE_LAYER_BATCH x MOE_RAGGED_SEQ,
+    whose last chunk holds zero rows. Per chunk the routing (``moe.route``)
+    of both sides: the expert indices and kept slots equal on
+    MOE_ROUTE_AGREE of the tokens at least, the zero rows routed to
+    experts 0..K-1 (``lax.top_k``'s tie rule), the dropped-slot counts
+    equal; the outputs within MOE_OUT_RTOL of each row's largest |value|
+    where the routing is equal; aux within MOE_AUX_TOL. Returns the
+    forced-drop input's drop count."""
+    from repro_torch.models import moe
+
+    fcfg = cfg.ffn_cfg(dense=False)
+    m, D = fcfg.moe, cfg.d_model
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 26)
+    p = moe.init_moe_ffn(fcfg, gen, dev, torch.float32)
+    pc = moe.MoEFFN(*(t.cpu() for t in (p.router, p.w_gate, p.w_in,
+                                        p.w_out)))
+    B = MOE_LAYER_BATCH
+    xa = torch.randn((B, MOE_LAYER_SEQ, D), generator=gen, device=dev)
+    xb = xa.clone()
+    xb[:, :3 * MOE_LAYER_SEQ // 4] = xa[0, 0]
+    xr = torch.randn((B, MOE_RAGGED_SEQ, D), generator=gen, device=dev)
+    drops_b = 0
+    t0 = time.perf_counter()
+    for name, x in (("random", xa), ("forced drops", xb), ("ragged", xr)):
+        S = x.shape[1]
+        with torch.no_grad():
+            got, aux = moe.moe_ffn(p, fcfg, x)
+            want, waux = moe.moe_ffn(pc, fcfg, x.cpu())
+            same, drops, caps, n_pad, pad_ok = [], [0, 0], [], 0, True
+            for xg, xcpu in zip(moe.chunks(x, m), moe.chunks(x.cpu(), m)):
+                rg, rc = moe.route(p, fcfg, xg), moe.route(pc, fcfg, xcpu)
+                ig, kg = rg.idx.cpu(), rg.keep.cpu()
+                sc = xg.shape[0] // B
+                same.append(((ig == rc.idx).all(-1)
+                             & (kg == rc.keep).all(-1)).view(B, sc))
+                drops[0] += int((~kg).sum())
+                drops[1] += int((~rc.keep).sum())
+                caps.append(rg.C)
+                lo = sc * (len(caps) - 1)
+                pad = (torch.arange(lo, lo + sc) >= S).expand(B, sc)
+                if pad.any():
+                    n = int(pad.sum())
+                    n_pad += n
+                    pad_ok &= torch.equal(ig[pad.reshape(-1)],
+                                          torch.arange(m.top_k).expand(n, -1))
+        same = torch.cat(same, 1)[:, :S]
+        agree = float(same.float().mean())
+        got = got.cpu()
+        scale = want.abs().amax(-1).clamp(min=1e-30)
+        rel = ((got - want).abs().amax(-1) / scale)[same]
+        worst = float(rel.max()) if rel.numel() else 0.0
+        aux_d = abs(float(aux) - float(waux))
+        print(f"MoE layer ({name}, {B} x {S}, chunk {m.chunk}, C {caps}): "
+              f"routing equal on {100 * agree:.3f} % of the tokens; dropped "
+              f"slots card {drops[0]}, CPU {drops[1]}; outputs within "
+              f"{worst:.3g} of each row's scale where the routing is equal "
+              f"(tolerance {MOE_OUT_RTOL}); aux {float(aux):.7f} vs CPU "
+              f"{float(waux):.7f} (diff {aux_d:.3g}, tolerance {MOE_AUX_TOL})"
+              + (f"; {n_pad} zero rows routed to experts 0..K-1" if n_pad
+                 else ""))
+        if not torch.isfinite(got).all() or got.shape != x.shape:
+            fail(f"MoE layer ({name}): output malformed")
+        if agree < MOE_ROUTE_AGREE:
+            fail(f"MoE layer ({name}): routing equal on only {agree:.5f}")
+        if drops[0] != drops[1]:
+            fail(f"MoE layer ({name}): the card drops {drops[0]} slots, the "
+                 f"CPU {drops[1]}")
+        if not pad_ok:
+            fail(f"MoE layer ({name}): zero rows not routed to experts "
+                 f"0..K-1")
+        if worst > MOE_OUT_RTOL or aux_d > MOE_AUX_TOL:
+            fail(f"MoE layer ({name}) differs from the CPU's")
+        if name == "forced drops":
+            drops_b = drops[0]
+    if drops_b <= 0:
+        fail("the forced-drop batch dropped nothing")
+    print(f"MoE layer check: {drops_b} slots dropped in the forced-drop "
+          f"batch; took {time.perf_counter() - t0:.1f} s")
+    del p, xa, xb, xr
+    torch.cuda.empty_cache()
+    return drops_b
+
+
+def train_moe_launcher(np, torch, ops, dev):
+    """Phase 12 (c): launch/train.py --arch granite-moe-3b-a800m on the
+    card at smoke widths with head_dim 64 and bf16 compute (what the
+    kernels take), a failure injected before the checkpoint at step 3 and
+    one after it; every restore read back bit for bit."""
+    import dataclasses as dc
+    import tempfile
+
+    from repro_torch.configs import granite_moe_3b_a800m as granite
+    from repro_torch.launch import train as train_launch
+
+    orig = granite.smoke_config
+    granite.smoke_config = lambda: dc.replace(orig(), head_dim=64,
+                                              compute_dtype="bfloat16")
+    left = set(MOE_LAUNCH_FAILS)
+
+    def hook(s):
+        if s in left:
+            left.discard(s)
+            raise RuntimeError(f"injected failure at step {s}")
+
+    ops.reset_launches()
+    try:
+        with checked_restores(torch) as checked, \
+                tempfile.TemporaryDirectory() as d:
+            out = train_launch.main(
+                ["--arch", granite.ARCH, "--steps", "6", "--batch", "4",
+                 "--seq", "256", "--ckpt-every", "3", "--ckpt-dir", d,
+                 "--device", str(dev)], fail_hook=hook)
+    finally:
+        granite.smoke_config = orig
+    launches = ops.launches()
+    h = out["history"]
+    print(f"launch/train.py --arch {granite.ARCH} on the card: 6 steps, "
+          f"{out['failures']} failures at {MOE_LAUNCH_FAILS}, loss "
+          f"{h[0]['loss']:.4f} -> {h[-1]['loss']:.4f}, aux "
+          f"{h[-1]['aux_loss']:.4f}; restores read back bit for bit: "
+          f"{checked}; launches {launches}")
+    if out["failures"] != 2 or left or int(out["state"]["opt"]["step"]) != 6:
+        fail(f"launch/train.py saw {out['failures']} failures and ended at "
+             f"step {int(out['state']['opt']['step'])}")
+    if sorted(checked) != ["checkpoint 3", "restart", "restart"]:
+        fail(f"restores checked: {checked}")
+    for name in ("flash_attention", "flash_attention_backward"):
+        if not launches[name]:
+            fail(f"the launcher did not launch {name}: {launches}")
+    return launches
+
+
+def moe_path(np, torch, ops, dev, prof: bool = False):
+    """Phase 12: granite-moe-3b-a800m. Serving (``serve_lm``, whose checks
+    are the head_dim 64 kernels' and the MoE layer's), then full-width
+    training (``train_lm_full`` at MOE_TRAIN_BATCH), then the launcher.
+    Returns the D = 64 entries of the two attention rows and the launches
+    of the prefills and the training steps."""
+    from repro_torch.configs import granite_moe_3b_a800m as granite
+
+    t0 = time.perf_counter()
+    cfg = granite.config()
+    checks = {}
+
+    def check():
+        checks["fwd"], checks["bwd"] = check_flash_64(np, torch, ops, dev,
+                                                      cfg)
+        checks["drops"] = check_moe_layer(np, torch, dev, cfg)
+        print(f"phase 12's kernel and layer checks took "
+              f"{time.perf_counter() - t0:.1f} s")
+        return {}
+
+    served, pf_launches = serve_lm(np, torch, ops, dev, cfg, prof, check)
+    torch.cuda.empty_cache()
+    train_launches, trained = train_lm_full(np, torch, ops, dev, prof, cfg,
+                                            MOE_TRAIN_BATCH)
+    torch.cuda.empty_cache()
+    launcher = train_moe_launcher(np, torch, ops, dev)
+    fwd, bwd = checks["fwd"], checks["bwd"]
+    fwd.update({f"granite_{k}": v for k, v in served.items()},
+               granite_prefill_launches=pf_launches["flash_attention"],
+               granite_train_launches=train_launches["flash_attention"],
+               granite_forced_drops=checks["drops"])
+    bwd.update({f"granite_{k}": v for k, v in trained.items()},
+               granite_train_launches=train_launches[
+                   "flash_attention_backward"],
+               granite_launcher_launches=launcher[
+                   "flash_attention_backward"])
+    print(f"phase 12 took {time.perf_counter() - t0:.1f} s")
+    return fwd, bwd
 
 
 def main() -> None:
@@ -3563,6 +4149,14 @@ def main() -> None:
         print(f"chip_smoke --lm-train-only took "
               f"{time.perf_counter() - T_START:.1f} s")
         return
+    if "--moe-only" in sys.argv[1:]:
+        # Phases 1-2 and phase 12 alone: the MoE LM, serving and training.
+        fwd, bwd = moe_path(np, torch, ops, dev, "--profile" in sys.argv[1:])
+        print(json.dumps({"flash_attention": fwd,
+                          "flash_attention_backward": bwd}))
+        print(f"chip_smoke --moe-only took "
+              f"{time.perf_counter() - T_START:.1f} s")
+        return
     if "--shard-only" in sys.argv[1:]:
         # Phases 1-2 and phase 9 alone: the sharded paths.
         launches, nccl = shard_path(np, torch, ops, dev)
@@ -3610,6 +4204,11 @@ def main() -> None:
     rows["flash_attention_backward"] = row
     rows["flash_attention"]["train_launches"] = lm_launches["flash_attention"]
     print(f"lm_train_path done at {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    fwd, bwd = moe_path(np, torch, ops, dev, prof)
+    rows["flash_attention"].update(fwd)
+    rows["flash_attention_backward"].update(bwd)
+    print(f"moe_path done at {time.perf_counter() - t0:.1f} s")
     kernels = [rows[n] for n in ("rank_join_lookup", "merge_topk",
                                  "topk_score_pruned", "embedding_bag",
                                  "embedding_bag_backward",
@@ -3617,7 +4216,11 @@ def main() -> None:
                                  "flash_attention_backward",
                                  "neigh_softmax_agg")]
     for k in kernels:
-        print(f"{k['name']}: {k['launches']} launches on its path")
+        print(f"{k['name']}: {k['launches']} launches on its path"
+              + (f"; {k['granite_prefill_launches']} in phase 12's prefills"
+                 if "granite_prefill_launches" in k else "")
+              + (f"; {k['granite_train_launches']} in phase 12's train steps"
+                 if "granite_train_launches" in k else ""))
     if prof:
         profile_main_path(np, torch, dev, state["wl"], state["queries"],
                           state["bcfg"])

@@ -12,9 +12,9 @@ import importlib
 _ARCHS = {
     "gemma2-2b": "repro_torch.configs.gemma2_2b",
     "starcoder2-3b": "repro_torch.configs.starcoder2_3b",
-    "gemma3-27b": None,
+    "gemma3-27b": "repro_torch.configs.gemma3_27b",
     "deepseek-v3-671b": None,
-    "granite-moe-3b-a800m": None,
+    "granite-moe-3b-a800m": "repro_torch.configs.granite_moe_3b_a800m",
     "egnn": None,
     "gat-cora": "repro_torch.configs.gat_cora",
     "nequip": None,

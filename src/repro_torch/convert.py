@@ -80,7 +80,9 @@ def lm_from_numpy(values, cfg: tf.LMConfig, device=None) -> tf.LM:
     """``values`` is the reference's ``transformer.init(...)[0]`` as numpy
     arrays: ``embed``, ``final_norm``, optional ``lm_head`` and one
     ``stack_<i>`` per layer group, each array with a leading layers axis.
-    Raises where the key set does not match ``cfg``."""
+    A dense stack's ``ffn`` holds ``{w_in, w_out, [w_gate]}``, an MoE
+    stack's ``{router, w_gate, w_in, w_out, [shared]}``. Raises where a
+    key set does not match ``cfg``."""
     tf._check_supported(cfg)
     dev = resolve_device(device)
     stacks = cfg.stacks()
@@ -89,22 +91,36 @@ def lm_from_numpy(values, cfg: tf.LMConfig, device=None) -> tf.LM:
           | (set() if cfg.tie_embeddings else {"lm_head"}))
     layer_keys = {"attn_norm", "attn", "ffn_norm", "ffn"} | (
         {"attn_post", "ffn_post"} if cfg.post_norms else set())
-    for si in range(len(stacks)):
+    dense_keys = {"w_in", "w_out"} | ({"w_gate"} if cfg.gated_ffn
+                                       else set())
+    moe_keys = {"router", "w_gate", "w_in", "w_out"} | (
+        {"shared"} if cfg.moe and cfg.moe.n_shared else set())
+    for si, (dense, _, _) in enumerate(stacks):
         st = values[f"stack_{si}"]
         _keys(f"stack_{si}", st, layer_keys)
         _keys(f"stack_{si}.attn", st["attn"], {"wq", "wk", "wv", "wo"})
-        _keys(f"stack_{si}.ffn", st["ffn"], {"w_in", "w_out"} | (
-            {"w_gate"} if cfg.gated_ffn else set()))
+        _keys(f"stack_{si}.ffn", st["ffn"], dense_keys if dense
+              else moe_keys)
+        if not dense and "shared" in moe_keys:
+            _keys(f"stack_{si}.ffn.shared", st["ffn"]["shared"], dense_keys)
+
+    def dense_ffn(f):
+        return moe.DenseFFN(_tensor(f["w_in"], dev), _tensor(f["w_out"], dev),
+                            _tensor(f["w_gate"], dev) if cfg.gated_ffn
+                            else None)
+
     layers = []
-    for lv in _lm_layer_tree(values, cfg)["layers"]:
+    for lv, dense in zip(_lm_layer_tree(values, cfg)["layers"],
+                         cfg.dense_layers()):
         a, f = lv["attn"], lv["ffn"]
+        ffn = dense_ffn(f) if dense else moe.MoEFFN(
+            *(_tensor(f[n], dev) for n in ("router", "w_gate", "w_in",
+                                           "w_out")),
+            dense_ffn(f["shared"]) if "shared" in f else None)
         layers.append(tf.Layer(
             _tensor(lv["attn_norm"], dev),
             attn.GQA(*(_tensor(a[n], dev) for n in ("wq", "wk", "wv", "wo"))),
-            _tensor(lv["ffn_norm"], dev),
-            moe.DenseFFN(_tensor(f["w_in"], dev), _tensor(f["w_out"], dev),
-                         _tensor(f["w_gate"], dev) if cfg.gated_ffn
-                         else None),
+            _tensor(lv["ffn_norm"], dev), ffn,
             *((_tensor(lv["attn_post"], dev), _tensor(lv["ffn_post"], dev))
               if cfg.post_norms else ())))
     return tf.LM(_tensor(values["embed"], dev),

@@ -16,7 +16,8 @@
 // o written once) take far less time than that at S = 8192. Beside the
 // tensor cores, each pair costs one ex2 (and one tanh with the softcap) on
 // the 16-a-clock special-function unit: half the tensor cores' time at
-// D = 256, so it has to run while they do.
+// D = 256, about as much as theirs at D = 64, so it has to run while they
+// do. D is 64, 128 or 256.
 //
 // Design. The TPU kernel's grid was (B, Hq, Sq/tq, Sk/tk) with the key
 // axis sequential and (m, l, acc) in VMEM. Here a block of three
@@ -68,9 +69,14 @@ constexpr float LN2 = 0.6931471805599453f;
 // Keys per tile. At D = 256 a consumer thread holds the (64, 256) f32
 // accumulator (128 registers), S (BN / 2) and P (BN / 4): 80 fits in 240
 // registers and the ring (Q 64 KB + 2 x 2 x 40 KB) in 227 KB. D = 128
-// has room for 128.
+// has room for 128; D = 64 (one 128-byte column chunk, a 32-register
+// accumulator) keeps 128 too.
 template <int D>
 struct Tile;
+template <>
+struct Tile<64> {
+  static constexpr int BN = 128;
+};
 template <>
 struct Tile<128> {
   static constexpr int BN = 128;
@@ -155,8 +161,10 @@ __device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
     const uint64_t b = db + ((kk * 16 * 128) >> 4);
     if constexpr (D == 256)
       wgmma_rs256(acc, p[kk], b);
-    else
+    else if constexpr (D == 128)
       wgmma_rs128(acc, p[kk], b);
+    else
+      wgmma_rs64(acc, p[kk], b);
   }
 }
 
@@ -474,6 +482,9 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 64:
+      return launch_d<64>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, strides,
+                          scale, causal, window, cap, s);
     case 128:
       return launch_d<128>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, strides,
                            scale, causal, window, cap, s);

@@ -44,10 +44,10 @@
 //    dP^T = V dO^T (M = keys, both operands K-major); p and ds from them;
 //    then dV += P^T dO and dK += dS^T Q with dO and Q MN-major, dK and dV
 //    f32 in registers. D sets the split between the two consumers:
-//    - D = 128, BN = 128: each consumer owns 64 keys and all of D. Its S^T
-//      and dP^T fragments, rounded to bf16, are the A operands of its dV
-//      and dK products as they are (registers, no shared memory, no
-//      barrier between the consumers).
+//    - D = 64 or 128, BN = 128: each consumer owns 64 keys and all of D.
+//      Its S^T and dP^T fragments, rounded to bf16, are the A operands of
+//      its dV and dK products as they are (registers, no shared memory,
+//      no barrier between the consumers).
 //    - D = 256, BN = 64: dK and dV of 64 keys x 256 columns are 256 f32 a
 //      thread, so each consumer owns the 64 keys x 128 columns of its
 //      half of D. wgmma's M of 64 then splits S^T and dP^T by q columns
@@ -87,6 +87,11 @@ constexpr float LOG2E = 1.4426950408889634f;
 template <int D>
 struct KvTile;
 template <>
+struct KvTile<64> {
+  static constexpr int BN = 128;
+  static constexpr int STAGES = 4;
+};
+template <>
 struct KvTile<128> {
   static constexpr int BN = 128;
   static constexpr int STAGES = 2;
@@ -100,6 +105,10 @@ struct KvTile<256> {
 // The dQ pass: K and V ring stages, by D (D = 256 has room for one V).
 template <int D>
 struct QTile;
+template <>
+struct QTile<64> {
+  static constexpr int KS = 2, VS = 2;
+};
 template <>
 struct QTile<128> {
   static constexpr int KS = 2, VS = 2;
@@ -248,9 +257,9 @@ __device__ __forceinline__ void gemm_nt(float (&d)[N / 2], uint32_t xs,
   }
 }
 
-// d (64 x 128 or D) += A . Y over 64 rows of Y: A's k-slices of 16 in
-// registers, Y (64 rows from ys) MN-major, its 64-column chunks YC bytes
-// apart; 4 wgmmas, each 16 rows (two 8-row atoms, 2048 bytes).
+// d (64 x N, N = 64, 128 or 256) += A . Y over 64 rows of Y: A's k-slices
+// of 16 in registers, Y (64 rows from ys) MN-major, its 64-column chunks
+// YC bytes apart; 4 wgmmas, each 16 rows (two 8-row atoms, 2048 bytes).
 template <int N, int YC>
 __device__ __forceinline__ void gemm_rs(float (&d)[N / 2],
                                         const uint32_t (&a)[4][4],
@@ -261,8 +270,10 @@ __device__ __forceinline__ void gemm_rs(float (&d)[N / 2],
   for (int kk = 0; kk < 4; ++kk) {
     if constexpr (N == 256)
       wgmma_rs256(d, a[kk], dy + ((kk * 2048) >> 4));
-    else
+    else if constexpr (N == 128)
       wgmma_rs128(d, a[kk], dy + ((kk * 2048) >> 4));
+    else
+      wgmma_rs64(d, a[kk], dy + ((kk * 2048) >> 4));
   }
 }
 
@@ -355,6 +366,7 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tq,
   constexpr bool SPLIT = L::SPLIT;
   constexpr int BN = L::BN, STAGES = L::STAGES;
   constexpr int QN = SPLIT ? 32 : 64;  // S^T columns a consumer computes
+  constexpr int DN = SPLIT ? 128 : D;  // dK / dV columns a consumer owns
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -435,9 +447,9 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tq,
     if (!SPLIT) q_band(ka, min(ka + 63, a.Sk - 1), a, wlo, whi);
     const int row = 16 * warp + lane / 4;  // + 8 r: its S^T rows
     const int col = 2 * (lane % 4);        // + 8 j + e: its S^T columns
-    float dk[64], dv[64];
+    float dk[DN / 2], dv[DN / 2];
 #pragma unroll
-    for (int j = 0; j < 64; ++j) dk[j] = dv[j] = 0.0f;
+    for (int j = 0; j < DN / 2; ++j) dk[j] = dv[j] = 0.0f;
     bool kv_ready = false;
 
     for (int i = 0; i < visits; ++i) {
@@ -503,8 +515,8 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tq,
         pack_a<64>(pa, s);
         pack_a<64>(da, dp);
         wgmma_fence();
-        gemm_rs<128, L::Q_CHUNK>(dv, pa, dos);
-        gemm_rs<128, L::Q_CHUNK>(dk, da, qs);
+        gemm_rs<DN, L::Q_CHUNK>(dv, pa, dos);
+        gemm_rs<DN, L::Q_CHUNK>(dk, da, qs);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -513,10 +525,10 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tq,
       if (lane == 0) mbar_arrive(empty + 8 * st);
     }
     const int c0 = SPLIT ? 128 * w : 0;
-    store_tile<128>(dk, a.scale, a.dk + b * a.st[DK][0] + hk * a.st[DK][1],
-                    a.st[DK][2], ka, c0, a.Sk);
-    store_tile<128>(dv, 1.0f, a.dv + b * a.st[DV][0] + hk * a.st[DV][1],
-                    a.st[DV][2], ka, c0, a.Sk);
+    store_tile<DN>(dk, a.scale, a.dk + b * a.st[DK][0] + hk * a.st[DK][1],
+                   a.st[DK][2], ka, c0, a.Sk);
+    store_tile<DN>(dv, 1.0f, a.dv + b * a.st[DV][0] + hk * a.st[DV][1],
+                   a.st[DV][2], ka, c0, a.Sk);
   }
 }
 
@@ -768,6 +780,9 @@ extern "C" int flash_attention_bwd_bf16(
   a.cexp = (cap > 0.0f ? cap : scale) * LOG2E;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 64:
+      return cap > 0.0f ? launch<64, true>(a, q, k, v, s)
+                        : launch<64, false>(a, q, k, v, s);
     case 128:
       return cap > 0.0f ? launch<128, true>(a, q, k, v, s)
                         : launch<128, false>(a, q, k, v, s);

@@ -212,6 +212,22 @@ __device__ __forceinline__ void wgmma_ss128t(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(acc));
 }
 
+// d (64 x 64 f32) += a (64 x 16, registers) * b (16 x 64, shared memory,
+// MN-major).
+__device__ __forceinline__ void wgmma_rs64(float (&d)[32],
+                                          const uint32_t (&a)[4],
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, "
+      "1;\n}\n"
+      : F32(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // d (64 x 128 f32) += a (64 x 16, registers) * b (16 x 128, shared memory,
 // MN-major).
 __device__ __forceinline__ void wgmma_rs128(float (&d)[64],

@@ -1,6 +1,8 @@
 """Model numerics shared by the LM blocks (counterpart of
-``repro.models.common``): RMSNorm, RoPE, softcap, GELU and the LM loss
-(``cross_entropy``, ``chunked_cross_entropy``).
+``repro.models.common``): RMSNorm, RoPE, softcap, GELU, the LM loss
+(``cross_entropy``, ``chunked_cross_entropy``) and ``top_k``, the port's
+one copy of ``lax.top_k``'s tie rule (the MoE router and the two-tower
+serving top-k use it).
 
 The reference's ``param`` / ``split`` / ``stack_layers`` machinery is
 replaced by the port's own parameters (``nn.Module``s); the numerics are
@@ -97,3 +99,40 @@ def chunked_cross_entropy(x, head, labels, *, softcap_val=None,
         nll_sum = nll_sum + part
         n_tok = n_tok + (lb != ignore_id).sum()
     return nll_sum / torch.clamp(n_tok, min=1)
+
+
+# Rows up to this long are sorted whole (the MoE router's E experts).
+TOP_K_SORT_MAX = 256
+
+
+def top_k(x: torch.Tensor, k: int):
+    """``lax.top_k`` over the last axis: values descending, equal values
+    in index order, the k-th place to the lowest index among its equals.
+
+    A row of at most TOP_K_SORT_MAX values is sorted whole, stably: one
+    call, and the host never waits on the card. A longer row goes through
+    ``torch.topk``, which orders ties arbitrarily, so its pick is
+    repaired: the k taken are re-sorted stably by value from index order,
+    and a row whose k-th and (k+1)-th values are equal (where
+    ``torch.topk`` may have taken other equal entries) is redone with a
+    full stable sort; ``top_k.full_sorts`` counts the rows so redone.
+    """
+    n = x.shape[-1]
+    if n <= TOP_K_SORT_MAX:
+        vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+        return vals[..., :k], idx[..., :k]
+    vals, idx = torch.topk(x, min(k + 1, n), dim=-1)
+    edge = vals[..., k] == vals[..., k - 1] if n > k else None
+    idx, perm = torch.sort(idx[..., :k], dim=-1)
+    vals, perm = torch.sort(vals[..., :k].gather(-1, perm), dim=-1,
+                            descending=True, stable=True)
+    idx = idx.gather(-1, perm)
+    if edge is not None and bool(edge.any()):
+        rows = edge.nonzero(as_tuple=True)
+        top_k.full_sorts += len(rows[0])
+        v, i = torch.sort(x[rows], dim=-1, descending=True, stable=True)
+        vals[rows], idx[rows] = v[..., :k], i[..., :k]
+    return vals, idx
+
+
+top_k.full_sorts = 0

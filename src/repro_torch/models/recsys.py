@@ -22,6 +22,7 @@ from torch import nn
 
 from repro_torch.core.types import resolve_device
 from repro_torch.kernels import ops as kops
+from repro_torch.models.common import top_k as _top_k
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,34 +151,6 @@ def score_candidates(params, cfg: TwoTowerConfig, query, cand_emb, k: int,
         bounds = torch.full((n // tile,), float("inf"),
                             device=cand_emb.device)
     return kops.topk_score_pruned(query, cand_emb, bounds, k, tile)
-
-
-def _top_k(x: torch.Tensor, k: int):
-    """``lax.top_k`` over the last axis: values descending, equal values
-    in index order, the k-th place to the lowest index among its equals.
-
-    ``torch.topk`` orders ties arbitrarily, so its pick is repaired: the k
-    taken are re-sorted stably by value from index order, and a row whose
-    k-th and (k+1)-th values are equal (where ``torch.topk`` may have taken
-    other equal entries) is redone with a full stable sort;
-    ``_top_k.full_sorts`` counts the rows so redone.
-    """
-    n = x.shape[-1]
-    vals, idx = torch.topk(x, min(k + 1, n), dim=-1)
-    edge = vals[..., k] == vals[..., k - 1] if n > k else None
-    idx, perm = torch.sort(idx[..., :k], dim=-1)
-    vals, perm = torch.sort(vals[..., :k].gather(-1, perm), dim=-1,
-                            descending=True, stable=True)
-    idx = idx.gather(-1, perm)
-    if edge is not None and bool(edge.any()):
-        rows = edge.nonzero(as_tuple=True)
-        _top_k.full_sorts += len(rows[0])
-        v, i = torch.sort(x[rows], dim=-1, descending=True, stable=True)
-        vals[rows], idx[rows] = v[..., :k], i[..., :k]
-    return vals, idx
-
-
-_top_k.full_sorts = 0
 
 
 @torch.no_grad()

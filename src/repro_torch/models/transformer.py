@@ -1,6 +1,10 @@
 """Decoder-only LM (counterpart of ``repro.models.transformer``): the
 dense configurations (gemma2 / gemma3: local:global alternation, softcaps,
-GeGLU, sandwich norms; starcoder2: sliding window, plain GELU).
+GeGLU, sandwich norms; starcoder2: sliding window, plain GELU) and the MoE
+ones (granite-moe: every layer's FFN a routed MoE; a dense-FFN prefix
+with ``first_dense_layers``). The MoE layers' load-balance aux is summed
+over the layers by ``backbone`` and weighted into ``loss_fn``; prefill
+and decode drop it, as the reference does.
 
 Layers are an ``nn.ModuleList`` walked in order, where the reference scans
 stacked layers. ``loss_fn`` is the causal LM loss through the chunked
@@ -11,8 +15,8 @@ own parameters as a tree for ``train.loop``, and ``loss_fn`` takes the
 model or that tree. ``prefill`` runs a batch of prompts and builds one KV
 cache per layer (a W-slot ring for a window-W layer, ``max_seq`` slots for
 a global one); ``caches_by_run`` regroups them into the reference's runs.
-``decode_step`` writes the caches in place. MTP, MLA and MoE are not
-ported yet and raise.
+``decode_step`` writes the caches in place. MTP and MLA are not ported
+yet and raise.
 """
 from __future__ import annotations
 
@@ -136,9 +140,9 @@ class LM(nn.Module):
 
 
 def _check_supported(cfg: LMConfig):
-    if cfg.mla or cfg.moe or cfg.mtp_depth:
+    if cfg.mla or cfg.mtp_depth:
         raise NotImplementedError(
-            f"{cfg.name}: MLA, MoE and MTP are not ported yet")
+            f"{cfg.name}: MLA and MTP are not ported yet")
 
 
 def init(cfg: LMConfig, generator: torch.Generator, device=None) -> LM:
@@ -215,7 +219,9 @@ def param_tree(model: LM) -> dict:
     ["lm_head"], "layers": [{"attn": {"wq", "wk", "wv", "wo"},
     "attn_norm", "ffn": {"w_in", "w_out", ["w_gate"]}, "ffn_norm",
     ["attn_post", "ffn_post"]}, …]}``, one entry a layer where the
-    reference stacks them. A train state built on it updates the model in
+    reference stacks them; an MoE layer's ``ffn`` is ``{"router",
+    "w_gate", "w_in", "w_out", ["shared": {"w_in", "w_out",
+    ["w_gate"]}]}``. A train state built on it updates the model in
     place."""
     def nested(mod):
         out: dict = {}

@@ -23,7 +23,7 @@ from repro_torch.kernels import ref
 torch.set_num_threads(1)
 
 BM = 64                     # a consumer warpgroup's query rows
-TILE_BN = (80, 128)         # keys per tile at head_dim 256 and 128
+TILE_BN = (80, 128)         # keys per tile at head_dim 256 and 64 / 128
 WINDOWS = ("none", "1", "BN-1", "BN", "BN+1", "random")
 
 
@@ -123,7 +123,10 @@ def _check_blocked(seed, B, Hq, Hkv, Sq, Sk, D, causal, window, cap, BN):
     (1, 4, 4, 200, 200, 128, False, 0, None, 128),
     (1, 24, 2, 150, 150, 128, True, 64, None, 128),
     (1, 2, 1, 17, 17, 128, True, 1, 50.0, 128),
-    (1, 2, 1, 16, 1, 64, True, 0, None, 80)])       # one key, 15 rows see none
+    (1, 2, 1, 16, 1, 64, True, 0, None, 80),        # one key, 15 rows see none
+    (1, 24, 8, 200, 200, 64, True, 0, None, 128),   # granite-moe's layer
+    (1, 3, 1, 129, 129, 64, True, 127, 50.0, 128),  # tile edges at D = 64
+    (1, 3, 1, 100, 257, 64, True, 128, None, 128)])
 def test_flash_attention_blocked_matches_jax(B, Hq, Hkv, Sq, Sk, D, causal,
                                              window, cap, BN):
     _check_blocked(5, B, Hq, Hkv, Sq, Sk, D, causal, window, cap, BN)
@@ -159,5 +162,24 @@ def test_tile_sizes_match_the_kernel_source():
     tiles = {int(d): int(n) for d, n in re.findall(
         r"struct Tile<(\d+)> \{\s*static constexpr int BN = (\d+);", src)}
     assert tiles == flash_attention.TILE_N
+    assert set(tiles) == set(flash_attention.HEAD_DIMS) == {64, 128, 256}
+    cases = set(int(d) for d in re.findall(r"case (\d+):", src))
+    assert cases == set(flash_attention.HEAD_DIMS)
     assert re.search(r"constexpr int WG_ROWS = (\d+);", src).group(1) == str(
         flash_attention.WARPGROUP_ROWS) == str(BM)
+
+
+@pytest.mark.parametrize("D", [32, 64, 96, 128, 192, 256])
+def test_check_args_takes_the_kernel_head_dims(D):
+    """The wrapper takes head_dim 64, 128 and 256 (the kernels' builds)
+    and raises ValueError for any other, before it looks at the device:
+    there is no plain fallback for a CUDA tensor."""
+    from repro_torch.kernels import flash_attention
+
+    q = torch.zeros((1, 4, 8, D), dtype=torch.bfloat16)
+    k = torch.zeros((1, 2, 8, D), dtype=torch.bfloat16)
+    if D in (64, 128, 256):
+        assert flash_attention.check_args(q, k, k) == (1, 4, 2, 8, 8, D)
+    else:
+        with pytest.raises(ValueError, match="head_dim"):
+            flash_attention.check_args(q, k, k)

@@ -172,10 +172,19 @@ CASES = [  # B, Hq, Hkv, Sq, Sk, D, causal, window, cap
     (1, 4, 4, 150, 150, 128, False, 0, None),       # non-causal
     (1, 24, 2, 130, 130, 128, True, 64, None),      # starcoder2-3b, GQA 12
     (1, 2, 1, 129, 129, 128, True, 1, 50.0),
-    (2, 3, 1, 65, 65, 256, True, 63, None)]
+    (2, 3, 1, 65, 65, 256, True, 63, None),
+    (1, 24, 8, 130, 130, 64, True, 0, None),        # granite-moe's layer
+    (1, 3, 1, 129, 129, 64, True, 127, None)]       # tile edges at D = 64
+# head_dim 64 with the softcap, held to the plain twin and JAX only: the
+# f64 control of test_bwd_blocked_rounds_p_and_ds rounds p in f64 where
+# the model rounds its f32 value, and at D = 64 (a gradient's scale is
+# the largest of 64 columns) the bf16 places that differ reach 9e-4 of
+# dv's scale, above ROUND_TOL (the same shape at D = 256: 1.2e-3).
+CAP_64 = (1, 4, 2, 200, 200, 64, True, 129, 50.0)
 
 
-@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,causal,window,cap", CASES)
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,causal,window,cap",
+                         CASES + [CAP_64])
 def test_bwd_blocked_matches_plain(B, Hq, Hkv, Sq, Sk, D, causal, window,
                                    cap):
     q, k, v, do = _bf16_case(7, B, Hq, Hkv, Sq, Sk, D)
@@ -186,7 +195,7 @@ def test_bwd_blocked_matches_plain(B, Hq, Hkv, Sq, Sk, D, causal, window,
 
 
 @pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,causal,window,cap",
-                         CASES[:3] + CASES[4:6])
+                         CASES[:3] + CASES[4:6] + CASES[7:8] + [CAP_64])
 def test_bwd_blocked_matches_jax_vjp(B, Hq, Hkv, Sq, Sk, D, causal, window,
                                      cap):
     """Against jax.vjp of the JAX package's attention oracle on the same
@@ -285,6 +294,9 @@ def test_bwd_tile_sizes_match_the_kernel_source():
     tiles = {int(d): int(n) for d, n in re.findall(
         r"struct KvTile<(\d+)> \{\s*static constexpr int BN = (\d+);", src)}
     assert tiles == fa.BWD_TILE
+    assert set(tiles) == set(fa.HEAD_DIMS)
+    assert set(int(d) for d in re.findall(r"case (\d+):", src)) == set(
+        fa.HEAD_DIMS)
     assert re.search(r"constexpr int BM = (\d+);", src).group(1) == str(
         fa.BWD_ROWS) == str(T)
     assert re.search(r"constexpr int QROWS = (\d+);", src).group(1) == str(

@@ -606,8 +606,10 @@ def test_flash_attention_wrapper_checks():
     assert flash_attention.check_args(qs, ks, ks)[-1] == 128
     with pytest.raises(TypeError):
         flash_attention.check_args(q.float(), k.float(), k.float())
+    assert flash_attention.check_args(q[..., :64], k[..., :64],
+                                      k[..., :64])[-1] == 64
     with pytest.raises(ValueError, match="head_dim"):
-        flash_attention.check_args(q[..., :64], k[..., :64], k[..., :64])
+        flash_attention.check_args(q[..., :96], k[..., :96], k[..., :96])
     with pytest.raises(ValueError, match="multiple"):
         flash_attention.check_args(q[:, :6], k[:, :4], k[:, :4])
     with pytest.raises(ValueError, match="strides"):
@@ -788,11 +790,12 @@ def test_cuda_embedding_bag_matches_plain_version(cuda):
 def test_cuda_flash_attention_matches_plain_version(cuda):
     """On the card, bf16: the kernel against its plain version (f32 math)
     within rtol / atol 2e-2 — GQA with window and softcap, Sq < Sk, a
-    ragged length, non-causal, head_dim 128 and 256, and (B, S, H, D)
+    ragged length, non-causal, head_dim 64, 128 and 256, and (B, S, H, D)
     activations passed through their strides; at the kernel's edges: Sq
     and Sk off its tiles, Sq of 1 and 17, Sq > Sk (rows with no visible
     key exactly 0), windows of 1 and a tile's keys ± 1, GQA groups of 1,
-    2 and 12; every case run twice and bit-equal."""
+    2 and 12; head_dim 64 at granite's layer and at these edges; every
+    case run twice and bit-equal."""
     rng = np.random.default_rng(13)
     bn = flash_attention.TILE_N
     cases = [(2, 8, 4, 300, 300, 256, True, 128, 50.0),
@@ -807,8 +810,16 @@ def test_cuda_flash_attention_matches_plain_version(cuda):
              (1, 4, 4, 700, 700, 256, True, None, 50.0),
              (1, 24, 2, 700, 700, 256, True, None, 50.0),
              (1, 24, 2, 700, 700, 128, True, None, None)]
+    # head_dim 64: granite-moe-3b-a800m's layer (24 / 8 heads), a ragged
+    # length, Sq < Sk, Sq > Sk, non-causal and softcap.
+    cases += [(2, 24, 8, 300, 300, 64, True, None, None),
+              (1, 24, 8, 1000, 1234, 64, True, 300, 50.0),
+              (1, 3, 1, 17, 300, 64, True, None, None),
+              (1, 3, 1, 700, 300, 64, True, None, 50.0),
+              (1, 4, 2, 200, 200, 64, False, None, None)]
     cases += [(1, 8, 4, 600, 600, D, True, w, 50.0)
-              for D in (128, 256) for w in (1, bn[D] - 1, bn[D], bn[D] + 1)]
+              for D in (64, 128, 256)
+              for w in (1, bn[D] - 1, bn[D], bn[D] + 1)]
     for B, Hq, Hkv, Sq, Sk, D, causal, win, cap in cases:
         q, k, v = (t.to(cuda) for t in _t(*_flash_case(
             rng, B, Hq, Hkv, Sq, Sk, D, np.float32)))

@@ -1,5 +1,5 @@
-"""The port's LM serving path (gemma2-2b, starcoder2-3b) against the JAX
-package, on the CPU.
+"""The port's LM serving path (gemma2-2b, starcoder2-3b, gemma3-27b and the
+MoE LM granite-moe-3b-a800m) against the JAX package, on the CPU.
 
 Weights come from the JAX package's ``transformer.init`` and are carried
 across with ``convert.lm_from_numpy``; inputs are seeded numpy. In f32 on
@@ -18,11 +18,14 @@ import pytest
 import torch
 
 from repro.configs import gemma2_2b as jgemma, starcoder2_3b as jstar
+from repro.configs import gemma3_27b as jgemma3
+from repro.configs import granite_moe_3b_a800m as jgranite
 from repro.models import attention as jattn
 from repro.models import common as jcm
 from repro.models import transformer as jtf
 from repro_torch import convert
 from repro_torch.configs import gemma2_2b, lm_common, starcoder2_3b
+from repro_torch.configs import gemma3_27b, granite_moe_3b_a800m
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tf
@@ -31,8 +34,10 @@ from repro_torch.models import transformer as tf
 # a parallel test run from spinning on each other's cores.
 torch.set_num_threads(1)
 
-ARCHS = {"gemma2-2b": (jgemma, gemma2_2b), "starcoder2-3b": (jstar,
-                                                             starcoder2_3b)}
+ARCHS = {"gemma2-2b": (jgemma, gemma2_2b),
+         "starcoder2-3b": (jstar, starcoder2_3b),
+         "gemma3-27b": (jgemma3, gemma3_27b),
+         "granite-moe-3b-a800m": (jgranite, granite_moe_3b_a800m)}
 RNG_SEED = 7
 
 
@@ -219,7 +224,8 @@ def test_prefill_and_decode_match_jax(models):
 
 def test_decode_matches_full_forward(models):
     """A decode step after the prefill equals the backbone over the prompt
-    extended by the greedy token (f32: within 1e-4)."""
+    extended by the greedy token (f32: within 1e-4); the backbone's aux is
+    0 for a dense FFN and the MoE's load-balance loss (> 0) otherwise."""
     _, _, cfg, model = models
     toks = torch.from_numpy(_tokens(cfg, 2, 24))
     logits_pf, caches = tf.prefill(model, cfg, toks, 32)
@@ -228,7 +234,7 @@ def test_decode_matches_full_forward(models):
                                  torch.full((2,), 24, dtype=torch.int32),
                                  caches, 24)
     x, aux = tf.backbone(model, cfg, torch.cat([toks, nxt[:, None]], 1))
-    assert aux == 0.0
+    assert (aux > 0.0) if cfg.moe else (aux == 0.0)
     full = tf.logits_from_hidden(model, cfg, x)[:, -1]
     np.testing.assert_allclose(logits_d.numpy(), full.numpy(), rtol=1e-4,
                                atol=1e-4)
@@ -282,6 +288,17 @@ def test_init_matches_reference_tree(models):
     assert abs(float(wq.std()) * cfg.d_model ** 0.5 - 1.0) < 0.1
 
 
+def test_window_pattern_runs():
+    """gemma3-27b's 5:1 pattern: the RLE decode runs cover every layer
+    once, local runs at window 1024 and globals at 0, as the
+    reference's."""
+    cfg = gemma3_27b.config()
+    runs = tf._runs(cfg, max_seq=2048)
+    assert sum(r[2] for r in runs) == cfg.n_layers
+    assert {r[3] for r in runs} == {1024, 0}
+    assert runs == jtf._runs(jgemma3.config(), max_seq=2048)
+
+
 def test_runs_and_caches_by_run():
     """_runs groups layers as the reference does; caches_by_run maps the
     per-layer caches onto those runs."""
@@ -327,15 +344,21 @@ def test_lm_from_numpy_bf16_bit_exact_and_key_checks():
 
 
 def test_unported_configs_raise():
-    cfg = dataclasses.replace(
-        gemma2_2b.smoke_config(),
-        moe=tf.ffnlib.MoEConfig(n_experts=4, top_k=2, d_ff_expert=32))
+    """MLA and MTP are not ported: init, the backbone and prefill raise
+    for them (an MoE config builds)."""
     gen = torch.Generator()
-    with pytest.raises(NotImplementedError):
-        tf.init(cfg, gen, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tf.init(dataclasses.replace(gemma2_2b.smoke_config(),
-                                    mla=attn.MLAConfig()), gen, device="cpu")
+    base = granite_moe_3b_a800m.smoke_config()
+    tf.init(base, gen, device="cpu")
+    model = tf.init(gemma2_2b.smoke_config(), gen, device="cpu")
+    toks = torch.zeros((1, 4), dtype=torch.int32)
+    for cfg in (dataclasses.replace(base, mla=attn.MLAConfig()),
+                dataclasses.replace(base, mtp_depth=1)):
+        with pytest.raises(NotImplementedError, match="MLA and MTP"):
+            tf.init(cfg, gen, device="cpu")
+        with pytest.raises(NotImplementedError):
+            tf.backbone(model, cfg, toks)
+        with pytest.raises(NotImplementedError):
+            tf.prefill(model, cfg, toks, 8)
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):

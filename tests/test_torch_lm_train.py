@@ -43,6 +43,7 @@ import pytest
 import torch
 
 from repro.configs import gemma2_2b as jgemma, starcoder2_3b as jstar
+from repro.configs import gemma3_27b as jgemma3
 from repro.configs import lm_common as jlm_common
 from repro.launch import train as jtrain
 from repro.models import attention as jattn
@@ -51,6 +52,7 @@ from repro.models import transformer as jtf
 from repro.train import loop as jloop
 from repro_torch import convert
 from repro_torch.configs import gemma2_2b, lm_common, starcoder2_3b
+from repro_torch.configs import gemma3_27b
 from repro_torch.examples import train_lm
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
@@ -66,8 +68,9 @@ from repro_torch.train import tree
 torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-ARCHS = {"gemma2-2b": (jgemma, gemma2_2b), "starcoder2-3b": (jstar,
-                                                             starcoder2_3b)}
+ARCHS = {"gemma2-2b": (jgemma, gemma2_2b),
+         "starcoder2-3b": (jstar, starcoder2_3b),
+         "gemma3-27b": (jgemma3, gemma3_27b)}
 
 
 def _np(tree_):
@@ -493,7 +496,9 @@ def _jax_example():
     return mod
 
 
-def test_launcher_batches_equal_reference_and_main_runs(tmp_path, capsys):
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "granite-moe-3b-a800m"])
+def test_launcher_batches_equal_reference_and_main_runs(tmp_path, capsys,
+                                                        arch):
     cfg = gemma2_2b.smoke_config()
     for step in (0, 5):
         want = jtrain.synth_lm_batch(cfg, 3, 24, step)
@@ -502,7 +507,7 @@ def test_launcher_batches_equal_reference_and_main_runs(tmp_path, capsys):
             assert got[key].dtype == torch.int32
             np.testing.assert_array_equal(got[key].numpy(),
                                           np.asarray(want[key]))
-    out = train_launch.main(["--arch", "starcoder2-3b", "--device", "cpu",
+    out = train_launch.main(["--arch", arch, "--device", "cpu",
                              "--steps", "3", "--batch", "2", "--seq", "32",
                              "--ckpt-dir", str(tmp_path)])
     assert len(out["history"]) == 3 and out["failures"] == 0
@@ -598,6 +603,15 @@ CUDA_BWD_CASES = [
     (128, 24, 2, 63, 0, None), (128, 24, 2, 65, 0, None),
     (128, 24, 2, 127, 0, None), (128, 4, 2, 129, 0, 50.0),
     (128, 4, 2, 300, 127, None), (128, 4, 2, 300, 129, 50.0)]
+# head_dim 64 (granite-moe-3b-a800m's layer: 24 / 8 heads) and its edges:
+# S and the window one off the 64-row tile, the 128-key dK/dV block and
+# the dQ pass's 128-row block, with and without softcap.
+CUDA_BWD_CASES_64 = [
+    (64, 24, 8, 300, 0, None), (64, 24, 8, 257, 0, 50.0),
+    (64, 3, 1, 63, 0, None), (64, 3, 1, 65, 0, 50.0),
+    (64, 3, 1, 127, 0, None), (64, 3, 1, 129, 0, None),
+    (64, 4, 2, 300, 1, None), (64, 4, 2, 300, 127, None),
+    (64, 4, 2, 300, 129, 50.0), (64, 4, 4, 200, 65, None)]
 
 
 def _cuda_backward(cuda, D, Hq, Hkv, S, window, cap):
@@ -640,7 +654,8 @@ def test_cuda_backward_matches_plain(cuda, D, Hq, Hkv, S, window, cap):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D,Hq,Hkv,S,window,cap", CUDA_BWD_CASES)
+@pytest.mark.parametrize("D,Hq,Hkv,S,window,cap",
+                         CUDA_BWD_CASES + CUDA_BWD_CASES_64)
 def test_cuda_backward_within_its_scale(cuda, D, Hq, Hkv, S, window, cap):
     """On the card, the bar chip_smoke.py holds the kernel to (FA_BWD_TOL):
     each gradient's largest error within 2e-2 of its scale
