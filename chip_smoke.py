@@ -174,15 +174,40 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    step, the aux loss printed), and ``launch/train.py --arch
    granite-moe-3b-a800m`` at smoke widths (head_dim 64, bf16 compute)
    with two injected failures, every restore read back bit for bit;
-13. print the kernel table as one JSON line (``launches``: each kernel's
+13. deepseek-v3-671b at its published widths, cut in depth
+   (``configs/deepseek_v3_671b``: MLA with q.k 128 + 64 and v 128, 128
+   heads, d_model 7168, bf16, random weights from a seed):
+   ``flash_attention`` and ``flash_attention_backward`` at head_dim 192
+   (v padded from 128, n_kv = n_heads) held against their plain twins at
+   phase 7's and phase 11's bars at the serving layer (4 x 8192, the plain
+   twin a batch row and a block of heads at a time), the training layer
+   (4 x 4096), a softcap of 50 with its control, a window of 129, Sq < Sk,
+   Sq > Sk, S one off the 112-key tile and the backward's tiles, a ragged
+   length, (B, S, H, D) views and v not padded (o's and dv's padded
+   columns exactly 0; each case twice and bit-equal), and timed beside
+   MLA's bounds (640 and 1,664 flops a pair, the padded work's beside),
+   the plain twins and SDPA by backend with v padded and at 128; then
+   ``serve_card_config`` (4 layers, all 256 experts, 30.2 GB) served as
+   phase 7 (4 ``flash_attention`` launches a prefill, none in decode; the
+   latent caches' bytes beside a k / v cache's; the B = 1 checks over
+   2048 tokens and all 4 layers on held experts), ``train_card_config`` (2
+   layers and MTP, 32 experts, 46.6 GB of state) trained as phase 11 at 4
+   x 4096 (6 forward and 3 backward launches a step: the MTP layer runs
+   under remat like the others; lm_loss, mtp_loss and aux printed; the
+   gradients at B = 1 against the einsum attention's over both layers and
+   MTP on held experts), and ``launch/train.py --arch deepseek-v3-671b``
+   at smoke widths with q.k at 128 + 64 in bf16 and two injected
+   failures;
+14. print the kernel table as one JSON line (``launches``: each kernel's
    count on its own path, so 0 for ``neigh_softmax_agg`` on
    ``gat.apply``, phase 10's steps for ``embedding_bag_backward`` and
    phase 11's for ``flash_attention_backward``;
    ``neigh_softmax_agg``'s ``check_launches`` are those of the drive over
    the layers' data; rows 1-3 add ``sharded_launches``, summed over phase
    9's ranks; the two attention rows add phase 12's ``d64_*`` timings and
-   ``granite_*`` launches and numbers), then the result line ``{"ok":
-   true, "device": {...}}`` last.
+   ``granite_*`` launches and numbers and phase 13's ``d192_*`` and
+   ``deepseek_*``), then the result line ``{"ok": true, "device":
+   {...}}`` last.
 
 It exits non-zero without CUDA and when ``src/repro_torch`` is not beside
 it. It imports nothing of JAX. ``--attention-only`` runs phases 1-2 and
@@ -202,12 +227,14 @@ and stops the same way; ``--bag-bwd-only`` runs phases 1-2 and phase 10's
 ``embedding_bag_backward`` checks and timings without the steps, with
 ``--profile`` its time by kernel (the sort's passes, the segment pass),
 and stops the same way; ``--moe-only`` runs phases 1-2 and phase 12, and
+stops the same way; ``--mla-only`` runs phases 1-2 and phase 13, and
 stops the same way.
 ``--profile`` adds ``torch.profiler``
 windows (device busy share, time by kernel) over one retrieval query in
 each mode, the serving batches, one LM prefill with 4 decode steps (of
-gemma2-2b and of granite-moe-3b-a800m), one GAT forward, one full-width
-LM train step of each and one specqp pass of the KG path.
+gemma2-2b, granite-moe-3b-a800m and deepseek-v3-671b), one GAT forward,
+one full-width LM train step of each and one specqp pass of the KG
+path.
 """
 from __future__ import annotations
 
@@ -1633,13 +1660,16 @@ def lm_path(np, torch, ops, dev, prof: bool = False):
         check_flash_attention(np, torch, ops, dev, cfg)))
 
 
-def serve_lm(np, torch, ops, dev, cfg, prof: bool, check):
+def serve_lm(np, torch, ops, dev, cfg, prof: bool, check,
+             check_seq=None, check_layers=None):
     """An LM at full width on the card, random weights from SEED; then
     ``check()`` (the kernel checks, → the kernel row); then, with the
     launch counters read around them, LM_PREFILLS prefills of LM_BATCH x
     LM_SEQ tokens (the first's and the last's logits bit-equal) and
-    LM_DECODE greedy decode steps; then the model-level checks at B = 1.
-    Returns the row and the prefills' launches."""
+    LM_DECODE greedy decode steps; then the model-level checks at B = 1
+    over ``check_seq`` tokens (LM_SEQ where None; an MoE model over its
+    first ``check_layers`` layers, all of them where None). Returns the
+    row and the prefills' launches."""
     import dataclasses as dc
 
     from repro_torch.models import transformer as tf
@@ -1721,10 +1751,24 @@ def serve_lm(np, torch, ops, dev, cfg, prof: bool, check):
           f"{peak_gb:.3f} GB")
     print(f"LM launches: {LM_PREFILLS} prefills {pf_launches}; "
           f"{LM_DECODE} decode steps {dec_launches}")
+    cache_gb = sum(t.numel() * t.element_size() for c in caches
+                   for t in c.values()) / 1e9
+    line = (f"LM caches of {B} x {max_seq} positions: {cache_gb:.4f} GB "
+            f"({', '.join(sorted(caches[0]))} a layer)")
+    if cfg.mla:
+        # What caching the direct form's k (q·k wide) and v would hold.
+        m = cfg.mla
+        kv_gb = (cfg.n_layers * B * max_seq * cfg.n_heads * 2
+                 * (m.qk_nope_head_dim + m.qk_rope_head_dim + m.v_head_dim)
+                 / 1e9)
+        line += (f"; a k / v cache would hold {kv_gb:.4f} GB, "
+                 f"{kv_gb / cache_gb:.1f}x")
+    print(line)
     if not torch.equal(first_logits, logits):
         fail(f"two prefills of the same prompts give different logits: max "
              f"abs diff {float((first_logits - logits).abs().max()):.4g}")
-    batched_last = logits[0, -1].float()
+    check_seq = check_seq or S
+    batched_last = None if check_seq != S else logits[0, -1].float()
     print(f"LM prefill logits bit-equal between the first and the last of "
           f"the {LM_PREFILLS} prefills")
     del first_logits
@@ -1747,23 +1791,26 @@ def serve_lm(np, torch, ops, dev, cfg, prof: bool, check):
     # (``held_routing``): a token whose K-th and (K+1)-th probabilities lie
     # within bf16's rounding of each other may pick another expert, and
     # that moves its whole row; the free-running differences are printed.
-    ccfg = cfg
+    ccfg, cs = cfg, check_seq
     if cfg.moe:
         with torch.no_grad():
-            free_moe_diffs(torch, tf, model, cfg, toks, batched_last, S)
-        ccfg = dc.replace(cfg, n_layers=MOE_CHECK_LAYERS)
-        print(f"LM B=1 checks over the first {ccfg.n_layers} layer(s), the "
-              f"einsum attention and the decode step taking the kernel "
-              f"path's and the backbone's experts")
+            free_moe_diffs(torch, tf, model, cfg, toks[:, :cs], batched_last,
+                           cs)
+        if check_layers:
+            ccfg = dc.replace(cfg, n_layers=check_layers)
+        print(f"LM B=1 checks over {cs} tokens and the first "
+              f"{ccfg.n_layers} layer(s), the einsum attention and the "
+              f"decode step taking the kernel path's and the backbone's "
+              f"experts")
     ecfg = dc.replace(ccfg, attn_impl="einsum")
     with torch.no_grad():
-        one = toks[:1]
+        one = toks[:1, :cs]
         routes = []
         with held_routing(record=routes):
-            lk, caches = tf.prefill(model, ccfg, one, S + 1)
+            lk, caches = tf.prefill(model, ccfg, one, cs + 1)
         lk = lk[0, -1].float()
         with held_routing(replay=routes):
-            lr, _ = tf.prefill(model, ecfg, one, S + 1)
+            lr, _ = tf.prefill(model, ecfg, one, cs + 1)
         lr = lr[0, -1].float()
         tol = LM_LOGIT_TOL_STD * float(lr.std())
         diff = float((lk - lr).abs().max())
@@ -1778,21 +1825,32 @@ def serve_lm(np, torch, ops, dev, cfg, prof: bool, check):
             fail("the kernel path's logits differ from the einsum "
                  "attention's")
         nxt = lk.argmax().view(1).to(torch.int32)
+        # The decode step against the backbone over the prompt extended by
+        # the greedy token. An MoE chunk's capacity drops the assignments
+        # of its last tokens first (slots fill token-major), where a
+        # one-token decode step drops none: at a length that is a multiple
+        # of the chunk the extended prompt's last token heads a chunk of
+        # its own and keeps every expert, as in decode.
+        ds = -(-cs // cfg.moe_chunk) * cfg.moe_chunk if cfg.moe else cs
+        if ds != cs:
+            one = toks[:1, :ds]
+            lk, caches = tf.prefill(model, ccfg, one, ds + 1)
+            nxt = lk[0, -1].argmax().view(1).to(torch.int32)
         routes = []
         with held_routing(record=routes):
             x, _ = tf.backbone(model, ccfg, torch.cat([one, nxt[:, None]],
                                                       1))
         lf = tf.logits_from_hidden(model, ccfg, x[:, -1])[0].float()
-        pos = torch.full((1,), S, dtype=torch.int32, device=dev)
-        # The backbone's experts of position S, one layer after another.
-        routes = [r.reshape(-1, r.shape[-1])[S].view(1, 1, -1)
+        pos = torch.full((1,), ds, dtype=torch.int32, device=dev)
+        # The backbone's experts of position ds, one layer after another.
+        routes = [r.reshape(-1, r.shape[-1])[ds].view(1, 1, -1)
                   for r in routes]
         with held_routing(replay=routes):
-            ld, _ = tf.decode_step(model, ccfg, nxt, pos, caches, S)
+            ld, _ = tf.decode_step(model, ccfg, nxt, pos, caches, ds)
         ld = ld[0].float()
         tol = LM_LOGIT_TOL_STD * float(lf.std())
         diff = float((ld - lf).abs().max())
-        print(f"LM B=1 decode step vs backbone over {S + 1} tokens: max abs "
+        print(f"LM B=1 decode step vs backbone over {ds + 1} tokens: max abs "
               f"diff {diff:.4g} = {diff / float(lf.std()):.4f} std "
               f"(tolerance {LM_LOGIT_TOL_STD} std = {tol:.4g}); greedy token "
               f"{'equal' if int(ld.argmax()) == int(lf.argmax()) else 'differs'}")
@@ -1803,7 +1861,7 @@ def serve_lm(np, torch, ops, dev, cfg, prof: bool, check):
     if prof:
         with torch.no_grad():
             out = []
-            profile_window(torch, f"one LM prefill of {B} x {S}",
+            profile_window(torch, f"one LM prefill of {B} x {LM_SEQ}",
                            lambda: out.extend(tf.prefill(model, cfg, toks,
                                                          max_seq)))
             logits, caches = out
@@ -1813,7 +1871,7 @@ def serve_lm(np, torch, ops, dev, cfg, prof: bool, check):
     row.update(prefill_ms=float(np.median(pf_ms)),
                decode_p50_ms=float(np.percentile(dec_ms, 50)),
                decode_p99_ms=float(np.percentile(dec_ms, 99)),
-               serve_peak_gb=peak_gb)
+               serve_peak_gb=peak_gb, cache_gb=cache_gb)
     del model
     torch.cuda.empty_cache()
     return row, pf_launches
@@ -3367,15 +3425,17 @@ def profile_flash_backward(torch, dev, cfg):
 
 
 def train_lm_full(np, torch, ops, dev, prof: bool = False, cfg=None,
-                  B: int = LM_TRAIN_BATCH):
+                  B: int = LM_TRAIN_BATCH, check_layers=None):
     """Phase 11 (b): gemma2-2b (or ``cfg``) at its published widths,
     LM_TRAIN_STEPS steps of make_train_step at B x LM_TRAIN_SEQ on the
     launcher's batches, the counters set to 0 just before and read just
-    after (each layer: one forward launch, one in the remat recompute, one
-    backward); each step timed, the last split into gradients, global norm
-    and update; with ``prof`` one more step under torch.profiler. Then at
-    B = 1, S = LM_CHECK_SEQ each parameter's gradient through the kernels
-    against the einsum attention's. Returns the launches."""
+    after (each layer, the MTP layer too: one forward launch, one in the
+    remat recompute, one backward); each step timed, the last split into
+    gradients, global norm and update; with ``prof`` one more step under
+    torch.profiler. Then at B = 1, S = LM_CHECK_SEQ each parameter's
+    gradient through the kernels against the einsum attention's (an MoE
+    model's over its first ``check_layers`` layers, all where None, on
+    held experts). Returns the launches."""
     import dataclasses as dc
 
     from repro_torch.configs import gemma2_2b, lm_common
@@ -3427,7 +3487,9 @@ def train_lm_full(np, torch, ops, dev, prof: bool = False, cfg=None,
         e[3].synchronize()
         step_ms.append(e[0].elapsed_time(e[3]))
         hist.append({k: float(v) for k, v in m.items()})
-        print(f"LM train step {s}: loss {hist[-1]['loss']:.6f} aux_loss "
+        mtp = (f" lm_loss {hist[-1]['lm_loss']:.6f} mtp_loss "
+               f"{hist[-1]['mtp_loss']:.6f}" if cfg.mtp_depth else "")
+        print(f"LM train step {s}: loss {hist[-1]['loss']:.6f}{mtp} aux_loss "
               f"{hist[-1]['aux_loss']:.6f} grad_norm "
               f"{hist[-1]['grad_norm']:.6f} lr {hist[-1]['lr']:.3g} "
               f"({step_ms[-1]:.3f} ms)")
@@ -3446,8 +3508,11 @@ def train_lm_full(np, torch, ops, dev, prof: bool = False, cfg=None,
         fail(f"an LM training step's loss or norm is not finite: {hist}")
     if int(state["opt"]["step"]) != n:
         fail(f"opt.step is {int(state['opt']['step'])} after {n} steps")
-    want = {"flash_attention": 2 * cfg.n_layers * n,
-            "flash_attention_backward": cfg.n_layers * n}
+    # Each attention layer, the MTP layer's too (the port runs it under
+    # remat like the others), launches the forward twice a step.
+    n_attn = cfg.n_layers + (1 if cfg.mtp_depth else 0)
+    want = {"flash_attention": 2 * n_attn * n,
+            "flash_attention_backward": n_attn * n}
     for name, count in want.items():
         if launches[name] != count:
             fail(f"LM training launched {name} {launches[name]} times, not "
@@ -3472,7 +3537,7 @@ def train_lm_full(np, torch, ops, dev, prof: bool = False, cfg=None,
     # taking the kernel run's experts in the same order of calls (remat's
     # recomputations included).
     one = train_launch.synth_lm_batch(cfg, 1, LM_CHECK_SEQ, 99, dev)
-    if cfg.moe:
+    if cfg.moe and check_layers:
         gk = loop.value_and_grad(loss, state["params"], one)[2]
         ge = loop.value_and_grad(
             lambda p, b: tf.loss_fn(p, dc.replace(cfg, attn_impl="einsum"),
@@ -3486,7 +3551,7 @@ def train_lm_full(np, torch, ops, dev, prof: bool = False, cfg=None,
               f"layers, routing freely: worst relative L2 {free:.4g} "
               f"(not held; see MOE_CHECK_LAYERS)")
         del gk, ge
-        cfg = dc.replace(cfg, n_layers=MOE_CHECK_LAYERS)
+        cfg = dc.replace(cfg, n_layers=check_layers)
 
         def loss(p, b):
             return tf.loss_fn(p, cfg, b["tokens"], b["labels"])
@@ -3515,10 +3580,14 @@ def train_lm_full(np, torch, ops, dev, prof: bool = False, cfg=None,
                           / torch.linalg.vector_norm(b).clamp(min=1e-30))
     worst = max(rel, key=rel.get)
     med_rel = float(np.median(list(rel.values())))
+    first = next(f"layers/0/attn/{w}" for w in ("wq", "w_uq")
+                 if f"layers/0/attn/{w}" in rel)
     print(f"LM B=1 S={LM_CHECK_SEQ} gradients, kernels vs einsum attention: "
-          f"relative L2 error median {med_rel:.4g}, worst {rel[worst]:.4g} ({worst}; tolerance {LM_GRAD_REL_L2}); "
-          f"embed {rel['embed']:.4g}, layer 0 wq "
-          f"{rel['layers/0/attn/wq']:.4g}")
+          f"relative L2 error median {med_rel:.4g}, worst {rel[worst]:.4g} "
+          f"({worst}; tolerance {LM_GRAD_REL_L2}); embed {rel['embed']:.4g}, "
+          f"{first} {rel[first]:.4g}"
+          + (f", mtp/proj {rel['mtp/proj']:.4g}" if "mtp/proj" in rel
+             else ""))
     if rel[worst] > LM_GRAD_REL_L2:
         fail(f"the kernels' gradient of {worst} differs from the einsum "
              f"attention's by {rel[worst]:.4g} (relative L2)")
@@ -3528,6 +3597,7 @@ def train_lm_full(np, torch, ops, dev, prof: bool = False, cfg=None,
                           update_ms=update, train_peak_gb=peak_gb,
                           train_losses=[h["loss"] for h in hist],
                           train_aux=[h["aux_loss"] for h in hist],
+                          train_mtp=[h.get("mtp_loss") for h in hist],
                           grad_rel_l2_worst=rel[worst])
 
 
@@ -3651,6 +3721,149 @@ MOE_LAUNCH_FAILS = (2, 4)      # before and after the checkpoint at 3
 MOE_CHECK_LAYERS = 1
 
 
+# The plain twins hold (B, H, Sq, Sk) f32 logits; above this many bytes
+# they run a batch row and a block of heads at a time (``plain_attention``).
+PLAIN_LOGIT_BYTES = 4e9
+
+
+def plain_attention(torch, q, k, v, do, kw):
+    """The plain twins on the card in f32: (o, lse) of
+    ``ref.flash_attention_fwd_stats`` and, with ``do``, (dq, dk, dv) of
+    ``ref.flash_attention_bwd`` from that o and lse. Where the call's
+    logits would take more than PLAIN_LOGIT_BYTES, one batch row and a
+    block of whole GQA groups of heads at a time (each head's arithmetic
+    is its own)."""
+    from repro_torch.kernels import ref
+
+    B, Hq, Sq, _ = q.shape
+    Sk, g = k.shape[2], Hq // k.shape[1]
+    if B * Hq * Sq * Sk * 4 <= PLAIN_LOGIT_BYTES:
+        po, plse = ref.flash_attention_fwd_stats(q.float(), k.float(),
+                                                 v.float(), **kw)
+        want = None if do is None else ref.flash_attention_bwd(
+            q.float(), k.float(), v.float(), po, plse, do.float(), **kw)
+        return po, plse, want
+    step = max(g, int(PLAIN_LOGIT_BYTES // (Sq * Sk * 4)) // g * g)
+    po = torch.empty(q.shape, device=q.device)
+    plse = torch.empty(q.shape[:3], device=q.device)
+    want = None if do is None else [torch.empty(t.shape, device=q.device)
+                                    for t in (q, k, v)]
+    for b in range(B):
+        for h0 in range(0, Hq, step):
+            hq = slice(h0, min(h0 + step, Hq))
+            hk = slice(hq.start // g, hq.stop // g)
+            qs, ks, vs = (t[b:b + 1, hs].float()
+                          for t, hs in ((q, hq), (k, hk), (v, hk)))
+            o_, l_ = ref.flash_attention_fwd_stats(qs, ks, vs, **kw)
+            po[b:b + 1, hq], plse[b:b + 1, hq] = o_, l_
+            if do is not None:
+                grads = ref.flash_attention_bwd(
+                    qs, ks, vs, o_, l_, do[b:b + 1, hq].float(), **kw)
+                for w, gr, hs in zip(want, grads, (hq, hk, hk)):
+                    w[b:b + 1, hs] = gr
+            del qs, ks, vs, o_, l_
+    return po, plse, want
+
+
+def check_flash_cases(np, torch, ops, dev, gen, D, cases, pad_v=None):
+    """Both attention kernels at head_dim D against their plain twins at
+    phase 7's bar (rtol / atol 2e-2) and phase 11's (FA_BWD_TOL of each
+    gradient's scale), each case twice and bit-equal. ``cases``: (name,
+    B, Hq, Hkv, Sq, Sk, causal, window, softcap, layout, backward too);
+    layout "bshd" passes (B, S, H, D) views, "pad" zeroes v's and dO's
+    columns from ``pad_v`` on, as MLA pads v (o's and dv's there must be
+    exactly 0). A softcap case's control: the kernels without it fail the
+    bars. Returns (forward max abs err, backward max abs err, backward
+    worst error of scale)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    f_err = b_abs = b_worst = 0.0
+    for name, B, Hq, Hkv, Sq, Sk, causal, win, c, layout, bwd in cases:
+        q, k, v = attn_inputs(torch, gen, dev, B, Hq, Hkv, Sq, Sk, D)
+        do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+        if "pad" in layout:
+            v[..., pad_v:] = 0
+            do[..., pad_v:] = 0
+        if "bshd" in layout:
+            q, k, v, do = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                           for t in (q, k, v, do))
+        kw = dict(causal=causal, window=win, softcap=c)
+        shape = (f"B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Sk={Sk} D={D} window="
+                 f"{win} softcap={c} {layout}").strip()
+        label = f"D={D} ({name}: {shape})"
+        got = ops.flash_attention(q, k, v, **kw)
+        again = ops.flash_attention(q, k, v, **kw)
+        po, plse, want = plain_attention(torch, q, k, v, do if bwd else None,
+                                         kw)
+        torch.cuda.synchronize()
+        e = float((got.float() - po).abs().max())
+        if not torch.allclose(got.float(), po, rtol=2e-2, atol=2e-2):
+            fail(f"flash_attention {label} differs from its plain version: "
+                 f"max abs err {e:.4g}")
+        if not torch.equal(got, again):
+            fail(f"flash_attention {label}: two runs differ")
+        if Sq > Sk and got[:, :, :Sq - Sk].abs().max() != 0:
+            fail(f"flash_attention {label}: a row with no visible key is "
+                 f"not exactly 0")
+        if "pad" in layout and got[..., pad_v:].any():
+            fail(f"flash_attention {label}: o's padded columns are not 0")
+        f_err = max(f_err, e)
+        line = (f"flash_attention {label}: within rtol/atol 2e-2 of plain "
+                f"(max abs err {e:.4g}), two runs bit-equal")
+        if bwd:
+            o, lse = fa.flash_attention_fwd_stats(q, k, v, **kw)
+            if not torch.equal(o, got):
+                fail(f"flash_attention {label}: o differs with lse asked "
+                     f"for")
+            live = torch.isfinite(plse)
+            lse_err = float((lse - plse)[live].abs().max())
+            if not torch.equal(live, torch.isfinite(lse)) or lse_err > 1e-2:
+                fail(f"flash_attention {label}: lse differs from the plain "
+                     f"twin's ({lse_err:.4g})")
+            g = ops.flash_attention_backward(q, k, v, o, lse, do, **kw)
+            g2 = ops.flash_attention_backward(q, k, v, o, lse, do, **kw)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(g, g2)):
+                fail(f"flash_attention_backward {label}: two runs differ")
+            if "pad" in layout and g[2][..., pad_v:].any():
+                fail(f"flash_attention_backward {label}: dv's padded "
+                     f"columns are not 0")
+            errs = ref.flash_attention_bwd_errors(g, want, q, k, v, do,
+                                                 D ** -0.5)
+            if max(errs) > FA_BWD_TOL:
+                fail(f"flash_attention_backward {label} differs from its "
+                     f"plain twin: {errs} of the gradients' scales "
+                     f"(tolerance {FA_BWD_TOL})")
+            b_worst = max(b_worst, max(errs))
+            b_abs = max(b_abs, max(float((a.float() - w).abs().max())
+                                   for a, w in zip(g, want)))
+            line += (f"; backward within {[round(x, 5) for x in errs]} of "
+                     f"the scales (tolerance {FA_BWD_TOL}), two runs "
+                     f"bit-equal, lse within {lse_err:.3g}")
+            if c:
+                # Control: kernels that dropped the softcap fail the bars.
+                nocap = ops.flash_attention(q, k, v, causal=causal,
+                                            window=win).float()
+                nb = fa.flash_attention_backward(q, k, v, o, lse, do,
+                                                 causal=causal, window=win)
+                ne = ref.flash_attention_bwd_errors(nb, want, q, k, v, do,
+                                                    D ** -0.5)
+                if torch.allclose(nocap, po, rtol=2e-2, atol=2e-2) or (
+                        max(ne) <= FA_BWD_TOL):
+                    fail(f"flash_attention {label}: the kernels without the "
+                         f"softcap pass the checks")
+                line += (f"; control: without the softcap forward max abs "
+                         f"err {float((nocap - po).abs().max()):.4g}, "
+                         f"backward {[round(x, 4) for x in ne]}")
+                del nocap, nb
+            del o, lse, g, g2
+        print(line)
+        del q, k, v, do, got, again, po, plse, want
+        torch.cuda.empty_cache()
+    return f_err, b_abs, b_worst
+
+
 def check_flash_64(np, torch, ops, dev, cfg):
     """flash_attention and flash_attention_backward at head_dim 64 (the
     kernels' D = 64 builds) against their plain versions at phase 7's bar
@@ -3681,83 +3894,9 @@ def check_flash_64(np, torch, ops, dev, cfg):
              ("Sq>Sk", 1, 700, 300, True, 0, None, "", True),
              ("ragged", 1, 3001, 3001, True, 0, 50.0, "", True),
              ("(B, S, H, D)", 2, 500, 500, True, 64, None, "bshd", True)]
-    f_err = b_abs = b_worst = 0.0
-    for name, B, Sq, Sk, causal, win, c, layout, bwd in cases:
-        q, k, v = attn_inputs(torch, gen, dev, B, Hq, Hkv, Sq, Sk, D)
-        do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
-        if layout == "bshd":
-            q, k, v, do = (t.transpose(1, 2).contiguous().transpose(1, 2)
-                           for t in (q, k, v, do))
-        kw = dict(causal=causal, window=win, softcap=c)
-        shape = (f"B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Sk={Sk} D={D} window="
-                 f"{win} softcap={c} {layout}").strip()
-        got = ops.flash_attention(q, k, v, **kw)
-        again = ops.flash_attention(q, k, v, **kw)
-        po, plse = ref.flash_attention_fwd_stats(q.float(), k.float(),
-                                                 v.float(), **kw)
-        torch.cuda.synchronize()
-        e = float((got.float() - po).abs().max())
-        if not torch.allclose(got.float(), po, rtol=2e-2, atol=2e-2):
-            fail(f"flash_attention D=64 ({name}: {shape}) differs from its "
-                 f"plain version: max abs err {e:.4g}")
-        if not torch.equal(got, again):
-            fail(f"flash_attention D=64 ({name}: {shape}): two runs differ")
-        if Sq > Sk and got[:, :, :Sq - Sk].abs().max() != 0:
-            fail(f"flash_attention D=64 ({name}): a row with no visible key "
-                 f"is not exactly 0")
-        f_err = max(f_err, e)
-        line = (f"flash_attention D=64 {name} ({shape}): within rtol/atol "
-                f"2e-2 of plain (max abs err {e:.4g}), two runs bit-equal")
-        if bwd:
-            o, lse = fa.flash_attention_fwd_stats(q, k, v, **kw)
-            if not torch.equal(o, got):
-                fail(f"flash_attention D=64 ({name}): o differs with lse "
-                     f"asked for")
-            live = torch.isfinite(plse)
-            lse_err = float((lse - plse)[live].abs().max())
-            if not torch.equal(live, torch.isfinite(lse)) or lse_err > 1e-2:
-                fail(f"flash_attention D=64 ({name}): lse differs from the "
-                     f"plain twin's ({lse_err:.4g})")
-            g = ops.flash_attention_backward(q, k, v, o, lse, do, **kw)
-            g2 = ops.flash_attention_backward(q, k, v, o, lse, do, **kw)
-            want = ref.flash_attention_bwd(q.float(), k.float(), v.float(),
-                                           po, plse, do.float(), **kw)
-            torch.cuda.synchronize()
-            if not all(torch.equal(a, b) for a, b in zip(g, g2)):
-                fail(f"flash_attention_backward D=64 ({name}): two runs "
-                     f"differ")
-            errs = ref.flash_attention_bwd_errors(g, want, q, k, v, do,
-                                                 D ** -0.5)
-            if max(errs) > FA_BWD_TOL:
-                fail(f"flash_attention_backward D=64 ({name}: {shape}) "
-                     f"differs from its plain twin: {errs} of the "
-                     f"gradients' scales (tolerance {FA_BWD_TOL})")
-            b_worst = max(b_worst, max(errs))
-            b_abs = max(b_abs, max(float((a.float() - w).abs().max())
-                                   for a, w in zip(g, want)))
-            line += (f"; backward within {[round(x, 5) for x in errs]} of "
-                     f"the scales (tolerance {FA_BWD_TOL}), two runs "
-                     f"bit-equal, lse within {lse_err:.3g}")
-            if c:
-                # Control: kernels that dropped the softcap fail the bars.
-                nocap = ops.flash_attention(q, k, v, causal=causal,
-                                            window=win).float()
-                nb = fa.flash_attention_backward(q, k, v, o, lse, do,
-                                                 causal=causal, window=win)
-                ne = ref.flash_attention_bwd_errors(nb, want, q, k, v, do,
-                                                    D ** -0.5)
-                if torch.allclose(nocap, po, rtol=2e-2, atol=2e-2) or (
-                        max(ne) <= FA_BWD_TOL):
-                    fail(f"flash_attention D=64 ({name}): the kernels "
-                         f"without the softcap pass the checks")
-                line += (f"; control: without the softcap forward max abs "
-                         f"err {float((nocap - po).abs().max()):.4g}, "
-                         f"backward {[round(x, 4) for x in ne]}")
-                del nocap, nb
-            del o, lse, g, g2, want
-        print(line)
-        del q, k, v, do, got, again, po, plse
-        torch.cuda.empty_cache()
+    f_err, b_abs, b_worst = check_flash_cases(
+        np, torch, ops, dev, gen, D,
+        [(n, B, Hq, Hkv, *rest) for n, B, *rest in cases])
 
     def sdpa(q, k, v, do=None):
         try:
@@ -3866,12 +4005,15 @@ def free_moe_diffs(torch, tf, model, cfg, toks, batched_last, S):
     flips = sum(int((a != b).any(-1).sum()) for a, b in zip(rk, re))
     std = float(lk.std())
     d_e = float((lk - le).abs().max()) / std
-    d_b = float((lk - batched_last).abs().max()) / std
+    d_b = (None if batched_last is None
+           else float((lk - batched_last).abs().max()) / std)
+    batched = ("" if d_b is None else f"kernel at B=1 vs its row at "
+               f"B={LM_BATCH} {d_b:.4f} std; ")
     print(f"LM B=1 over all {cfg.n_layers} layers, routing freely: last "
           f"logits kernel vs einsum attention max abs diff {d_e:.4f} std; "
-          f"kernel at B=1 vs its row at B={LM_BATCH} {d_b:.4f} std; the "
-          f"einsum path's top-{cfg.moe.top_k} differs from the kernel "
-          f"path's for {flips} of {cfg.n_layers * S} (token, layer) pairs")
+          f"{batched}the einsum path's top-{cfg.moe.top_k} differs from the "
+          f"kernel path's for {flips} of {len(rk) * S} (token, MoE layer) "
+          f"pairs")
 
 
 def check_moe_layer(np, torch, dev, cfg):
@@ -3963,20 +4105,18 @@ def check_moe_layer(np, torch, dev, cfg):
     return drops_b
 
 
-def train_moe_launcher(np, torch, ops, dev):
-    """Phase 12 (c): launch/train.py --arch granite-moe-3b-a800m on the
-    card at smoke widths with head_dim 64 and bf16 compute (what the
-    kernels take), a failure injected before the checkpoint at step 3 and
-    one after it; every restore read back bit for bit."""
-    import dataclasses as dc
+def train_launcher(np, torch, ops, dev, mod, card_smoke, label):
+    """launch/train.py --arch <mod.ARCH> on the card at the smoke widths
+    ``card_smoke(mod.smoke_config())`` gives (a kernel head_dim, bf16
+    compute), a failure injected before the checkpoint at step 3 and one
+    after it; every restore read back bit for bit. Both attention kernels
+    must have launched."""
     import tempfile
 
-    from repro_torch.configs import granite_moe_3b_a800m as granite
     from repro_torch.launch import train as train_launch
 
-    orig = granite.smoke_config
-    granite.smoke_config = lambda: dc.replace(orig(), head_dim=64,
-                                              compute_dtype="bfloat16")
+    orig = mod.smoke_config
+    mod.smoke_config = lambda: card_smoke(orig())
     left = set(MOE_LAUNCH_FAILS)
 
     def hook(s):
@@ -3989,18 +4129,21 @@ def train_moe_launcher(np, torch, ops, dev):
         with checked_restores(torch) as checked, \
                 tempfile.TemporaryDirectory() as d:
             out = train_launch.main(
-                ["--arch", granite.ARCH, "--steps", "6", "--batch", "4",
+                ["--arch", mod.ARCH, "--steps", "6", "--batch", "4",
                  "--seq", "256", "--ckpt-every", "3", "--ckpt-dir", d,
                  "--device", str(dev)], fail_hook=hook)
     finally:
-        granite.smoke_config = orig
+        mod.smoke_config = orig
     launches = ops.launches()
     h = out["history"]
-    print(f"launch/train.py --arch {granite.ARCH} on the card: 6 steps, "
-          f"{out['failures']} failures at {MOE_LAUNCH_FAILS}, loss "
+    print(f"launch/train.py --arch {mod.ARCH} on the card ({label}): 6 "
+          f"steps, {out['failures']} failures at {MOE_LAUNCH_FAILS}, loss "
           f"{h[0]['loss']:.4f} -> {h[-1]['loss']:.4f}, aux "
-          f"{h[-1]['aux_loss']:.4f}; restores read back bit for bit: "
-          f"{checked}; launches {launches}")
+          f"{h[-1]['aux_loss']:.4f}"
+          + (f", mtp_loss {h[-1]['mtp_loss']:.4f}" if "mtp_loss" in h[-1]
+             else "")
+          + f"; restores read back bit for bit: {checked}; launches "
+          f"{launches}")
     if out["failures"] != 2 or left or int(out["state"]["opt"]["step"]) != 6:
         fail(f"launch/train.py saw {out['failures']} failures and ended at "
              f"step {int(out['state']['opt']['step'])}")
@@ -4032,12 +4175,18 @@ def moe_path(np, torch, ops, dev, prof: bool = False):
               f"{time.perf_counter() - t0:.1f} s")
         return {}
 
-    served, pf_launches = serve_lm(np, torch, ops, dev, cfg, prof, check)
+    served, pf_launches = serve_lm(np, torch, ops, dev, cfg, prof, check,
+                                   check_layers=MOE_CHECK_LAYERS)
     torch.cuda.empty_cache()
     train_launches, trained = train_lm_full(np, torch, ops, dev, prof, cfg,
-                                            MOE_TRAIN_BATCH)
+                                            MOE_TRAIN_BATCH,
+                                            MOE_CHECK_LAYERS)
     torch.cuda.empty_cache()
-    launcher = train_moe_launcher(np, torch, ops, dev)
+    launcher = train_launcher(
+        np, torch, ops, dev, granite,
+        lambda c: dataclasses.replace(c, head_dim=64,
+                                      compute_dtype="bfloat16"),
+        "head_dim 64, bf16 compute")
     fwd, bwd = checks["fwd"], checks["bwd"]
     fwd.update({f"granite_{k}": v for k, v in served.items()},
                granite_prefill_launches=pf_launches["flash_attention"],
@@ -4049,6 +4198,252 @@ def moe_path(np, torch, ops, dev, prof: bool = False):
                granite_launcher_launches=launcher[
                    "flash_attention_backward"])
     print(f"phase 12 took {time.perf_counter() - t0:.1f} s")
+    return fwd, bwd
+
+
+# Phase 13: deepseek-v3-671b at its published widths, cut in depth
+# (configs/deepseek_v3_671b: serve_card_config, 4 layers with all 256
+# experts, 30.2 GB in bf16; train_card_config, 2 layers and MTP with 32
+# experts, 46.6 GB of state), bf16, random weights from SEED. Serving and
+# training as phases 7 and 11 (LM_BATCH x LM_SEQ prefills, LM_DECODE
+# decode steps, LM_TRAIN_STEPS steps at MLA_TRAIN_BATCH x LM_TRAIN_SEQ).
+# The B = 1 model checks run over MLA_CHECK_SEQ tokens: the einsum
+# attention's (1, 128, S, S) f32 logits take 2.1 GB there, 34 GB at 8192;
+# all layers, the MoE layer on held experts. The decode step's check runs
+# over a whole MoE chunk (4096 tokens; ``serve_lm`` says why).
+MLA_TRAIN_BATCH = 4
+MLA_CHECK_SEQ = 2048
+MLA_EDGE_HEADS = 16        # heads of the D = 192 edge cases
+# MLA's work a visible (q, k) pair and head: q.k over nope + rope = 192
+# columns and p.v over v's 128, forward; the backward's five products
+# (q.k, do.v, p^T.do, ds^T.q, ds.k) over the same widths. The padded
+# kernel spends 4 * 192 and 14 * 192 (its dQ pass recomputes q.k, do.v).
+MLA_QK, MLA_V = 192, 128
+MLA_FWD_FLOPS = 2 * (MLA_QK + MLA_V)
+MLA_BWD_FLOPS = 2 * (3 * MLA_QK + 2 * MLA_V)
+
+
+def mla_attn_bound(B, H, S, backward: bool, flops_per_pair: int):
+    """Least time in ms of MLA's causal attention at (B, H, S):
+    ``flops_per_pair`` a visible pair and head at the bf16 tensor-core
+    peak, against the bytes MLA needs moved (q and k at 192 columns, v, o
+    and do at 128, lse; the backward's dq, dk at 192 and dv at 128
+    written once)."""
+    pairs = B * H * live_pairs(S, S, True, 0)
+    rows = B * H * S
+    cols = (2 * MLA_QK + 2 * MLA_V if not backward
+            else 4 * MLA_QK + 4 * MLA_V)
+    nbytes = 2 * rows * cols + (4 * rows if backward else 0)
+    t_ops = flops_per_pair * pairs / BF16_FLOP_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def sdpa_backends(torch, q, k, v, do=None):
+    """``F.scaled_dot_product_attention(is_causal=True)`` (its backward by
+    ``torch.autograd.grad`` with ``do``) by each backend that takes the
+    inputs → {backend: ms}; a backend that refuses them is left out."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    out = {}
+    for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+               SDPBackend.CUDNN_ATTENTION):
+        try:
+            with sdpa_kernel(be):
+                if do is None:
+                    ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=True), blocks=5, per_block=2)
+                else:
+                    qs, ks, vs = (t.detach().requires_grad_()
+                                  for t in (q, k, v))
+                    o = F.scaled_dot_product_attention(qs, ks, vs,
+                                                       is_causal=True)
+                    ms = cuda_ms(torch, lambda: torch.autograd.grad(
+                        o, (qs, ks, vs), do[..., :v.shape[-1]],
+                        retain_graph=True), blocks=5, per_block=2)
+                    del o, qs, ks, vs
+        except RuntimeError as e:   # this backend refuses these inputs
+            print(f"scaled_dot_product_attention {be.name} refused "
+                  f"q {tuple(q.shape)}, v {tuple(v.shape)}: "
+                  f"{str(e).splitlines()[0][:160]}")
+            continue
+        out[be.name] = ms
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_flash_192(np, torch, ops, dev, cfg):
+    """flash_attention and flash_attention_backward at head_dim 192 (MLA:
+    q.k over 128 + 64 columns, v padded from 128, n_kv = n_heads) against
+    their plain twins at phase 7's and phase 11's bars, each twice and
+    bit-equal: the serving layer's forward (LM_BATCH x LM_SEQ, 128 heads),
+    the training layer's backward (LM_BATCH x LM_TRAIN_SEQ), then at
+    MLA_EDGE_HEADS heads a softcap of 50 with logits of std
+    ATTN_LOGIT_STD (and its control), a window of 129, Sq < Sk, Sq > Sk,
+    S one off the forward's key tile (TILE_N[192]) and the backward's
+    tiles, a ragged length, (B, S, H, D) views and one case with v not
+    padded. Then timed beside MLA's bounds (MLA_FWD_FLOPS / MLA_BWD_FLOPS
+    a pair, and the padded work beside), the plain twins at B = 1 and
+    MLA_EDGE_HEADS heads and SDPA by backend, with v padded and at 128.
+    Returns (forward entries, backward entries)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 26)
+    H, D, he = cfg.n_heads, MLA_QK, MLA_EDGE_HEADS
+    S, St = LM_SEQ, LM_TRAIN_SEQ
+    bn, bt = fa.TILE_N[D], fa.BWD_TILE[D]
+    p = "pad"
+    cases = [("serving layer", LM_BATCH, H, H, S, S, True, 0, None, p,
+              False),
+             ("training layer", LM_BATCH, H, H, St, St, True, 0, None, p,
+              True),
+             ("softcap 50", 1, he, he, 2048, 2048, True, 0, 50.0, p, True),
+             ("window 129", 1, he, he, 1500, 1500, True, 129, None, p, True),
+             ("Sq<Sk", 2, he, he, 300, 1000, True, 0, None, p, True),
+             ("Sq>Sk", 1, he, he, 700, 300, True, 0, None, p, True),
+             ("S = 3 key tiles - 1", 1, he, he, 3 * bn - 1, 3 * bn - 1, True,
+              0, None, p, True),
+             ("S = 3 key tiles + 1", 1, he, he, 3 * bn + 1, 3 * bn + 1, True,
+              bn, None, p, True),
+             ("S = the dQ block + 1", 1, he, he, fa.BWD_QROWS + 1,
+              fa.BWD_QROWS + 1, True, bt - 1, 50.0, p, True),
+             ("ragged", 1, he, he, 3001, 3001, True, 0, None, p, True),
+             ("(B, S, H, D)", 2, he, he, 500, 500, True, 64, None,
+              "pad bshd", True),
+             ("v not padded", 1, he, he, 777, 777, True, 0, None, "", True)]
+    f_err, b_abs, b_worst = check_flash_cases(np, torch, ops, dev, gen, D,
+                                              cases, pad_v=MLA_V)
+
+    def fastest(t):
+        return min(t, key=t.get) if t else None
+
+    B = LM_BATCH
+    q, k, v = attn_inputs(torch, gen, dev, B, H, H, S, S, D)
+    v[..., MLA_V:] = 0
+    lib, lib128 = (sdpa_backends(torch, q, k, v),
+                   sdpa_backends(torch, q, k, v[..., :MLA_V].contiguous()))
+    fwd = dict(d192_ms=cuda_ms(torch, lambda: ops.flash_attention(q, k, v),
+                               blocks=5, per_block=2),
+               d192_bound_ms=mla_attn_bound(B, H, S, False,
+                                            MLA_FWD_FLOPS)[0],
+               d192_padded_bound_ms=mla_attn_bound(B, H, S, False,
+                                                   4 * D)[0],
+               d192_library_ms=lib.get(fastest(lib)),
+               d192_library_backend=fastest(lib),
+               d192_library_all_ms=lib,
+               d192_library_v128_ms=lib128,
+               d192_plain_b1_ms=cuda_ms(torch, lambda: ops.flash_attention(
+                   q[:1, :he], k[:1, :he], v[:1, :he], impl="ref"), blocks=2,
+                   per_block=1),
+               d192_bound_b1_ms=mla_attn_bound(1, he, S, False,
+                                               MLA_FWD_FLOPS)[0],
+               d192_max_abs_err=f_err,
+               d192_shape=f"B={B} Hq=Hkv={H} S={S} D={D} (v padded from "
+                          f"{MLA_V}), {cfg.name}'s serving layer; plain_b1 "
+                          f"at B=1 and {he} heads")
+    del q, k, v
+    torch.cuda.empty_cache()
+    q, k, v = attn_inputs(torch, gen, dev, B, H, H, St, St, D)
+    v[..., MLA_V:] = 0
+    do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+    do[..., MLA_V:] = 0
+    o, lse = fa.flash_attention_fwd_stats(q, k, v)
+    lib = sdpa_backends(torch, q, k, v, do)
+    lib128 = sdpa_backends(torch, q, k, v[..., :MLA_V].contiguous(), do)
+    bwd = dict(d192_ms=cuda_ms(torch, lambda: fa.flash_attention_backward(
+                   q, k, v, o, lse, do), blocks=5, per_block=2),
+               d192_bound_ms=mla_attn_bound(B, H, St, True,
+                                            MLA_BWD_FLOPS)[0],
+               d192_padded_bound_ms=mla_attn_bound(B, H, St, True,
+                                                   10 * D)[0],
+               d192_fwd_lse_ms=cuda_ms(
+                   torch, lambda: fa.flash_attention_fwd_stats(q, k, v),
+                   blocks=5, per_block=2),
+               d192_fwd_bound_ms=mla_attn_bound(B, H, St, False,
+                                                MLA_FWD_FLOPS)[0],
+               d192_plain_b1_ms=cuda_ms(
+                   torch, lambda: ref.flash_attention_bwd(
+                       q[:1, :he], k[:1, :he], v[:1, :he], o[:1, :he],
+                       lse[:1, :he].contiguous(), do[:1, :he]),
+                   blocks=2, per_block=1),
+               d192_library_ms=lib.get(fastest(lib)),
+               d192_library_backend=fastest(lib),
+               d192_library_all_ms=lib,
+               d192_library_v128_ms=lib128,
+               d192_max_abs_err=b_abs, d192_max_err_of_scale=b_worst,
+               d192_shape=f"B={B} Hq=Hkv={H} S={St} D={D} (v padded from "
+                          f"{MLA_V}), {cfg.name}'s training layer; "
+                          f"plain_b1 at B=1 and {he} heads")
+    del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+    for label, t in (("flash_attention", fwd),
+                     ("flash_attention_backward", bwd)):
+        print(f"{label} D=192 at {t['d192_shape']}: kernel "
+              f"{t['d192_ms']:.4f} ms; MLA's bound {t['d192_bound_ms']:.4f} "
+              f"ms (operations), {100 * t['d192_bound_ms'] / t['d192_ms']:.1f}"
+              f" % of its rate; the padded work's bound "
+              f"{t['d192_padded_bound_ms']:.4f} ms "
+              f"({100 * t['d192_padded_bound_ms'] / t['d192_ms']:.1f} %); "
+              f"scaled_dot_product_attention by backend, v padded "
+              f"{t['d192_library_all_ms']} ms, v at {MLA_V} "
+              f"{t['d192_library_v128_ms']} ms; plain at B=1, {he} heads "
+              f"{t['d192_plain_b1_ms']:.4f} ms")
+    print(f"flash_attention with lse at the training layer "
+          f"{bwd['d192_fwd_lse_ms']:.4f} ms (MLA's bound "
+          f"{bwd['d192_fwd_bound_ms']:.4f} ms)")
+    return fwd, bwd
+
+
+def mla_path(np, torch, ops, dev, prof: bool = False):
+    """Phase 13: deepseek-v3-671b. The D = 192 kernels checked and timed
+    (``check_flash_192``), the serving cut served (``serve_lm``; the B = 1
+    checks over MLA_CHECK_SEQ tokens and all 4 layers), the training cut
+    trained (``train_lm_full`` at MLA_TRAIN_BATCH, its gradient check over
+    both layers and MTP), then the launcher at smoke widths with q.k at
+    128 + 64 in bf16. Returns the D = 192 entries of the two attention
+    rows with the launches of the prefills and the steps."""
+    from repro_torch.configs import deepseek_v3_671b as deepseek
+
+    t0 = time.perf_counter()
+    cfg = deepseek.serve_card_config()
+    checks = {}
+
+    def check():
+        checks["fwd"], checks["bwd"] = check_flash_192(np, torch, ops, dev,
+                                                       cfg)
+        print(f"phase 13's kernel checks and timings took "
+              f"{time.perf_counter() - t0:.1f} s")
+        return {}
+
+    served, pf_launches = serve_lm(np, torch, ops, dev, cfg, prof, check,
+                                   check_seq=MLA_CHECK_SEQ)
+    torch.cuda.empty_cache()
+    train_launches, trained = train_lm_full(
+        np, torch, ops, dev, prof, deepseek.train_card_config(),
+        MLA_TRAIN_BATCH)
+    torch.cuda.empty_cache()
+    m = deepseek.smoke_config().mla
+    launcher = train_launcher(
+        np, torch, ops, dev, deepseek,
+        lambda c: dataclasses.replace(
+            c, compute_dtype="bfloat16",
+            mla=dataclasses.replace(m, qk_nope_head_dim=128,
+                                    qk_rope_head_dim=64)),
+        "q.k 128 + 64, bf16 compute")
+    fwd, bwd = checks["fwd"], checks["bwd"]
+    fwd.update({f"deepseek_{k}": v for k, v in served.items()},
+               deepseek_prefill_launches=pf_launches["flash_attention"],
+               deepseek_train_launches=train_launches["flash_attention"])
+    bwd.update({f"deepseek_{k}": v for k, v in trained.items()},
+               deepseek_train_launches=train_launches[
+                   "flash_attention_backward"],
+               deepseek_launcher_launches=launcher[
+                   "flash_attention_backward"])
+    print(f"phase 13 took {time.perf_counter() - t0:.1f} s")
     return fwd, bwd
 
 
@@ -4157,6 +4552,14 @@ def main() -> None:
         print(f"chip_smoke --moe-only took "
               f"{time.perf_counter() - T_START:.1f} s")
         return
+    if "--mla-only" in sys.argv[1:]:
+        # Phases 1-2 and phase 13 alone: MLA and deepseek-v3-671b.
+        fwd, bwd = mla_path(np, torch, ops, dev, "--profile" in sys.argv[1:])
+        print(json.dumps({"flash_attention": fwd,
+                          "flash_attention_backward": bwd}))
+        print(f"chip_smoke --mla-only took "
+              f"{time.perf_counter() - T_START:.1f} s")
+        return
     if "--shard-only" in sys.argv[1:]:
         # Phases 1-2 and phase 9 alone: the sharded paths.
         launches, nccl = shard_path(np, torch, ops, dev)
@@ -4209,6 +4612,11 @@ def main() -> None:
     rows["flash_attention"].update(fwd)
     rows["flash_attention_backward"].update(bwd)
     print(f"moe_path done at {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    fwd, bwd = mla_path(np, torch, ops, dev, prof)
+    rows["flash_attention"].update(fwd)
+    rows["flash_attention_backward"].update(bwd)
+    print(f"mla_path done at {time.perf_counter() - t0:.1f} s")
     kernels = [rows[n] for n in ("rank_join_lookup", "merge_topk",
                                  "topk_score_pruned", "embedding_bag",
                                  "embedding_bag_backward",
@@ -4220,7 +4628,11 @@ def main() -> None:
               + (f"; {k['granite_prefill_launches']} in phase 12's prefills"
                  if "granite_prefill_launches" in k else "")
               + (f"; {k['granite_train_launches']} in phase 12's train steps"
-                 if "granite_train_launches" in k else ""))
+                 if "granite_train_launches" in k else "")
+              + (f"; {k['deepseek_prefill_launches']} in phase 13's prefills"
+                 if "deepseek_prefill_launches" in k else "")
+              + (f"; {k['deepseek_train_launches']} in phase 13's train steps"
+                 if "deepseek_train_launches" in k else ""))
     if prof:
         profile_main_path(np, torch, dev, state["wl"], state["queries"],
                           state["bcfg"])

@@ -2,8 +2,8 @@
 (counterpart of ``repro.configs``).
 
 The same eleven names as the reference. An architecture the port does not
-have yet raises ``NotImplementedError``; an unknown name raises
-``KeyError``, as in the reference.
+have yet (the equivariant GNNs) raises ``NotImplementedError``; an unknown
+name raises ``KeyError``, as in the reference.
 """
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ _ARCHS = {
     "gemma2-2b": "repro_torch.configs.gemma2_2b",
     "starcoder2-3b": "repro_torch.configs.starcoder2_3b",
     "gemma3-27b": "repro_torch.configs.gemma3_27b",
-    "deepseek-v3-671b": None,
+    "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
     "granite-moe-3b-a800m": "repro_torch.configs.granite_moe_3b_a800m",
     "egnn": None,
     "gat-cora": "repro_torch.configs.gat_cora",

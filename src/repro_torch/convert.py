@@ -78,61 +78,78 @@ def _keys(name, tree, want):
 
 def lm_from_numpy(values, cfg: tf.LMConfig, device=None) -> tf.LM:
     """``values`` is the reference's ``transformer.init(...)[0]`` as numpy
-    arrays: ``embed``, ``final_norm``, optional ``lm_head`` and one
-    ``stack_<i>`` per layer group, each array with a leading layers axis.
+    arrays: ``embed``, ``final_norm``, optional ``lm_head``, one
+    ``stack_<i>`` per layer group, each array with a leading layers axis,
+    and with ``mtp_depth`` ``mtp: {proj, layer}`` (one layer, unstacked).
     A dense stack's ``ffn`` holds ``{w_in, w_out, [w_gate]}``, an MoE
-    stack's ``{router, w_gate, w_in, w_out, [shared]}``. Raises where a
-    key set does not match ``cfg``."""
-    tf._check_supported(cfg)
+    stack's ``{router, w_gate, w_in, w_out, [shared]}``; a GQA layer's
+    ``attn`` ``{wq, wk, wv, wo}``, an MLA layer's ``{w_dq, q_norm, w_uq,
+    w_dkv, kv_norm, w_uk, w_uv, wo}``. Raises where a key set does not
+    match ``cfg``."""
     dev = resolve_device(device)
     stacks = cfg.stacks()
     _keys("top-level", values,
           {"embed", "final_norm"} | {f"stack_{i}" for i in range(len(stacks))}
-          | (set() if cfg.tie_embeddings else {"lm_head"}))
+          | (set() if cfg.tie_embeddings else {"lm_head"})
+          | ({"mtp"} if cfg.mtp_depth else set()))
     layer_keys = {"attn_norm", "attn", "ffn_norm", "ffn"} | (
         {"attn_post", "ffn_post"} if cfg.post_norms else set())
+    attn_keys = (set(attn.MLA.NAMES) if cfg.mla
+                 else {"wq", "wk", "wv", "wo"})
     dense_keys = {"w_in", "w_out"} | ({"w_gate"} if cfg.gated_ffn
                                        else set())
     moe_keys = {"router", "w_gate", "w_in", "w_out"} | (
         {"shared"} if cfg.moe and cfg.moe.n_shared else set())
-    for si, (dense, _, _) in enumerate(stacks):
-        st = values[f"stack_{si}"]
-        _keys(f"stack_{si}", st, layer_keys)
-        _keys(f"stack_{si}.attn", st["attn"], {"wq", "wk", "wv", "wo"})
-        _keys(f"stack_{si}.ffn", st["ffn"], dense_keys if dense
-              else moe_keys)
+
+    def check_layer(name, lv, dense):
+        _keys(name, lv, layer_keys)
+        _keys(f"{name}.attn", lv["attn"], attn_keys)
+        _keys(f"{name}.ffn", lv["ffn"], dense_keys if dense else moe_keys)
         if not dense and "shared" in moe_keys:
-            _keys(f"stack_{si}.ffn.shared", st["ffn"]["shared"], dense_keys)
+            _keys(f"{name}.ffn.shared", lv["ffn"]["shared"], dense_keys)
+
+    for si, (dense, _, _) in enumerate(stacks):
+        check_layer(f"stack_{si}", values[f"stack_{si}"], dense)
+    if cfg.mtp_depth:
+        _keys("mtp", values["mtp"], {"proj", "layer"})
+        check_layer("mtp.layer", values["mtp"]["layer"], cfg.moe is None)
 
     def dense_ffn(f):
         return moe.DenseFFN(_tensor(f["w_in"], dev), _tensor(f["w_out"], dev),
                             _tensor(f["w_gate"], dev) if cfg.gated_ffn
                             else None)
 
-    layers = []
-    for lv, dense in zip(_lm_layer_tree(values, cfg)["layers"],
-                         cfg.dense_layers()):
+    def layer(lv, dense):
         a, f = lv["attn"], lv["ffn"]
         ffn = dense_ffn(f) if dense else moe.MoEFFN(
             *(_tensor(f[n], dev) for n in ("router", "w_gate", "w_in",
                                            "w_out")),
             dense_ffn(f["shared"]) if "shared" in f else None)
-        layers.append(tf.Layer(
-            _tensor(lv["attn_norm"], dev),
-            attn.GQA(*(_tensor(a[n], dev) for n in ("wq", "wk", "wv", "wo"))),
+        block = (attn.MLA(*(_tensor(a[n], dev) for n in attn.MLA.NAMES))
+                 if cfg.mla else
+                 attn.GQA(*(_tensor(a[n], dev) for n in ("wq", "wk", "wv",
+                                                         "wo"))))
+        return tf.Layer(
+            _tensor(lv["attn_norm"], dev), block,
             _tensor(lv["ffn_norm"], dev), ffn,
             *((_tensor(lv["attn_post"], dev), _tensor(lv["ffn_post"], dev))
-              if cfg.post_norms else ())))
+              if cfg.post_norms else ()))
+
+    layers = [layer(lv, dense) for lv, dense in zip(
+        _lm_layer_tree(values, cfg)["layers"], cfg.dense_layers())]
+    mtp = (tf.MTP(_tensor(values["mtp"]["proj"], dev),
+                  layer(values["mtp"]["layer"], cfg.moe is None))
+           if cfg.mtp_depth else None)
     return tf.LM(_tensor(values["embed"], dev),
                  _tensor(values["final_norm"], dev), layers,
                  None if cfg.tie_embeddings
-                 else _tensor(values["lm_head"], dev))
+                 else _tensor(values["lm_head"], dev), mtp)
 
 
 def _lm_layer_tree(values, cfg: tf.LMConfig) -> dict:
     """The reference's LM tree of arrays, each ``stack_<i>`` leaf with a
     leading layers axis → ``transformer.param_tree``'s layout, one entry a
-    layer (views, bit for bit)."""
+    layer (views, bit for bit); ``mtp`` as it is."""
     def layer(node, i):
         return {k: layer(v, i) if isinstance(v, dict) else v[i]
                 for k, v in node.items()}
@@ -140,7 +157,7 @@ def _lm_layer_tree(values, cfg: tf.LMConfig) -> dict:
     stacks = [f"stack_{si}" for si in range(len(cfg.stacks()))]
     if not set(stacks) <= set(values):
         raise ValueError(f"an LM tree needs {stacks}, got {sorted(values)}")
-    out = {k: values[k] for k in ("embed", "final_norm", "lm_head")
+    out = {k: values[k] for k in ("embed", "final_norm", "lm_head", "mtp")
            if k in values}
     out["layers"] = [layer(values[f"stack_{si}"], i)
                      for si, (_, _, count) in enumerate(cfg.stacks())

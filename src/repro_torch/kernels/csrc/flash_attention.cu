@@ -17,7 +17,9 @@
 // tensor cores, each pair costs one ex2 (and one tanh with the softcap) on
 // the 16-a-clock special-function unit: half the tensor cores' time at
 // D = 256, about as much as theirs at D = 64, so it has to run while they
-// do. D is 64, 128 or 256.
+// do. D is 64, 128, 192 or 256. At D = 192 (MLA's q.k width, with v
+// padded from 128 by the caller) the padded half of p.v is work the
+// function does not need: its bound counts 2 * (192 + 128) flops a pair.
 //
 // Design. The TPU kernel's grid was (B, Hq, Sq/tq, Sk/tk) with the key
 // axis sequential and (m, l, acc) in VMEM. Here a block of three
@@ -68,7 +70,11 @@ constexpr float LN2 = 0.6931471805599453f;
 
 // Keys per tile. At D = 256 a consumer thread holds the (64, 256) f32
 // accumulator (128 registers), S (BN / 2) and P (BN / 4): 80 fits in 240
-// registers and the ring (Q 64 KB + 2 x 2 x 40 KB) in 227 KB. D = 128
+// registers and the ring (Q 64 KB + 2 x 2 x 40 KB) in 227 KB. At D = 192
+// shared memory sets it: Q takes 48 KB and each K or V tile 3 x BN x
+// 128 B, so 48 KB + 4 x 384 B x BN <= 227 KB leaves BN <= 118; 112 (a
+// multiple of 16 for the p.v steps) takes 217 KB and 96 + 56 + 28 = 180
+// registers for the accumulator, S and P, below D = 256's 188. D = 128
 // has room for 128; D = 64 (one 128-byte column chunk, a 32-register
 // accumulator) keeps 128 too.
 template <int D>
@@ -80,6 +86,10 @@ struct Tile<64> {
 template <>
 struct Tile<128> {
   static constexpr int BN = 128;
+};
+template <>
+struct Tile<192> {
+  static constexpr int BN = 112;
 };
 template <>
 struct Tile<256> {
@@ -141,6 +151,8 @@ __device__ __forceinline__ void issue_qk(float (&s)[Tile<D>::BN / 2],
     const uint64_t b = db + (((kk / 4) * L::KV_CHUNK + (kk % 4) * 32) >> 4);
     if constexpr (L::BN == 80)
       wgmma_ss80(s, a, b, kk > 0);
+    else if constexpr (L::BN == 112)
+      wgmma_ss112(s, a, b, kk > 0);
     else
       wgmma_ss128(s, a, b, kk > 0);
   }
@@ -161,6 +173,8 @@ __device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
     const uint64_t b = db + ((kk * 16 * 128) >> 4);
     if constexpr (D == 256)
       wgmma_rs256(acc, p[kk], b);
+    else if constexpr (D == 192)
+      wgmma_rs192(acc, p[kk], b);
     else if constexpr (D == 128)
       wgmma_rs128(acc, p[kk], b);
     else
@@ -487,6 +501,9 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
                           scale, causal, window, cap, s);
     case 128:
       return launch_d<128>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, strides,
+                           scale, causal, window, cap, s);
+    case 192:
+      return launch_d<192>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, strides,
                            scale, causal, window, cap, s);
     case 256:
       return launch_d<256>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, strides,

@@ -48,13 +48,21 @@
 //      Its S^T and dP^T fragments, rounded to bf16, are the A operands of
 //      its dV and dK products as they are (registers, no shared memory,
 //      no barrier between the consumers).
-//    - D = 256, BN = 64: dK and dV of 64 keys x 256 columns are 256 f32 a
-//      thread, so each consumer owns the 64 keys x 128 columns of its
-//      half of D. wgmma's M of 64 then splits S^T and dP^T by q columns
-//      (32 each); each consumer writes its P^T and dS^T columns in bf16 to
-//      shared memory (128-byte swizzle, double-buffered), the two meet at
-//      one named barrier a tile, and both read the whole P^T and dS^T as
-//      the A operands of their dV and dK products.
+//    - D = 192 or 256, BN = 64: dK and dV of 64 keys x D columns are D
+//      f32 a thread (192 at D = 192, and with S^T and dP^T 256, more than
+//      the 240 a consumer has), so the consumers split D: consumer 0 owns
+//      the 64 keys x columns 0-127, consumer 1 the rest (128 columns at
+//      D = 256, 64 at D = 192). The split is by whole 64-column chunks:
+//      a 96 / 96 split at D = 192 would start consumer 1's MN-major dO and
+//      Q operands 64 bytes into a 128-byte swizzle row, where the wgmma
+//      descriptor's start address no longer names a whole atom's row; a
+//      128 / 64 split needs no such offset, at the cost of consumer 1
+//      doing half of consumer 0's dK / dV products. wgmma's M of 64 then
+//      splits S^T and dP^T by q columns (32 each); each consumer writes
+//      its P^T and dS^T columns in bf16 to shared memory (128-byte
+//      swizzle, double-buffered), the two meet at one named barrier a
+//      tile, and both read the whole P^T and dS^T as the A operands of
+//      their dV and dK products.
 // 3. dq_kernel (route (a): a separate dQ pass): a block owns 128 q rows of
 //    one (b, q head), 64 a consumer, with Q, dO and their stat values
 //    resident, and walks the 64-key tiles of each consumer's band through
@@ -97,6 +105,11 @@ struct KvTile<128> {
   static constexpr int STAGES = 2;
 };
 template <>
+struct KvTile<192> {
+  static constexpr int BN = 64;
+  static constexpr int STAGES = 2;
+};
+template <>
 struct KvTile<256> {
   static constexpr int BN = 64;
   static constexpr int STAGES = 2;
@@ -111,6 +124,10 @@ struct QTile<64> {
 };
 template <>
 struct QTile<128> {
+  static constexpr int KS = 2, VS = 2;
+};
+template <>
+struct QTile<192> {
   static constexpr int KS = 2, VS = 2;
 };
 template <>
@@ -136,7 +153,7 @@ struct Args {
 // 128-byte swizzle lays it out: 8-row atoms of 1024 bytes.
 template <int D>
 struct KvLayout {
-  static constexpr bool SPLIT = D == 256;
+  static constexpr bool SPLIT = D >= 192;  // consumers split D
   static constexpr int BN = KvTile<D>::BN, STAGES = KvTile<D>::STAGES;
   static constexpr int CHUNKS = D / 64;
   static constexpr int K_CHUNK = BN * 128;
@@ -257,7 +274,7 @@ __device__ __forceinline__ void gemm_nt(float (&d)[N / 2], uint32_t xs,
   }
 }
 
-// d (64 x N, N = 64, 128 or 256) += A . Y over 64 rows of Y: A's k-slices
+// d (64 x N, N = 64, 128, 192 or 256) += A . Y over 64 rows of Y: A's k-slices
 // of 16 in registers, Y (64 rows from ys) MN-major, its 64-column chunks
 // YC bytes apart; 4 wgmmas, each 16 rows (two 8-row atoms, 2048 bytes).
 template <int N, int YC>
@@ -270,6 +287,8 @@ __device__ __forceinline__ void gemm_rs(float (&d)[N / 2],
   for (int kk = 0; kk < 4; ++kk) {
     if constexpr (N == 256)
       wgmma_rs256(d, a[kk], dy + ((kk * 2048) >> 4));
+    else if constexpr (N == 192)
+      wgmma_rs192(d, a[kk], dy + ((kk * 2048) >> 4));
     else if constexpr (N == 128)
       wgmma_rs128(d, a[kk], dy + ((kk * 2048) >> 4));
     else
@@ -277,17 +296,21 @@ __device__ __forceinline__ void gemm_rs(float (&d)[N / 2],
   }
 }
 
-// d (64 x 128) += X . Y over 64: X (64 x 64 bf16 from xs, K-major, one
-// 128-byte row a row) and Y (64 rows from ys, MN-major, chunks YC bytes
-// apart) both in shared memory.
-template <int YC>
-__device__ __forceinline__ void gemm_ss(float (&d)[64], uint32_t xs,
+// d (64 x N, N = 64 or 128) += X . Y over 64: X (64 x 64 bf16 from xs,
+// K-major, one 128-byte row a row) and Y (64 rows from ys, MN-major,
+// chunks YC bytes apart) both in shared memory.
+template <int N, int YC>
+__device__ __forceinline__ void gemm_ss(float (&d)[N / 2], uint32_t xs,
                                         uint32_t ys) {
   uint64_t dx = sw128_desc(xs, 16, 1024), dy = sw128_desc(ys, YC, 1024);
   asm volatile("" : "+l"(dx), "+l"(dy));
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wgmma_ss128t(d, dx + ((kk * 32) >> 4), dy + ((kk * 2048) >> 4), 1);
+  for (int kk = 0; kk < 4; ++kk) {
+    if constexpr (N == 128)
+      wgmma_ss128t(d, dx + ((kk * 32) >> 4), dy + ((kk * 2048) >> 4), 1);
+    else
+      wgmma_ss64t(d, dx + ((kk * 32) >> 4), dy + ((kk * 2048) >> 4), 1);
+  }
 }
 
 // Accumulator fragments (element i at column 8 (i / 4) + 2 (lane % 4) +
@@ -356,6 +379,114 @@ __global__ void delta_kernel(const Args a) {
   }
 }
 
+// One consumer warpgroup (w) of the dK/dV pass: its S^T and dP^T, and its
+// DN columns of dK and dV from column c0 (all D without the split; with
+// it 128 for consumer 0 and D - 128 for consumer 1).
+template <int D, bool CAP, int DN>
+__device__ __forceinline__ void dkdv_consumer(const Args& a, uint32_t base,
+                                              const float* stat, int w,
+                                              int k0, int qlo, int qhi,
+                                              int nqt, int visits, int hk,
+                                              int b) {
+  using L = KvLayout<D>;
+  constexpr bool SPLIT = L::SPLIT;
+  constexpr int STAGES = L::STAGES;
+  constexpr int QN = SPLIT ? 32 : 64;  // S^T columns a consumer computes
+  const uint32_t kv_full = base + L::BAR, full = kv_full + 8;
+  const uint32_t empty = full + 8 * STAGES;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  // The consumer's keys (rows of its S^T), its S^T columns (q rows of
+  // the tile), its band and its first dK / dV column; with the split both
+  // consumers share the keys.
+  const int kw = SPLIT ? 0 : 64 * w, qc = SPLIT ? 32 * w : 0;
+  const int ka = k0 + kw, c0 = SPLIT ? 128 * w : 0;
+  int wlo = qlo, whi = qhi;
+  if (!SPLIT) q_band(ka, min(ka + 63, a.Sk - 1), a, wlo, whi);
+  const int row = 16 * warp + lane / 4;  // + 8 r: its S^T rows
+  const int col = 2 * (lane % 4);        // + 8 j + e: its S^T columns
+  float dk[DN / 2], dv[DN / 2];
+#pragma unroll
+  for (int j = 0; j < DN / 2; ++j) dk[j] = dv[j] = 0.0f;
+  bool kv_ready = false;
+
+  for (int i = 0; i < visits; ++i) {
+    const int st = i % STAGES, ph = (i / STAGES) & 1;
+    const int qt = qlo + i % nqt, q0 = qt * BM;
+    mbar_wait(full + 8 * st, ph);
+    if (qt < wlo || qt > whi) {  // none of this consumer's keys: release
+      if (lane == 0) mbar_arrive(empty + 8 * st);
+      continue;
+    }
+    if (!kv_ready) {
+      mbar_wait(kv_full, 0);
+      kv_ready = true;
+    }
+    const uint32_t qs = base + L::Q + st * L::Q_TILE;
+    const uint32_t dos = base + L::DO + st * L::Q_TILE;
+    float s[QN / 2], dp[QN / 2];
+    wgmma_fence();
+    gemm_nt<D, QN, L::K_CHUNK, L::Q_CHUNK>(s, base + L::K + kw * 128,
+                                           qs + qc * 128);
+    gemm_nt<D, QN, L::K_CHUNK, L::Q_CHUNK>(dp, base + L::V + kw * 128,
+                                           dos + qc * 128);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(s);
+    reg_fence(dp);
+    // p into s, ds into dp.
+    const float* lse2 = stat + st * 2 * BM;
+    const float* dlt = lse2 + BM;
+    const bool edge = tile_edge(q0, ka, a);
+#pragma unroll
+    for (int e = 0; e < QN / 2; ++e) {
+      const int ql = qc + 8 * (e / 4) + col + (e & 1);
+      const int key = ka + row + 8 * ((e >> 1) & 1);
+      p_ds<CAP>(s[e], dp[e], lse2[ql], dlt[ql],
+                !edge || visible(q0 + ql, key, a), a, s[e], dp[e]);
+    }
+    if constexpr (SPLIT) {
+      // This consumer's columns of P^T and dS^T into buffer i & 1, at
+      // the 128-byte swizzle's places; then the whole of both.
+      const uint32_t pt = base + L::PT + (i & 1) * L::PT_TILE;
+      const uint32_t dst = pt + 2 * L::PT_TILE;
+#pragma unroll
+      for (int e = 0; e < QN / 2; e += 2) {
+        const int r = row + 8 * ((e >> 1) & 1);
+        const int c = qc + 8 * (e / 4) + col;
+        const uint32_t at =
+            r * 128 + ((((c >> 3) ^ (r & 7)) << 4) | ((c & 7) << 1));
+        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(pt + at),
+                     "r"(pack_bf16(s[e], s[e + 1]))
+                     : "memory");
+        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(dst + at),
+                     "r"(pack_bf16(dp[e], dp[e + 1]))
+                     : "memory");
+      }
+      fence_async_smem();
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");
+      wgmma_fence();
+      gemm_ss<DN, L::Q_CHUNK>(dv, pt, dos + c0 / 64 * L::Q_CHUNK);
+      gemm_ss<DN, L::Q_CHUNK>(dk, dst, qs + c0 / 64 * L::Q_CHUNK);
+    } else {
+      uint32_t pa[4][4], da[4][4];
+      pack_a<64>(pa, s);
+      pack_a<64>(da, dp);
+      wgmma_fence();
+      gemm_rs<DN, L::Q_CHUNK>(dv, pa, dos);
+      gemm_rs<DN, L::Q_CHUNK>(dk, da, qs);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(dk);
+    reg_fence(dv);
+    if (lane == 0) mbar_arrive(empty + 8 * st);
+  }
+  store_tile<DN>(dk, a.scale, a.dk + b * a.st[DK][0] + hk * a.st[DK][1],
+                 a.st[DK][2], ka, c0, a.Sk);
+  store_tile<DN>(dv, 1.0f, a.dv + b * a.st[DV][0] + hk * a.st[DV][1],
+                 a.st[DV][2], ka, c0, a.Sk);
+}
+
 template <int D, bool CAP>
 __global__ void __launch_bounds__(THREADS, 1)
 dkdv_kernel(const __grid_constant__ CUtensorMap tq,
@@ -365,8 +496,6 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tq,
   using L = KvLayout<D>;
   constexpr bool SPLIT = L::SPLIT;
   constexpr int BN = L::BN, STAGES = L::STAGES;
-  constexpr int QN = SPLIT ? 32 : 64;  // S^T columns a consumer computes
-  constexpr int DN = SPLIT ? 128 : D;  // dK / dV columns a consumer owns
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -438,97 +567,15 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tq,
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
     const int w = wg - 1;
-    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-    // The consumer's keys (rows of its S^T), its S^T columns (q rows of
-    // the tile) and its band; at D = 256 both consumers share the keys.
-    const int kw = SPLIT ? 0 : 64 * w, qc = SPLIT ? 32 * w : 0;
-    const int ka = k0 + kw;
-    int wlo = qlo, whi = qhi;
-    if (!SPLIT) q_band(ka, min(ka + 63, a.Sk - 1), a, wlo, whi);
-    const int row = 16 * warp + lane / 4;  // + 8 r: its S^T rows
-    const int col = 2 * (lane % 4);        // + 8 j + e: its S^T columns
-    float dk[DN / 2], dv[DN / 2];
-#pragma unroll
-    for (int j = 0; j < DN / 2; ++j) dk[j] = dv[j] = 0.0f;
-    bool kv_ready = false;
-
-    for (int i = 0; i < visits; ++i) {
-      const int st = i % STAGES, ph = (i / STAGES) & 1;
-      const int qt = qlo + i % nqt, q0 = qt * BM;
-      mbar_wait(full + 8 * st, ph);
-      if (qt < wlo || qt > whi) {  // none of this consumer's keys: release
-        if (lane == 0) mbar_arrive(empty + 8 * st);
-        continue;
-      }
-      if (!kv_ready) {
-        mbar_wait(kv_full, 0);
-        kv_ready = true;
-      }
-      const uint32_t qs = base + L::Q + st * L::Q_TILE;
-      const uint32_t dos = base + L::DO + st * L::Q_TILE;
-      float s[QN / 2], dp[QN / 2];
-      wgmma_fence();
-      gemm_nt<D, QN, L::K_CHUNK, L::Q_CHUNK>(s, base + L::K + kw * 128,
-                                             qs + qc * 128);
-      gemm_nt<D, QN, L::K_CHUNK, L::Q_CHUNK>(dp, base + L::V + kw * 128,
-                                             dos + qc * 128);
-      wgmma_commit();
-      wgmma_wait<0>();
-      reg_fence(s);
-      reg_fence(dp);
-      // p into s, ds into dp.
-      const float* lse2 = stat + st * 2 * BM;
-      const float* dlt = lse2 + BM;
-      const bool edge = tile_edge(q0, ka, a);
-#pragma unroll
-      for (int e = 0; e < QN / 2; ++e) {
-        const int ql = qc + 8 * (e / 4) + col + (e & 1);
-        const int key = ka + row + 8 * ((e >> 1) & 1);
-        p_ds<CAP>(s[e], dp[e], lse2[ql], dlt[ql],
-                  !edge || visible(q0 + ql, key, a), a, s[e], dp[e]);
-      }
-      if constexpr (SPLIT) {
-        // This consumer's columns of P^T and dS^T into buffer i & 1, at
-        // the 128-byte swizzle's places; then the whole of both.
-        const uint32_t pt = base + L::PT + (i & 1) * L::PT_TILE;
-        const uint32_t dst = pt + 2 * L::PT_TILE;
-#pragma unroll
-        for (int e = 0; e < QN / 2; e += 2) {
-          const int r = row + 8 * ((e >> 1) & 1);
-          const int c = qc + 8 * (e / 4) + col;
-          const uint32_t at =
-              r * 128 + ((((c >> 3) ^ (r & 7)) << 4) | ((c & 7) << 1));
-          asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(pt + at),
-                       "r"(pack_bf16(s[e], s[e + 1]))
-                       : "memory");
-          asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(dst + at),
-                       "r"(pack_bf16(dp[e], dp[e + 1]))
-                       : "memory");
-        }
-        fence_async_smem();
-        asm volatile("bar.sync 1, 256;\n" ::: "memory");
-        wgmma_fence();
-        gemm_ss<L::Q_CHUNK>(dv, pt, dos + 2 * w * L::Q_CHUNK);
-        gemm_ss<L::Q_CHUNK>(dk, dst, qs + 2 * w * L::Q_CHUNK);
-      } else {
-        uint32_t pa[4][4], da[4][4];
-        pack_a<64>(pa, s);
-        pack_a<64>(da, dp);
-        wgmma_fence();
-        gemm_rs<DN, L::Q_CHUNK>(dv, pa, dos);
-        gemm_rs<DN, L::Q_CHUNK>(dk, da, qs);
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-      reg_fence(dk);
-      reg_fence(dv);
-      if (lane == 0) mbar_arrive(empty + 8 * st);
-    }
-    const int c0 = SPLIT ? 128 * w : 0;
-    store_tile<DN>(dk, a.scale, a.dk + b * a.st[DK][0] + hk * a.st[DK][1],
-                   a.st[DK][2], ka, c0, a.Sk);
-    store_tile<DN>(dv, 1.0f, a.dv + b * a.st[DV][0] + hk * a.st[DV][1],
-                   a.st[DV][2], ka, c0, a.Sk);
+    if constexpr (!SPLIT)
+      dkdv_consumer<D, CAP, D>(a, base, stat, w, k0, qlo, qhi, nqt, visits,
+                               hk, b);
+    else if (D == 256 || w == 0)
+      dkdv_consumer<D, CAP, 128>(a, base, stat, w, k0, qlo, qhi, nqt,
+                                 visits, hk, b);
+    else
+      dkdv_consumer<D, CAP, D - 128>(a, base, stat, w, k0, qlo, qhi, nqt,
+                                     visits, hk, b);
   }
 }
 
@@ -786,6 +833,9 @@ extern "C" int flash_attention_bwd_bf16(
     case 128:
       return cap > 0.0f ? launch<128, true>(a, q, k, v, s)
                         : launch<128, false>(a, q, k, v, s);
+    case 192:
+      return cap > 0.0f ? launch<192, true>(a, q, k, v, s)
+                        : launch<192, false>(a, q, k, v, s);
     case 256:
       return cap > 0.0f ? launch<256, true>(a, q, k, v, s)
                         : launch<256, false>(a, q, k, v, s);

@@ -134,7 +134,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 #define F16(a, i) F8(a, i), F8(a, i + 8)
 #define F32(a, i) F8(a, i), F8(a, i + 8), F8(a, i + 16), F8(a, i + 24)
 #define F40(a) F32(a, 0), F8(a, 32)
+#define F56(a) F32(a, 0), F16(a, 32), F8(a, 48)
 #define F64(a) F32(a, 0), F32(a, 32)
+#define F96(a) F32(a, 0), F32(a, 32), F32(a, 64)
 #define F128(a) F32(a, 0), F32(a, 32), F32(a, 64), F32(a, 96)
 
 // d (64 x 80 f32) = a (64 x 16) * b (16 x 80), + d where acc is nonzero;
@@ -149,6 +151,23 @@ __device__ __forceinline__ void wgmma_ss80(float (&d)[40], uint64_t da,
       "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
       "%38, %39}, %40, %41, p, 1, 1, 0, 0;\n}\n"
       : F40(d)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d (64 x 112 f32) = a (64 x 16) * b (16 x 112), + d where acc is nonzero;
+// a and b in shared memory, K-major.
+__device__ __forceinline__ void wgmma_ss112(float (&d)[56], uint64_t da,
+                                           uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %58, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55"
+      "}, %56, %57, p, 1, 1, 0, 0;\n}\n"
+      : F56(d)
       : "l"(da), "l"(db), "r"(acc));
 }
 
@@ -212,6 +231,21 @@ __device__ __forceinline__ void wgmma_ss128t(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(acc));
 }
 
+// d (64 x 64 f32) = a (64 x 16) * b (16 x 64), + d where acc is nonzero;
+// a and b in shared memory, a K-major, b MN-major.
+__device__ __forceinline__ void wgmma_ss64t(float (&d)[32], uint64_t da,
+                                           uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : F32(d, 0)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
 // d (64 x 64 f32) += a (64 x 16, registers) * b (16 x 64, shared memory,
 // MN-major).
 __device__ __forceinline__ void wgmma_rs64(float (&d)[32],
@@ -243,6 +277,28 @@ __device__ __forceinline__ void wgmma_rs128(float (&d)[64],
       "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
       "%62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       : F64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 192 f32) += a (64 x 16, registers) * b (16 x 192, shared memory,
+// MN-major).
+__device__ __forceinline__ void wgmma_rs192(float (&d)[96],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, "
+      "1;\n}\n"
+      : F96(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 

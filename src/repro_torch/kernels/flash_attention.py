@@ -5,8 +5,8 @@ that joins them.
 Counterpart of ``repro.kernels.flash_attention.flash_attention``; the plain
 versions are ``kernels.ref.flash_attention``, ``flash_attention_fwd_stats``
 and ``flash_attention_bwd``, and ``kernels.ops`` chooses between them by
-device. These wrappers take bf16 CUDA tensors of head_dim 64, 128 or 256
-only. The inputs may be
+device. These wrappers take bf16 CUDA tensors of head_dim 64, 128, 192 or
+256 only (192 is MLA's q·k width, with v padded to it). The inputs may be
 strided views, e.g. the model's (B, S, H, D) activations seen as (B, H, S,
 D): the kernels read them through their strides, and each output keeps its
 input's stride order.
@@ -29,16 +29,21 @@ from repro_torch.kernels._checks import check_cuda
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 128, 192, 256)
 # Keys per tile by head_dim and query rows per consumer warpgroup, as
 # csrc/flash_attention.cu sets them (Tile<D>, WG_ROWS): the tests and
 # chip_smoke.py place their edge cases with them.
-TILE_N = {64: 128, 128: 128, 256: 80}
+TILE_N = {64: 128, 128: 128, 192: 112, 256: 80}
 WARPGROUP_ROWS = 64
 # csrc/flash_attention_bwd.cu's tiles: keys a dK/dV block by head_dim
 # (KvTile<D>::BN), and the q rows and keys of the 64 x 64 tile that each
 # consumer warpgroup masks and multiplies (BM) in both passes.
-BWD_TILE = {64: 128, 128: 128, 256: 64}
+BWD_TILE = {64: 128, 128: 128, 192: 64, 256: 64}
+# The dK/dV pass's columns by consumer warpgroup, (first column, count):
+# whole 64-column chunks, split where one consumer cannot hold 64 keys x D
+# of both dK and dV (dkdv_consumer's c0 and DN).
+BWD_COLUMNS = {64: ((0, 64),), 128: ((0, 128),),
+               192: ((0, 128), (128, 64)), 256: ((0, 128), (128, 128))}
 BWD_ROWS = 64
 # q rows of a dQ block (QROWS); the stat scratch is padded to a multiple.
 BWD_QROWS = 128

@@ -876,7 +876,7 @@ def flash_attention_bwd_blocked(q: torch.Tensor, k: torch.Tensor,
                                 window: int | None = None,
                                 softcap: float | None = None,
                                 scale: float | None = None, BM: int = 64,
-                                BN: int = 64):
+                                BN: int = 64, columns=None):
     """A plain model of the CUDA ``flash_attention_backward``'s arithmetic,
     arguments as ``flash_attention_bwd``: delta = Σ do·o in f32; the
     tiles of ``flash_attention_bwd_tiles`` in order, each recomputing p in
@@ -884,9 +884,11 @@ def flash_attention_bwd_blocked(q: torch.Tensor, k: torch.Tensor,
     lse · log2 e; masked tiles set p to 0 where not visible) and ds = p
     (dp − delta) (· (1 − tanh²)); P and dS rounded to bf16 before they
     multiply dO, Q and K; dV and dK summed over the group's heads, head by
-    head, each head's q tiles in order; dQ over its key tiles in order; dq
-    and dk times scale, all three rounded to bf16. Used by the tests,
-    never on the main path."""
+    head, each head's q tiles in order, each consumer warpgroup's
+    ``columns`` (first column, count) apart (``flash_attention.BWD_COLUMNS``;
+    default all of D); dQ over its key tiles in order; dq and dk times
+    scale, all three rounded to bf16. Used by the tests, never on the main
+    path."""
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     g = Hq // Hkv
@@ -931,8 +933,12 @@ def flash_attention_bwd_blocked(q: torch.Tensor, k: torch.Tensor,
             for qt, masked in visits:
                 rows = slice(qt * BM, min(qt * BM + BM, Sq))
                 p, ds = p_ds(j, rows, keys, masked)
-                dv[:, :, keys] += p.transpose(-1, -2) @ dof[:, :, j, rows]
-                dk[:, :, keys] += ds.transpose(-1, -2) @ qf[:, :, j, rows]
+                for c0, n in columns or ((0, D),):
+                    cols = slice(c0, c0 + n)
+                    dv[:, :, keys, cols] += (p.transpose(-1, -2)
+                                             @ dof[:, :, j, rows, cols])
+                    dk[:, :, keys, cols] += (ds.transpose(-1, -2)
+                                             @ qf[:, :, j, rows, cols])
     for qt, kt, masked in dqv:
         rows = slice(qt * BM, min(qt * BM + BM, Sq))
         keys = slice(kt * BN, min(kt * BN + BN, Sk))

@@ -1,5 +1,6 @@
-"""Attention blocks (counterpart of ``repro.models.attention``): the GQA
-half, with RoPE, a per-layer sliding window and a logit softcap.
+"""Attention blocks (counterpart of ``repro.models.attention``): GQA, with
+RoPE, a per-layer sliding window and a logit softcap, and MLA (deepseek's
+multi-head latent attention).
 
 Implementations (``impl``):
 
@@ -19,8 +20,16 @@ layer's window; the port passes the window, as its ``blocked_causal``
 does. ``prefill`` gives a layer's output and its KV cache from one
 projection of k and v, where the reference's ``prefill_cache`` projects
 them again beside ``forward``. Decode is a one-step product over the KV
-cache, as in the reference, with the cache written in place. MLA is not
-ported yet.
+cache, as in the reference, with the cache written in place.
+
+MLA attends in the direct form for training and prefill: k is the
+per-head ``k_nope`` from the latent ``c_kv`` beside one roped 64-wide key
+shared by all heads, v is padded to q·k's width (192 at deepseek's
+widths) so that one head_dim serves the whole product, the scale is that
+width's ``** -0.5`` and the output is cut back to v's width. Its cache
+holds only ``c_kv``, ``k_rope`` and ``pos``; decode is the reference's
+absorbed form in float32 (q folded through ``w_uk``, the context through
+``w_uv``).
 """
 from __future__ import annotations
 
@@ -28,6 +37,7 @@ import dataclasses
 import functools
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
@@ -80,14 +90,46 @@ def init_gqa(cfg: AttnConfig, gen, device, dtype) -> GQA:
                normal_((H, Dh, D), gen, device, dtype))
 
 
-def init(cfg: AttnConfig, gen, device, dtype) -> GQA:
-    _no_mla(cfg)
-    return init_gqa(cfg, gen, device, dtype)
+class MLA(nn.Module):
+    """``w_dq`` (D, q_lora), ``q_norm`` (q_lora,), ``w_uq`` (q_lora, H,
+    nope + rope), ``w_dkv`` (D, kv_lora + rope), ``kv_norm`` (kv_lora,),
+    ``w_uk`` (kv_lora, H, nope), ``w_uv`` (kv_lora, H, v), ``wo`` (H, v,
+    D): the reference's layouts and names."""
+
+    NAMES = ("w_dq", "q_norm", "w_uq", "w_dkv", "kv_norm", "w_uk", "w_uv",
+             "wo")
+
+    def __init__(self, *weights):
+        super().__init__()
+        for name, w in zip(self.NAMES, weights, strict=True):
+            setattr(self, name, nn.Parameter(w, requires_grad=False))
 
 
-def _no_mla(cfg: AttnConfig):
+def init_mla(cfg: AttnConfig, gen, device, dtype) -> MLA:
+    """The reference's ``init_mla``: normal × 1/√shape[0] (so ``w_uq`` at
+    1/√q_lora and ``wo`` at 1/√H), the two norms f32 zeros."""
+    m, D, H = cfg.mla, cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+
+    def zeros(n):
+        return torch.zeros((n,), device=device)
+
+    return MLA(normal_((D, m.q_lora_rank), gen, device, dtype),
+               zeros(m.q_lora_rank),
+               normal_((m.q_lora_rank, H, qk), gen, device, dtype),
+               normal_((D, m.kv_lora_rank + m.qk_rope_head_dim), gen, device,
+                       dtype),
+               zeros(m.kv_lora_rank),
+               normal_((m.kv_lora_rank, H, m.qk_nope_head_dim), gen, device,
+                       dtype),
+               normal_((m.kv_lora_rank, H, m.v_head_dim), gen, device, dtype),
+               normal_((H, m.v_head_dim, D), gen, device, dtype))
+
+
+def init(cfg: AttnConfig, gen, device, dtype) -> GQA | MLA:
     if cfg.mla:
-        raise NotImplementedError("MLA attention is not ported yet")
+        return init_mla(cfg, gen, device, dtype)
+    return init_gqa(cfg, gen, device, dtype)
 
 
 def _band_mask(qpos, kpos, window: int):
@@ -224,32 +266,31 @@ def gqa_forward(p: GQA, cfg: AttnConfig, x, positions, window: int, impl):
     return _out(p, out, x.dtype)
 
 
-def _cache_from_kv(k, v, positions, cache_len: int):
-    """The (ring) KV cache of a prompt's roped k and v."""
-    S, W = k.shape[1], cache_len
+def _ring_cache(arrays: dict, positions, cache_len: int) -> dict:
+    """The (ring) cache of a prompt: each (B, S, ...) array of ``arrays``
+    and the positions, W = ``cache_len`` slots. S ≥ W keeps the last W,
+    rolled so that position p lives at slot p % W (decode writes at step
+    % W); S < W pads with zeros and position −1."""
+    S, W = positions.shape[1], cache_len
+    arrays = dict(arrays, pos=positions)
     if S >= W:
-        # Ring invariant: position p lives at slot p % W (decode writes at
-        # step % W): roll the truncated window into place.
-        ck, cv, cpos = k[:, S - W:], v[:, S - W:], positions[:, S - W:]
         shift = S % W
-        if shift:
-            ck, cv, cpos = (torch.roll(t, shift, dims=1)
-                            for t in (ck, cv, cpos))
-        return {"k": ck.contiguous(), "v": cv.contiguous(),
-                "pos": cpos.contiguous()}
-    B, _, Hkv, Dh = k.shape
-    ck = k.new_zeros((B, W, Hkv, Dh))
-    cv = v.new_zeros((B, W, Hkv, Dh))
-    cpos = positions.new_full((B, W), -1)
-    ck[:, :S], cv[:, :S], cpos[:, :S] = k, v, positions
-    return {"k": ck, "v": cv, "pos": cpos}
+        return {key: (torch.roll(t[:, S - W:], shift, dims=1) if shift
+                      else t[:, S - W:]).contiguous()
+                for key, t in arrays.items()}
+    out = {}
+    for key, t in arrays.items():
+        out[key] = (t.new_full((t.shape[0], W), -1) if key == "pos"
+                    else t.new_zeros((t.shape[0], W, *t.shape[2:])))
+        out[key][:, :S] = t
+    return out
 
 
 def gqa_prefill_cache(p: GQA, cfg: AttnConfig, x, positions,
                       cache_len: int):
     """Build the (ring) KV cache from a prompt. Returns the cache dict."""
     _, k, v = _qkv(p, cfg, x, positions)
-    return _cache_from_kv(k, v, positions, cache_len)
+    return _ring_cache({"k": k, "v": v}, positions, cache_len)
 
 
 def gqa_prefill(p: GQA, cfg: AttnConfig, x, positions, window: int, impl,
@@ -258,7 +299,8 @@ def gqa_prefill(p: GQA, cfg: AttnConfig, x, positions, window: int, impl,
     k and v → (out, cache)."""
     q, k, v = _qkv(p, cfg, x, positions)
     out = _attend(q, k, v, positions[0], positions[0], window, cfg, impl)
-    return _out(p, out, x.dtype), _cache_from_kv(k, v, positions, cache_len)
+    return _out(p, out, x.dtype), _ring_cache({"k": k, "v": v}, positions,
+                                              cache_len)
 
 
 def gqa_decode(p: GQA, cfg: AttnConfig, x, pos, window: int, cache,
@@ -289,18 +331,111 @@ def gqa_decode(p: GQA, cfg: AttnConfig, x, pos, window: int, cache,
     return _out(p, out, dt), cache
 
 
+def _mla_qkv(p: MLA, cfg: AttnConfig, x, positions):
+    """→ q_nope (B, S, H, nope), roped q_rope (B, S, H, rope), the normed
+    latent c_kv (B, S, kv_lora) and the roped shared key k_rope (B, S,
+    rope). Only c_kv's half of the down-projection is normed: k_rope comes
+    from the unnormed rest, as in the reference."""
+    m, dt = cfg.mla, x.dtype
+    cq = cm.rms_norm(x @ p.w_dq.to(dt), p.q_norm)
+    q = torch.einsum("bsr,rhk->bshk", cq, p.w_uq.to(dt))
+    nope = m.qk_nope_head_dim
+    q_rope = cm.rope(q[..., nope:], positions[:, :, None], cfg.rope_theta)
+    ckv = x @ p.w_dkv.to(dt)
+    c_kv = cm.rms_norm(ckv[..., :m.kv_lora_rank], p.kv_norm)
+    k_rope = cm.rope(ckv[..., m.kv_lora_rank:], positions, cfg.rope_theta)
+    return q[..., :nope], q_rope, c_kv, k_rope
+
+
+def _mla_attend(p: MLA, cfg: AttnConfig, x, positions, window: int, impl,
+                q_nope, q_rope, c_kv, k_rope):
+    """The direct form: k = [k_nope ; k_rope broadcast over the heads], v
+    padded to q·k's width, one attention of that head_dim at its scale
+    with n_kv = n_heads, the output cut to v's width. → (B, S, D)."""
+    m, dt = cfg.mla, x.dtype
+    B, S = x.shape[:2]
+    H, qk = cfg.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim
+    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p.w_uk.to(dt))
+    v = torch.einsum("bsr,rhk->bshk", c_kv, p.w_uv.to(dt))
+    q = torch.cat([q_nope, q_rope], -1)
+    k = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, H,
+                                                     m.qk_rope_head_dim)], -1)
+    v = F.pad(v, (0, qk - m.v_head_dim))
+    cfg_v = dataclasses.replace(cfg, n_kv=H, head_dim=qk)
+    out = _attend(q, k, v, positions[0], positions[0], window, cfg_v, impl,
+                  scale=qk ** -0.5)
+    return _out(p, out[..., :m.v_head_dim], dt)
+
+
+def mla_forward(p: MLA, cfg: AttnConfig, x, positions, window: int, impl):
+    """Training/prefill MLA forward (direct form). x (B, S, D) → (B, S,
+    D)."""
+    return _mla_attend(p, cfg, x, positions, window, impl,
+                       *_mla_qkv(p, cfg, x, positions))
+
+
+def mla_prefill_cache(p: MLA, cfg: AttnConfig, x, positions,
+                      cache_len: int):
+    """The (ring) MLA cache of a prompt: {"c_kv", "k_rope", "pos"}."""
+    _, _, c_kv, k_rope = _mla_qkv(p, cfg, x, positions)
+    return _ring_cache({"c_kv": c_kv, "k_rope": k_rope}, positions,
+                       cache_len)
+
+
+def mla_prefill(p: MLA, cfg: AttnConfig, x, positions, window: int, impl,
+                cache_len: int):
+    """``mla_forward`` and ``mla_prefill_cache`` from one ``_mla_qkv`` →
+    (out, cache)."""
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x, positions)
+    out = _mla_attend(p, cfg, x, positions, window, impl, q_nope, q_rope,
+                      c_kv, k_rope)
+    return out, _ring_cache({"c_kv": c_kv, "k_rope": k_rope}, positions,
+                            cache_len)
+
+
+def mla_decode(p: MLA, cfg: AttnConfig, x, pos, window: int, cache,
+               step: int):
+    """One absorbed-form decode step in float32: scores q_nope · W_uk ·
+    c_kv + q_rope · k_rope, the context through W_uv; only c_kv and k_rope
+    are cached. Writes the cache in place (slot = step % cache_len);
+    → (out (B, 1, D), cache)."""
+    m, dt = cfg.mla, x.dtype
+    q_nope, q_rope, c_new, kr_new = _mla_qkv(p, cfg, x, pos[:, None])
+    slot = step % cache["c_kv"].shape[1]
+    cache["c_kv"][:, slot] = c_new[:, 0]
+    cache["k_rope"][:, slot] = kr_new[:, 0]
+    cache["pos"][:, slot] = pos
+    c_kv, cpos = cache["c_kv"].float(), cache["pos"]
+    q_abs = torch.einsum("bshk,rhk->bhr", q_nope.float(), p.w_uk.float())
+    s = (torch.einsum("bhr,bsr->bhs", q_abs, c_kv)
+         + torch.einsum("bshk,bSk->bhS", q_rope.float(),
+                        cache["k_rope"].float()))
+    s = s * (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    cp, ps = cpos[:, None, :], pos[:, None, None]
+    ok = (cp <= ps) & (cp >= 0)
+    if window > 0:
+        ok &= cp > ps - window
+    pr = torch.softmax(s.masked_fill(~ok, NEG_INF), dim=-1)
+    ctx = torch.einsum("bhs,bsr->bhr", pr, c_kv)
+    out = torch.einsum("bhr,rhk->bhk", ctx, p.w_uv.float())
+    return _out(p, out[:, None], dt), cache
+
+
 def forward(p, cfg: AttnConfig, x, positions, window: int,
             impl="blocked_causal"):
-    _no_mla(cfg)
+    if cfg.mla:
+        return mla_forward(p, cfg, x, positions, window, impl)
     return gqa_forward(p, cfg, x, positions, window, impl)
 
 
 def prefill(p, cfg: AttnConfig, x, positions, window: int, impl,
             cache_len: int):
-    _no_mla(cfg)
+    if cfg.mla:
+        return mla_prefill(p, cfg, x, positions, window, impl, cache_len)
     return gqa_prefill(p, cfg, x, positions, window, impl, cache_len)
 
 
 def decode(p, cfg: AttnConfig, x, pos, window: int, cache, step: int):
-    _no_mla(cfg)
+    if cfg.mla:
+        return mla_decode(p, cfg, x, pos, window, cache, step)
     return gqa_decode(p, cfg, x, pos, window, cache, step)

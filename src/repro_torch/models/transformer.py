@@ -1,10 +1,11 @@
 """Decoder-only LM (counterpart of ``repro.models.transformer``): the
 dense configurations (gemma2 / gemma3: local:global alternation, softcaps,
-GeGLU, sandwich norms; starcoder2: sliding window, plain GELU) and the MoE
+GeGLU, sandwich norms; starcoder2: sliding window, plain GELU), the MoE
 ones (granite-moe: every layer's FFN a routed MoE; a dense-FFN prefix
-with ``first_dense_layers``). The MoE layers' load-balance aux is summed
-over the layers by ``backbone`` and weighted into ``loss_fn``; prefill
-and decode drop it, as the reference does.
+with ``first_dense_layers``) and deepseek-v3 (MLA attention, a dense
+prefix, routed and shared experts, MTP). The MoE layers' load-balance aux
+is summed over the layers by ``backbone`` and weighted into ``loss_fn``;
+prefill and decode drop it, as the reference does.
 
 Layers are an ``nn.ModuleList`` walked in order, where the reference scans
 stacked layers. ``loss_fn`` is the causal LM loss through the chunked
@@ -15,8 +16,17 @@ own parameters as a tree for ``train.loop``, and ``loss_fn`` takes the
 model or that tree. ``prefill`` runs a batch of prompts and builds one KV
 cache per layer (a W-slot ring for a window-W layer, ``max_seq`` slots for
 a global one); ``caches_by_run`` regroups them into the reference's runs.
-``decode_step`` writes the caches in place. MTP and MLA are not ported
-yet and raise.
+``decode_step`` writes the caches in place (an MLA layer's holds only
+``c_kv``, ``k_rope`` and ``pos``).
+
+With ``mtp_depth`` the model holds an ``MTP`` module (``proj`` and one
+extra ``Layer``) and ``loss_fn`` adds the reference's multi-token
+prediction term: [the backbone's last hidden state before ``final_norm``
+; the embedding of the label] projected, one more layer at window 0, the
+LM head against the labels shifted once more. The port runs that layer
+under ``cfg.remat`` like the others (the reference keeps it outside
+remat: the numbers are the same, the memory less). Prefill and decode
+never read it.
 """
 from __future__ import annotations
 
@@ -126,23 +136,28 @@ class Layer(nn.Module):
                     else nn.Parameter(w, requires_grad=False))
 
 
-class LM(nn.Module):
-    """``embed`` (V, D), ``final_norm`` (D,), optional ``lm_head`` (D, V)
-    and the blocks in order."""
+class MTP(nn.Module):
+    """The multi-token prediction module: ``proj`` (2·D, D) and one
+    ``layer``."""
 
-    def __init__(self, embed, final_norm, layers, lm_head=None):
+    def __init__(self, proj, layer: Layer):
+        super().__init__()
+        self.proj = nn.Parameter(proj, requires_grad=False)
+        self.layer = layer
+
+
+class LM(nn.Module):
+    """``embed`` (V, D), ``final_norm`` (D,), optional ``lm_head`` (D, V),
+    the blocks in order and, with ``mtp_depth``, ``mtp``."""
+
+    def __init__(self, embed, final_norm, layers, lm_head=None, mtp=None):
         super().__init__()
         self.embed = nn.Parameter(embed, requires_grad=False)
         self.final_norm = nn.Parameter(final_norm, requires_grad=False)
         self.lm_head = (None if lm_head is None
                         else nn.Parameter(lm_head, requires_grad=False))
         self.layers = nn.ModuleList(layers)
-
-
-def _check_supported(cfg: LMConfig):
-    if cfg.mla or cfg.mtp_depth:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA and MTP are not ported yet")
+        self.mtp = mtp
 
 
 def init(cfg: LMConfig, generator: torch.Generator, device=None) -> LM:
@@ -150,24 +165,26 @@ def init(cfg: LMConfig, generator: torch.Generator, device=None) -> LM:
     with the reference's distributions: normal × 1/√shape[0], the
     embedding normal × 1, norms zero. The numbers differ from
     ``jax.random``'s."""
-    _check_supported(cfg)
     dev = resolve_device(device)
     D, pdt = cfg.d_model, cfg.pdtype
 
     def zeros():
         return torch.zeros((D,), device=dev)
 
-    embed = ffnlib.normal_((cfg.vocab, D), generator, dev, pdt, scale=1.0)
-    lm_head = (None if cfg.tie_embeddings
-               else ffnlib.normal_((D, cfg.vocab), generator, dev, pdt))
-    layers = []
-    for dense in cfg.dense_layers():
-        layers.append(Layer(
+    def layer(dense):
+        return Layer(
             zeros(), attn.init(cfg.attn_cfg(), generator, dev, pdt),
             zeros(), ffnlib.init_ffn(cfg.ffn_cfg(dense), generator, dev, pdt),
             zeros() if cfg.post_norms else None,
-            zeros() if cfg.post_norms else None))
-    return LM(embed, zeros(), layers, lm_head)
+            zeros() if cfg.post_norms else None)
+
+    embed = ffnlib.normal_((cfg.vocab, D), generator, dev, pdt, scale=1.0)
+    lm_head = (None if cfg.tie_embeddings
+               else ffnlib.normal_((D, cfg.vocab), generator, dev, pdt))
+    layers = [layer(dense) for dense in cfg.dense_layers()]
+    mtp = (MTP(ffnlib.normal_((2 * D, D), generator, dev, pdt),
+               layer(cfg.moe is None)) if cfg.mtp_depth else None)
+    return LM(embed, zeros(), layers, lm_head, mtp)
 
 
 def _embed(params: LM, cfg: LMConfig, tokens):
@@ -218,11 +235,12 @@ def param_tree(model: LM) -> dict:
     """The model's own parameters as a tree: ``{"embed", "final_norm",
     ["lm_head"], "layers": [{"attn": {"wq", "wk", "wv", "wo"},
     "attn_norm", "ffn": {"w_in", "w_out", ["w_gate"]}, "ffn_norm",
-    ["attn_post", "ffn_post"]}, …]}``, one entry a layer where the
-    reference stacks them; an MoE layer's ``ffn`` is ``{"router",
-    "w_gate", "w_in", "w_out", ["shared": {"w_in", "w_out",
-    ["w_gate"]}]}``. A train state built on it updates the model in
-    place."""
+    ["attn_post", "ffn_post"]}, …], ["mtp": {"proj", "layer": {…}}]}``,
+    one entry a layer where the reference stacks them; an MoE layer's
+    ``ffn`` is ``{"router", "w_gate", "w_in", "w_out", ["shared": {"w_in",
+    "w_out", ["w_gate"]}]}``, an MLA layer's ``attn`` ``{"w_dq", "q_norm",
+    "w_uq", "w_dkv", "kv_norm", "w_uk", "w_uv", "wo"}``. A train state
+    built on it updates the model in place."""
     def nested(mod):
         out: dict = {}
         for name, p in mod.named_parameters():
@@ -237,6 +255,8 @@ def param_tree(model: LM) -> dict:
     if model.lm_head is not None:
         tree["lm_head"] = model.lm_head
     tree["layers"] = [nested(lp) for lp in model.layers]
+    if model.mtp is not None:
+        tree["mtp"] = nested(model.mtp)
     return tree
 
 
@@ -273,7 +293,6 @@ def _remat(fn, remat: str, *args):
 def backbone(params: LM, cfg: LMConfig, tokens):
     """tokens (B, S) → final hidden states (B, S, D), aux loss (a 0-d f32
     tensor). Each layer runs under ``cfg.remat``."""
-    _check_supported(cfg)
     params = _as_model(params)
     x = _embed(params, cfg, tokens)
     positions = _positions(tokens)
@@ -306,16 +325,51 @@ def _lm_head_loss(params, cfg: LMConfig, x, labels):
                                     softcap_val=cfg.logit_softcap)
 
 
+def _mtp_loss(params, cfg: LMConfig, x, tokens, labels):
+    """The reference's MTP term: predict t + 2 from [h_t ; embed(label_t)]
+    (h before ``final_norm``, ids < 0 read row 0) through ``mtp.proj``
+    and one layer at window 0, against the labels shifted once more (the
+    end filled with −1, which the loss ignores). → (mtp_loss, the layer's
+    aux)."""
+    if params.mtp is None:
+        raise ValueError(f"{cfg.name}: mtp_depth is {cfg.mtp_depth} but the "
+                         "parameters hold no mtp")
+    emb_next = params.embed[labels.clamp(min=0).long()].to(x.dtype)
+    h = torch.cat([x, emb_next], -1) @ params.mtp.proj.to(x.dtype)
+    positions = _positions(tokens)
+    lp = params.mtp.layer
+
+    def layer(h):
+        h, aux, _ = _layer_fwd(lp, cfg, cfg.moe is None, h, lambda z: (
+            attn.forward(lp.attn, cfg.attn_cfg(), z, positions, 0,
+                         cfg.attn_impl), None))
+        return h, aux
+
+    h, aux = _remat(layer, cfg.remat, h)
+    mtp_labels = torch.cat([labels[:, 1:], torch.full_like(labels[:, :1],
+                                                           -1)], 1)
+    return _lm_head_loss(params, cfg, h, mtp_labels), aux
+
+
 def loss_fn(params, cfg: LMConfig, tokens, labels):
-    """Causal LM loss (+ the aux balance loss, 0 for dense FFNs).
-    tokens / labels (B, S); ``params`` an ``LM`` or its ``param_tree``.
-    Returns (loss, {"lm_loss", "aux_loss", "loss"})."""
-    _check_supported(cfg)
+    """Causal LM loss (+ the aux balance loss, 0 for dense FFNs; + the MTP
+    term with ``mtp_depth``). tokens / labels (B, S); ``params`` an ``LM``
+    or its ``param_tree``. Returns (loss, {"lm_loss", "aux_loss",
+    ["mtp_loss"], "loss"}); ``aux_loss`` is the backbone's, as the
+    reference reports it, while the total weights the MTP layer's aux
+    too."""
     params = _as_model(params)
     x, aux = backbone(params, cfg, tokens)
     loss = _lm_head_loss(params, cfg, x, labels)
+    metrics = {"lm_loss": loss, "aux_loss": aux}
+    if cfg.mtp_depth:
+        mtp_loss, mtp_aux = _mtp_loss(params, cfg, x, tokens, labels)
+        aux = aux + mtp_aux
+        loss = loss + cfg.mtp_loss_weight * mtp_loss
+        metrics["mtp_loss"] = mtp_loss
     total = loss + cfg.aux_loss_weight * aux
-    return total, {"lm_loss": loss, "aux_loss": aux, "loss": total}
+    metrics["loss"] = total
+    return total, metrics
 
 
 def _runs(cfg: LMConfig, max_seq: int):
@@ -351,7 +405,6 @@ def caches_by_run(cfg: LMConfig, caches: list[dict]) -> list[dict]:
 def prefill(params: LM, cfg: LMConfig, tokens, max_seq: int):
     """Run the prompt, build per-layer caches. Returns (last_logits
     (B, 1, V), caches)."""
-    _check_supported(cfg)
     x = _embed(params, cfg, tokens)
     positions = _positions(tokens)
     caches = []
@@ -368,7 +421,6 @@ def decode_step(params: LM, cfg: LMConfig, token, pos, caches, step: int):
     """One decode step. token: (B,) int; pos: (B,) abs position; step: the
     ring-write counter. Writes ``caches`` in place; returns (logits (B, V),
     caches)."""
-    _check_supported(cfg)
     x = _embed(params, cfg, token)[:, None]
     for lp, dense, w, cache in zip(params.layers, cfg.dense_layers(),
                                    cfg.windows(), caches):

@@ -23,7 +23,7 @@ from repro_torch.kernels import ref
 torch.set_num_threads(1)
 
 BM = 64                     # a consumer warpgroup's query rows
-TILE_BN = (80, 128)         # keys per tile at head_dim 256 and 64 / 128
+TILE_BN = (80, 112, 128)    # keys per tile at head_dim 256, 192, 64 / 128
 WINDOWS = ("none", "1", "BN-1", "BN", "BN+1", "random")
 
 
@@ -126,7 +126,10 @@ def _check_blocked(seed, B, Hq, Hkv, Sq, Sk, D, causal, window, cap, BN):
     (1, 2, 1, 16, 1, 64, True, 0, None, 80),        # one key, 15 rows see none
     (1, 24, 8, 200, 200, 64, True, 0, None, 128),   # granite-moe's layer
     (1, 3, 1, 129, 129, 64, True, 127, 50.0, 128),  # tile edges at D = 64
-    (1, 3, 1, 100, 257, 64, True, 128, None, 128)])
+    (1, 3, 1, 100, 257, 64, True, 128, None, 128),
+    (1, 4, 4, 300, 300, 192, True, 0, None, 112),   # MLA's layer, group 1
+    (1, 3, 3, 225, 225, 192, True, 113, 50.0, 112),  # tile edges at D = 192
+    (1, 2, 2, 100, 333, 192, True, 0, None, 112)])
 def test_flash_attention_blocked_matches_jax(B, Hq, Hkv, Sq, Sk, D, causal,
                                              window, cap, BN):
     _check_blocked(5, B, Hq, Hkv, Sq, Sk, D, causal, window, cap, BN)
@@ -162,7 +165,8 @@ def test_tile_sizes_match_the_kernel_source():
     tiles = {int(d): int(n) for d, n in re.findall(
         r"struct Tile<(\d+)> \{\s*static constexpr int BN = (\d+);", src)}
     assert tiles == flash_attention.TILE_N
-    assert set(tiles) == set(flash_attention.HEAD_DIMS) == {64, 128, 256}
+    assert set(tiles) == set(flash_attention.HEAD_DIMS) == {64, 128, 192,
+                                                            256}
     cases = set(int(d) for d in re.findall(r"case (\d+):", src))
     assert cases == set(flash_attention.HEAD_DIMS)
     assert re.search(r"constexpr int WG_ROWS = (\d+);", src).group(1) == str(
@@ -171,15 +175,32 @@ def test_tile_sizes_match_the_kernel_source():
 
 @pytest.mark.parametrize("D", [32, 64, 96, 128, 192, 256])
 def test_check_args_takes_the_kernel_head_dims(D):
-    """The wrapper takes head_dim 64, 128 and 256 (the kernels' builds)
-    and raises ValueError for any other, before it looks at the device:
-    there is no plain fallback for a CUDA tensor."""
+    """The wrapper takes head_dim 64, 128, 192 and 256 (the kernels'
+    builds) and raises ValueError for any other, before it looks at the
+    device: there is no plain fallback for a CUDA tensor."""
     from repro_torch.kernels import flash_attention
 
     q = torch.zeros((1, 4, 8, D), dtype=torch.bfloat16)
     k = torch.zeros((1, 2, 8, D), dtype=torch.bfloat16)
-    if D in (64, 128, 256):
+    if D in (64, 128, 192, 256):
         assert flash_attention.check_args(q, k, k) == (1, 4, 2, 8, 8, D)
     else:
         with pytest.raises(ValueError, match="head_dim"):
             flash_attention.check_args(q, k, k)
+
+
+@pytest.mark.parametrize("S", [111, 113, 224])
+def test_flash_attention_blocked_mla_padded_v(S):
+    """MLA's use of the D = 192 build: q·k over 192 columns, v padded from
+    128 with zeros, n_kv = n_heads, at S one off and on the 112-key tile:
+    the model's columns 128-191 exactly 0 and the rest within the card's
+    bar of JAX's oracle on the unpadded v."""
+    (q, k, v), (qa, ka, va) = _bf16_case(S, 1, 3, 3, S, S, 192)
+    v[..., 128:] = 0
+    got = ref.flash_attention_blocked(q, k, v, BN=112)
+    assert not got[..., 128:].any()
+    want = np.asarray(jref.flash_attention_ref(
+        jnp.asarray(qa), jnp.asarray(ka), jnp.asarray(va[..., :128]),
+        scale=192 ** -0.5), np.float32)
+    np.testing.assert_allclose(got[..., :128].float().numpy(), want,
+                               rtol=2e-2, atol=2e-2)

@@ -158,8 +158,9 @@ def _blocked(q, k, v, do, causal, window, cap):
     kw = dict(causal=causal, window=window or None, softcap=cap)
     o, lse = ref.flash_attention_fwd_stats(q.float(), k.float(), v.float(),
                                            **kw)
-    got = ref.flash_attention_bwd_blocked(q, k, v, o.bfloat16(), lse, do,
-                                          **kw)
+    got = ref.flash_attention_bwd_blocked(
+        q, k, v, o.bfloat16(), lse, do,
+        columns=fa.BWD_COLUMNS.get(q.shape[-1]), **kw)
     assert [t.dtype for t in got] == [torch.bfloat16] * 3
     assert [t.shape for t in got] == [q.shape, k.shape, v.shape]
     return got, o, lse, kw
@@ -174,7 +175,9 @@ CASES = [  # B, Hq, Hkv, Sq, Sk, D, causal, window, cap
     (1, 2, 1, 129, 129, 128, True, 1, 50.0),
     (2, 3, 1, 65, 65, 256, True, 63, None),
     (1, 24, 8, 130, 130, 64, True, 0, None),        # granite-moe's layer
-    (1, 3, 1, 129, 129, 64, True, 127, None)]       # tile edges at D = 64
+    (1, 3, 1, 129, 129, 64, True, 127, None),       # tile edges at D = 64
+    (1, 4, 4, 130, 130, 192, True, 0, None),        # MLA's layer, group 1
+    (1, 3, 3, 129, 129, 192, True, 65, 50.0)]       # tile edges at D = 192
 # head_dim 64 with the softcap, held to the plain twin and JAX only: the
 # f64 control of test_bwd_blocked_rounds_p_and_ds rounds p in f64 where
 # the model rounds its f32 value, and at D = 64 (a gradient's scale is
@@ -195,7 +198,8 @@ def test_bwd_blocked_matches_plain(B, Hq, Hkv, Sq, Sk, D, causal, window,
 
 
 @pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,causal,window,cap",
-                         CASES[:3] + CASES[4:6] + CASES[7:8] + [CAP_64])
+                         CASES[:3] + CASES[4:6] + CASES[7:8] + CASES[9:]
+                         + [CAP_64])
 def test_bwd_blocked_matches_jax_vjp(B, Hq, Hkv, Sq, Sk, D, causal, window,
                                      cap):
     """Against jax.vjp of the JAX package's attention oracle on the same
@@ -301,3 +305,37 @@ def test_bwd_tile_sizes_match_the_kernel_source():
         fa.BWD_ROWS) == str(T)
     assert re.search(r"constexpr int QROWS = (\d+);", src).group(1) == str(
         fa.BWD_QROWS)
+    # The dK/dV pass's columns by consumer: all of D below the split's
+    # head_dim; from it consumer 0 the first 128, consumer 1 the rest.
+    split = int(re.search(r"bool SPLIT = D >= (\d+);", src).group(1))
+    assert re.search(r"c0 = SPLIT \? 128 \* w : 0;", src)
+    assert "dkdv_consumer<D, CAP, 128>" in src
+    assert "dkdv_consumer<D, CAP, D - 128>" in src
+    assert fa.BWD_COLUMNS == {
+        D: ((0, 128), (128, D - 128)) if D >= split else ((0, D),)
+        for D in fa.HEAD_DIMS}
+
+
+def test_bwd_blocked_mla_padded_v():
+    """MLA's use of the D = 192 build: v padded from 128 with zeros and dO
+    0 in those columns (the model cuts them off), q·k over 192, n_kv =
+    n_heads, S off the tiles: dv's padded columns exactly 0, every
+    gradient within TOL of jax.vjp of the oracle on the unpadded v, and
+    the split model (``BWD_COLUMNS[192]``) bit-equal to the unsplit one."""
+    q, k, v, do = _bf16_case(10, 1, 3, 3, 129, 129, 192)
+    v[..., 128:] = 0
+    do[..., 128:] = 0
+    got, _, lse, kw = _blocked(q, k, v, do, True, 0, None)
+    assert not got[2][..., 128:].any()
+    o, _ = ref.flash_attention_fwd_stats(q.float(), k.float(), v.float())
+    whole = ref.flash_attention_bwd_blocked(q, k, v, o.bfloat16(), lse, do)
+    assert all(torch.equal(a, b) for a, b in zip(got, whole))
+
+    def attn(q_, k_, v_):
+        return jref.flash_attention_ref(q_, k_, v_, scale=192 ** -0.5)
+
+    arrays = [jnp.asarray(t.float().numpy()) for t in (q, k, v, do)]
+    _, vjp = jax.vjp(attn, arrays[0], arrays[1], arrays[2][..., :128])
+    dq, dk, dv = vjp(arrays[3][..., :128])
+    dv = jnp.pad(dv, ((0, 0), (0, 0), (0, 0), (0, 64)))
+    _close(got, (dq, dk, dv), q, k, v, do, "jax")

@@ -790,12 +790,13 @@ def test_cuda_embedding_bag_matches_plain_version(cuda):
 def test_cuda_flash_attention_matches_plain_version(cuda):
     """On the card, bf16: the kernel against its plain version (f32 math)
     within rtol / atol 2e-2 — GQA with window and softcap, Sq < Sk, a
-    ragged length, non-causal, head_dim 64, 128 and 256, and (B, S, H, D)
-    activations passed through their strides; at the kernel's edges: Sq
-    and Sk off its tiles, Sq of 1 and 17, Sq > Sk (rows with no visible
-    key exactly 0), windows of 1 and a tile's keys ± 1, GQA groups of 1,
-    2 and 12; head_dim 64 at granite's layer and at these edges; every
-    case run twice and bit-equal."""
+    ragged length, non-causal, head_dim 64, 128, 192 and 256, and (B, S,
+    H, D) activations passed through their strides; at the kernel's
+    edges: Sq and Sk off its tiles, Sq of 1 and 17, Sq > Sk (rows with no
+    visible key exactly 0), windows of 1 and a tile's keys ± 1, GQA groups
+    of 1, 2 and 12; head_dim 64 at granite's layer and at these edges;
+    head_dim 192 at MLA's layer (group 1) and at these edges; every case
+    run twice and bit-equal."""
     rng = np.random.default_rng(13)
     bn = flash_attention.TILE_N
     cases = [(2, 8, 4, 300, 300, 256, True, 128, 50.0),
@@ -817,8 +818,15 @@ def test_cuda_flash_attention_matches_plain_version(cuda):
               (1, 3, 1, 17, 300, 64, True, None, None),
               (1, 3, 1, 700, 300, 64, True, None, 50.0),
               (1, 4, 2, 200, 200, 64, False, None, None)]
+    # head_dim 192 (MLA: q.k 128 + 64, n_kv = n_heads): its layer's
+    # heads, Sq and Sk off the 112-key tile, Sq < Sk, Sq > Sk, softcap.
+    cases += [(1, 128, 128, 300, 300, 192, True, None, None),
+              (1, 4, 4, 225, 225, 192, True, None, 50.0),
+              (1, 4, 4, 70, 333, 192, True, 129, None),
+              (1, 4, 4, 700, 300, 192, True, None, None),
+              (1, 4, 4, 200, 200, 192, False, None, 50.0)]
     cases += [(1, 8, 4, 600, 600, D, True, w, 50.0)
-              for D in (64, 128, 256)
+              for D in (64, 128, 192, 256)
               for w in (1, bn[D] - 1, bn[D], bn[D] + 1)]
     for B, Hq, Hkv, Sq, Sk, D, causal, win, cap in cases:
         q, k, v = (t.to(cuda) for t in _t(*_flash_case(

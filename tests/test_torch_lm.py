@@ -24,7 +24,8 @@ from repro.models import attention as jattn
 from repro.models import common as jcm
 from repro.models import transformer as jtf
 from repro_torch import convert
-from repro_torch.configs import gemma2_2b, lm_common, starcoder2_3b
+from repro_torch.configs import gemma2_2b, get_arch, lm_common
+from repro_torch.configs import starcoder2_3b
 from repro_torch.configs import gemma3_27b, granite_moe_3b_a800m
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
@@ -344,21 +345,31 @@ def test_lm_from_numpy_bf16_bit_exact_and_key_checks():
 
 
 def test_unported_configs_raise():
-    """MLA and MTP are not ported: init, the backbone and prefill raise
-    for them (an MoE config builds)."""
+    """MLA and MTP are ported: an MLA config and an MTP config build and
+    run the backbone and prefill (an MTP model's prefill never reads its
+    mtp module); the registry still raises for the equivariant GNNs."""
     gen = torch.Generator()
     base = granite_moe_3b_a800m.smoke_config()
-    tf.init(base, gen, device="cpu")
-    model = tf.init(gemma2_2b.smoke_config(), gen, device="cpu")
     toks = torch.zeros((1, 4), dtype=torch.int32)
-    for cfg in (dataclasses.replace(base, mla=attn.MLAConfig()),
+    mla = attn.MLAConfig(q_lora_rank=32, kv_lora_rank=16,
+                         qk_nope_head_dim=16, qk_rope_head_dim=8,
+                         v_head_dim=16)
+    for cfg in (dataclasses.replace(base, mla=mla),
                 dataclasses.replace(base, mtp_depth=1)):
-        with pytest.raises(NotImplementedError, match="MLA and MTP"):
-            tf.init(cfg, gen, device="cpu")
-        with pytest.raises(NotImplementedError):
-            tf.backbone(model, cfg, toks)
-        with pytest.raises(NotImplementedError):
-            tf.prefill(model, cfg, toks, 8)
+        model = tf.init(cfg, gen, device="cpu")
+        assert isinstance(model.layers[0].attn,
+                          attn.MLA if cfg.mla else attn.GQA)
+        assert (model.mtp is not None) == bool(cfg.mtp_depth)
+        with torch.no_grad():
+            x, _ = tf.backbone(model, cfg, toks)
+            logits, caches = tf.prefill(model, cfg, toks, 8)
+        assert x.shape == (1, 4, cfg.d_model)
+        assert logits.shape == (1, 1, cfg.vocab)
+        assert set(caches[0]) == ({"c_kv", "k_rope", "pos"} if cfg.mla
+                                  else {"k", "v", "pos"})
+    for name in ("egnn", "nequip", "mace"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            get_arch(name)
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):

@@ -395,7 +395,8 @@ def test_remat_bit_equal_to_none(remat):
 
 def test_param_tree_and_mtp():
     """param_tree holds the model's own parameters; loss_fn reads the
-    model or its tree alike; MTP is not ported."""
+    model or its tree alike; a config with MTP on a model without the
+    mtp module raises."""
     _, values, cfg = _models("gemma2-2b")
     model = convert.lm_from_numpy(_np(values), cfg, device="cpu")
     params = tf.param_tree(model)
@@ -408,7 +409,7 @@ def test_param_tree_and_mtp():
         a, _ = tf.loss_fn(model, cfg, _t(toks), _t(labels))
         b, _ = tf.loss_fn(params, cfg, _t(toks), _t(labels))
     assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="mtp"):
         tf.loss_fn(params, dataclasses.replace(cfg, mtp_depth=1), _t(toks),
                    _t(labels))
 
@@ -496,7 +497,8 @@ def _jax_example():
     return mod
 
 
-@pytest.mark.parametrize("arch", ["starcoder2-3b", "granite-moe-3b-a800m"])
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "granite-moe-3b-a800m",
+                                  "deepseek-v3-671b"])
 def test_launcher_batches_equal_reference_and_main_runs(tmp_path, capsys,
                                                         arch):
     cfg = gemma2_2b.smoke_config()
@@ -612,6 +614,16 @@ CUDA_BWD_CASES_64 = [
     (64, 3, 1, 127, 0, None), (64, 3, 1, 129, 0, None),
     (64, 4, 2, 300, 1, None), (64, 4, 2, 300, 127, None),
     (64, 4, 2, 300, 129, 50.0), (64, 4, 4, 200, 65, None)]
+# head_dim 192 (MLA: q.k 128 + 64, n_kv = n_heads, the consumers' 128 / 64
+# column split of the dK/dV pass) and its edges: S and the window one off
+# the 64-row tile and the dQ pass's 128-row block, with and without
+# softcap.
+CUDA_BWD_CASES_192 = [
+    (192, 16, 16, 300, 0, None), (192, 4, 4, 257, 0, 50.0),
+    (192, 3, 3, 63, 0, None), (192, 3, 3, 65, 0, 50.0),
+    (192, 3, 3, 127, 0, None), (192, 3, 3, 129, 0, None),
+    (192, 4, 4, 300, 1, None), (192, 4, 4, 300, 63, 50.0),
+    (192, 4, 4, 300, 129, None)]
 
 
 def _cuda_backward(cuda, D, Hq, Hkv, S, window, cap):
@@ -655,7 +667,8 @@ def test_cuda_backward_matches_plain(cuda, D, Hq, Hkv, S, window, cap):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("D,Hq,Hkv,S,window,cap",
-                         CUDA_BWD_CASES + CUDA_BWD_CASES_64)
+                         CUDA_BWD_CASES + CUDA_BWD_CASES_64
+                         + CUDA_BWD_CASES_192)
 def test_cuda_backward_within_its_scale(cuda, D, Hq, Hkv, S, window, cap):
     """On the card, the bar chip_smoke.py holds the kernel to (FA_BWD_TOL):
     each gradient's largest error within 2e-2 of its scale

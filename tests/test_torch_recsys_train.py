@@ -274,7 +274,7 @@ def test_registry_matches_reference():
     assert configs.ASSIGNED_ARCHS == jconfigs.ASSIGNED_ARCHS
     for name in configs.all_archs():
         if name in ("gemma2-2b", "starcoder2-3b", "gemma3-27b",
-                    "granite-moe-3b-a800m", "gat-cora",
+                    "deepseek-v3-671b", "granite-moe-3b-a800m", "gat-cora",
                     "two-tower-retrieval", "kg-specqp"):
             assert configs.get_arch(name).ARCH == name
         else:
