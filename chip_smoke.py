@@ -198,7 +198,19 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    MTP on held experts), and ``launch/train.py --arch deepseek-v3-671b``
    at smoke widths with q.k at 128 + 64 in bf16 and two injected
    failures;
-14. print the kernel table as one JSON line (``launches``: each kernel's
+14. the equivariant GNNs (``configs/{egnn,nequip,mace}``) at their
+   published widths: each CG tensor's sign and norm printed (a LAPACK that
+   flips a path's sign shows); over phase 8's ogb_products graph (drawn
+   there with positions, kept on the host), per model a warm-up and
+   GNN_FORWARDS timed forwards through ``apply`` with the counters read
+   around them (0 launches: the reference's models reach no Pallas
+   kernel), ms, nodes/s and peak GB; one forward on rotated positions held
+   to the equivariance bar; each layer driven on its own and held at
+   GNN_ORACLE_NODES nodes against a float64 numpy oracle fed that layer's
+   input; then at the molecule shape (128 molecules, 8,192 edges, 261
+   self-loops) the card's gradients against the CPU's (EGNN's finite), 4
+   ``TRAIN_CFG`` steps timed and ``smoke()`` on the card;
+15. print the kernel table as one JSON line (``launches``: each kernel's
    count on its own path, so 0 for ``neigh_softmax_agg`` on
    ``gat.apply``, phase 10's steps for ``embedding_bag_backward`` and
    phase 11's for ``flash_attention_backward``;
@@ -228,13 +240,14 @@ and stops the same way; ``--bag-bwd-only`` runs phases 1-2 and phase 10's
 ``--profile`` its time by kernel (the sort's passes, the segment pass),
 and stops the same way; ``--moe-only`` runs phases 1-2 and phase 12, and
 stops the same way; ``--mla-only`` runs phases 1-2 and phase 13, and
-stops the same way.
+stops the same way; ``--e3gnn-only`` runs phases 1-2 and phase 14 (the
+graph drawn there), and stops the same way.
 ``--profile`` adds ``torch.profiler``
 windows (device busy share, time by kernel) over one retrieval query in
 each mode, the serving batches, one LM prefill with 4 decode steps (of
 gemma2-2b, granite-moe-3b-a800m and deepseek-v3-671b), one GAT forward,
-one full-width LM train step of each and one specqp pass of the KG
-path.
+one forward of each equivariant GNN, one full-width LM train step of each
+and one specqp pass of the KG path.
 """
 from __future__ import annotations
 
@@ -2067,14 +2080,17 @@ def gat_oracle(np, torch, g, h, lp, slope: float, nodes, concat: bool):
     return agg.mean(axis=1)
 
 
-def gnn_path(np, torch, ops, dev, prof: bool = False):
+def gnn_path(np, torch, ops, dev, prof: bool = False, keep=None):
     """Phase 8: neigh_softmax_agg checked and timed; gat-cora at the
     ogb_products shape on the card, GNN_FORWARDS timed forwards through
     gat.apply (which launches the kernel 0 times, as the reference's GAT
     never calls it); then per layer the kernel driven over every node on
     the layer's own data in the padded-degree layout, held against its
     plain version and the layer's segment-op aggregation, and the layer's
-    output against a float64 oracle at GNN_ORACLE_NODES nodes."""
+    output against a float64 oracle at GNN_ORACLE_NODES nodes. The graph
+    is drawn with positions (GAT ignores them; ``random_graph`` draws them
+    last, so no other field changes); with ``keep`` a dict, it is left
+    there on the host as ``keep["graph"]`` for phase 14."""
     from repro_torch.configs import gat_cora, gnn_common
     from repro_torch.data import graph_synth
     from repro_torch.models.gnn import gat, graph as G, padded
@@ -2086,7 +2102,7 @@ def gnn_path(np, torch, ops, dev, prof: bool = False):
     t0 = time.perf_counter()
     g = graph_synth.random_graph(n, sh["n_edges"], sh["d_feat"],
                                  n_classes=sh["n_classes"], seed=SEED,
-                                 geometric=gat_cora.GEOMETRIC, device=dev)
+                                 geometric=True, device=dev)
     torch.cuda.synchronize()
     print(f"GNN graph {GNN_SHAPE}: {n} nodes, {sh['n_edges']} edges, "
           f"{sh['d_feat']} features, {sh['n_classes']} classes, made on "
@@ -2187,6 +2203,8 @@ def gnn_path(np, torch, ops, dev, prof: bool = False):
     if prof:
         profile_window(torch, f"one GAT forward over {n} nodes",
                        lambda: gat.apply(params, cfg, g))
+    if keep is not None:
+        keep["graph"] = graph_to(torch, g, "cpu")
     del g, params, out
     torch.cuda.empty_cache()
     return row, apply_launches
@@ -4447,6 +4465,472 @@ def mla_path(np, torch, ops, dev, prof: bool = False):
     return fwd, bwd
 
 
+# Phase 14: the equivariant GNNs (egnn, nequip, mace) at their published
+# widths: inference over the ogb_products graph with positions (phase 8's
+# graph, drawn with geometric=True), each layer held at GNN_ORACLE_NODES
+# nodes against a float64 oracle fed the layer's own input, one forward
+# on rotated positions held to the equivariance bar; training at the
+# molecule shape (128 molecules x 30 atoms, 8,192 edges), the card's
+# gradients against the CPU's. They reach no TPU kernel and launch none.
+E3GNN_ARCHS = ("egnn", "nequip", "mace")
+E3GNN_TRAIN_SHAPE = "molecule"
+E3GNN_TRAIN_STEPS = 4
+# Equivariance: the reference's bar (tests/test_models_gnn.py), the
+# largest error over a block's largest |value|.
+E3GNN_EQUI_TOL = 1e-4
+# Each CG tensor's sign (its first entry of |value| > 1e-9 in C order) over
+# e3.paths(2), as numpy 2.0.2's LAPACK gives them on an x86 host: a LAPACK
+# that returns the other null vector of a path shows against this.
+E3_CG_SIGNS = "+-+-+--++++-+--"
+
+
+def graph_to(torch, g, dev):
+    """The graph with every tensor field on ``dev``."""
+    return dataclasses.replace(g, **{
+        f.name: getattr(g, f.name).to(dev) for f in dataclasses.fields(g)
+        if getattr(g, f.name) is not None})
+
+
+def e3_blocks(arch: str, out) -> dict:
+    """Named blocks of an ``apply`` result: EGNN's h and x; each l of
+    NequIP's and MACE's features, and MACE's node energies."""
+    if arch == "egnn":
+        return {"h": out[0], "x": out[1]}
+    feats, energy = (out, None) if arch == "nequip" else out
+    blocks = {f"l={l}": feats[l] for l in sorted(feats)}
+    if energy is not None:
+        blocks["node_energy"] = energy
+    return blocks
+
+
+def print_cg_signs(np) -> None:
+    """One line a CG path of e3.paths(2): its sign and Frobenius norm, so
+    that a LAPACK that flips a path's sign on this host shows."""
+    from repro_torch.models.gnn import e3
+
+    signs = ""
+    for p, want in zip(e3.paths(2), E3_CG_SIGNS):
+        c = e3.cg(*p).ravel()
+        k = int(np.flatnonzero(np.abs(c) > 1e-9)[0])
+        sign = "+" if c[k] > 0 else "-"
+        signs += sign
+        print(f"CG {p}: entry {k} = {c[k]:+.6f}, sign {sign} "
+              f"({'as' if sign == want else 'FLIPPED against'} the x86 "
+              f"host's {want}), Frobenius norm {np.linalg.norm(c):.12f}")
+    print(f"CG signs over e3.paths(2): {signs} "
+          f"({'equal to' if signs == E3_CG_SIGNS else 'differ from'} the "
+          f"x86 host's {E3_CG_SIGNS})")
+
+
+def in_edges(np, torch, g, nodes):
+    """The valid in-edges of ``nodes`` (sorted, unique): their ids on the
+    card, each edge's position in ``nodes`` and its source ids (host)."""
+    pick = torch.zeros(g.node_mask.shape[0], dtype=torch.bool,
+                       device=nodes.device)
+    pick[nodes] = True
+    e = torch.nonzero((g.edge_src >= 0) & pick[g.edge_dst.long()]).squeeze(1)
+    pos = np.searchsorted(nodes.cpu().numpy(),
+                          g.edge_dst[e].cpu().numpy().astype(np.int64))
+    return e, pos, g.edge_src[e].long()
+
+
+def f64(t):
+    return t.detach().double().cpu().numpy()
+
+
+def np_seg_sum(np, x, pos, n: int):
+    """Σ of the rows of ``x`` by segment ``pos`` → (n, ...) (reduceat over
+    the rows sorted by segment; empty segments 0)."""
+    order = np.argsort(pos, kind="stable")
+    counts = np.bincount(pos, minlength=n)
+    live = counts > 0
+    out = np.zeros((n,) + x.shape[1:])
+    out[live] = np.add.reduceat(x[order], (np.cumsum(counts) - counts)[live],
+                                axis=0)
+    return out
+
+
+def np_mix(np, x, w):
+    """(n, C, d) mixed over channels by (C, C') → (n, C', d)."""
+    return (x.transpose(0, 2, 1) @ w).transpose(0, 2, 1)
+
+
+def np_silu(np, z):
+    with np.errstate(over="ignore"):
+        return z / (1.0 + np.exp(-z))
+
+
+def np_edge_basis(np, g, e, cfg):
+    """float64 radial basis and harmonics of edges ``e`` (numpy, from the
+    card's positions): the reference's formulas."""
+    from repro_torch.models.gnn import e3
+
+    src = g.edge_src[e].long()
+    dst = g.edge_dst[e].long()
+    diff = f64(g.positions[dst]) - f64(g.positions[src])
+    r = np.sqrt((diff * diff).sum(-1) + 1e-12)
+    rhat = diff / r[:, None]
+    centers = np.linspace(0.0, cfg.cutoff, cfg.n_rbf)
+    width = cfg.cutoff / cfg.n_rbf
+    rbf = np.exp(-((r[:, None] - centers[None, :]) ** 2) / (2 * width**2))
+    rbf *= 0.5 * (np.cos(np.pi * np.clip(r / cfg.cutoff, 0, 1)) + 1.0)[
+        :, None]
+    ok = (r > 1e-6)[:, None]
+    return rbf, [e3.sh(l, rhat) * ok for l in range(cfg.l_max + 1)]
+
+
+def egnn_oracle(np, torch, g, h, x, lp, nodes):
+    """One EGNN layer's (h, x) at ``nodes`` in float64 from the card's
+    float32 layer input."""
+    e, pos, src = in_edges(np, torch, g, nodes)
+    hv, xv = f64(h[nodes]), f64(x[nodes])
+    hs, xs = f64(h[src]), f64(x[src])
+
+    def mlp(p, z, act_last=False):
+        for i in range(len(p)):
+            z = z @ f64(p[f"w{i}"])
+            if i < len(p) - 1 or act_last:
+                z = np_silu(np, z)
+        return z
+
+    diff = xv[pos] - xs
+    d2 = (diff * diff).sum(-1, keepdims=True)
+    m = mlp(lp["edge_mlp"], np.concatenate([hv[pos], hs, d2], -1), True)
+    w = np.tanh(mlp(lp["coord_mlp"], m))
+    agg = np_seg_sum(np, m, pos, len(hv))
+    dx = np_seg_sum(np, diff / (np.sqrt(d2) + 1.0) * w, pos, len(hv))
+    deg = np.bincount(pos, minlength=len(hv))[:, None]
+    return {"h": hv + mlp(lp["node_mlp"], np.concatenate([hv, agg], -1)),
+            "x": xv + dx / np.maximum(deg, 1.0)}
+
+
+def nequip_oracle(np, torch, cfg, g, feats, lp, nodes):
+    """One NequIP interaction block's irreps at ``nodes`` in float64 from
+    the card's float32 block input."""
+    from repro_torch.models.gnn import e3
+
+    e, pos, src = in_edges(np, torch, g, nodes)
+    C, L = cfg.d_hidden, cfg.l_max
+    rbf, sh_e = np_edge_basis(np, g, e, cfg)
+    paths_ = e3.paths(L)
+    rw = (np_silu(np, rbf @ f64(lp["rad_w0"])) @ f64(lp["rad_w1"])).reshape(
+        len(rbf), len(paths_), C)
+    fs = {l: f64(feats[l][src]) for l in feats}
+    fv = {l: f64(feats[l][nodes]) for l in feats}
+    msgs = {l: 0.0 for l in fv}
+    for pi, (li, lf, lo) in enumerate(paths_):
+        c = e3.cg(li, lf, lo)                   # (i, f, o)
+        t = np.einsum("ef,ifo->eio", sh_e[lf], c, optimize=True)
+        msgs[lo] = msgs[lo] + (fs[li] @ t) * rw[:, pi, :, None]
+    out = {l: fv[l] + np_mix(np, np_seg_sum(np, msgs[l], pos, len(nodes))
+                             / cfg.avg_neighbors ** 0.5,
+                             f64(lp[f"self_{l}"])) for l in fv}
+    scal = out[0][:, :, 0]
+    gates = 1.0 / (1.0 + np.exp(-(scal @ f64(lp["gate_w"]))))
+    gates = gates.reshape(len(scal), L, C)
+    new = {"l=0": np_silu(np, scal)[:, :, None]}
+    for l in range(1, L + 1):
+        new[f"l={l}"] = out[l] * gates[:, l - 1][:, :, None]
+    return new
+
+
+def mace_oracle(np, torch, cfg, g, feats, lp, nodes):
+    """One MACE layer's irreps at ``nodes`` in float64 from the card's
+    float32 layer input (the node energies are their l = 0 scalars)."""
+    from repro_torch.models.gnn import e3
+
+    e, pos, src = in_edges(np, torch, g, nodes)
+    C, L = cfg.d_hidden, cfg.l_max
+    rbf, sh_e = np_edge_basis(np, g, e, cfg)
+    rw = (np_silu(np, rbf @ f64(lp["rad_w0"])) @ f64(lp["rad_w1"])).reshape(
+        len(rbf), L + 1, C)
+    hj = f64(feats[0][src][:, :, 0])
+    fv = {l: f64(feats[l][nodes]) for l in feats}
+    A = {l: np_seg_sum(np, (rw[:, l] * hj)[:, :, None] * sh_e[l][:, None, :],
+                       pos, len(nodes)) / cfg.avg_neighbors ** 0.5
+         for l in range(L + 1)}
+
+    def cg_product(u, v, c):                    # Σ_ij u_i v_j C[i, j, o]
+        n_, ch = u.shape[:2]
+        return ((u[:, :, :, None] * v[:, :, None, :]).reshape(n_ * ch, -1)
+                @ c.reshape(-1, c.shape[2])).reshape(n_, ch, -1)
+
+    b2_w, b3_w = f64(lp["b2_w"]), f64(lp["b3_w"])
+    B2 = {l: 0.0 for l in range(L + 1)}
+    for pi, p in enumerate(e3.paths(L)):
+        B2[p[2]] = B2[p[2]] + cg_product(A[p[0]], A[p[1]], e3.cg(*p)) \
+            * b2_w[pi][None, :, None]
+    B = {l: A[l] + B2[l] for l in range(L + 1)}
+    if cfg.correlation >= 3:
+        for pi, p in enumerate(e3.paths(L)):
+            B[p[2]] = B[p[2]] + cg_product(B2[p[0]], A[p[1]], e3.cg(*p)) \
+                * b3_w[pi][None, :, None]
+    return {f"l={l}": np_mix(np, B[l], f64(lp[f"msg_{l}"]))
+            + np_mix(np, fv[l], f64(lp[f"res_{l}"])) for l in range(L + 1)}
+
+
+def e3gnn_layer_checks(np, torch, arch, model, cfg, params, g, nodes, out):
+    """Each layer driven on its own (the model's layer function) and held
+    at ``nodes`` against the float64 oracle fed that layer's input; the
+    last layer's output against ``apply``'s."""
+    n = g.node_mask.shape[0]
+    worst = []
+    with torch.no_grad():
+        if arch == "egnn":
+            h, x, deg = model._embed(params, g)
+            state = (h, x)
+        else:
+            state = model._embed(params, cfg, g)
+        energy = None
+        for i in range(cfg.n_layers):
+            lp = params[f"layer_{i}"]
+            if arch == "egnn":
+                nxt = model._layer(lp, g, *state, deg, n)
+                want = egnn_oracle(np, torch, g, *state, lp, nodes)
+                got = {"h": nxt[0], "x": nxt[1]}
+            elif arch == "nequip":
+                nxt = model._interact(lp, cfg, g, state, n)
+                want = nequip_oracle(np, torch, cfg, g, state, lp, nodes)
+                got = e3_blocks(arch, nxt)
+            else:
+                nxt = model._layer(lp, cfg, g, state, n)
+                want = mace_oracle(np, torch, cfg, g, state, lp, nodes)
+                got = e3_blocks(arch, (nxt, None))
+                scal = nxt[0][:, :, 0]
+                energy = scal if energy is None else energy + scal
+            errs = []
+            for k, w in want.items():
+                a = f64(got[k][nodes])
+                atol = AGG_ATOL * float(np.abs(w).max())
+                err = float(np.abs(a - w).max())
+                if not np.allclose(a, w, rtol=AGG_RTOL, atol=atol):
+                    fail(f"{arch} layer {i} block {k} differs from the "
+                         f"float64 oracle at {len(nodes)} nodes: max abs "
+                         f"err {err:.4g}, block's largest "
+                         f"{float(np.abs(w).max()):.4g}")
+                errs.append(f"{k} {err:.3g} of {float(np.abs(w).max()):.3g}")
+            print(f"{arch} layer {i}: within rtol {AGG_RTOL} atol {AGG_ATOL}"
+                  f" x the block's largest of the float64 oracle at "
+                  f"{len(nodes)} nodes (max abs err: {', '.join(errs)})")
+            worst.append(errs)
+            state = nxt
+        final = ({"h": state[0], "x": state[1]} if arch == "egnn" else
+                 e3_blocks(arch, state if arch == "nequip"
+                           else (state, energy)))
+        for k, a in final.items():
+            b = out[k]
+            if not torch.allclose(a, b, rtol=AGG_RTOL,
+                                  atol=AGG_ATOL * float(b.abs().max())):
+                fail(f"{arch}: the layer-by-layer {k} differs from apply's "
+                     f"by {float((a - b).abs().max()):.4g}")
+    return worst
+
+
+def e3gnn_equivariance(np, torch, arch, model, cfg, params, g, out):
+    """One forward on positions rotated by a random R: EGNN's h invariant
+    and x rotated, each irrep block l rotated by D_l(R) (MACE's node
+    energies invariant), within E3GNN_EQUI_TOL of the block's largest."""
+    from repro_torch.models.gnn import e3
+
+    R = e3._rand_rotations(np.random.default_rng(SEED + 3), 1)[0]
+    rt = torch.from_numpy(R.astype(np.float32)).to(g.positions.device)
+    rot = e3_blocks(arch, model.apply(params, cfg, dataclasses.replace(
+        g, positions=g.positions @ rt.T)))
+    rels = []
+    for k, b in rot.items():
+        a = out[k]
+        if k == "x":
+            a = a @ rt.T
+        elif k.startswith("l=") and k != "l=0":
+            d = torch.from_numpy(e3.wigner(R, int(k[2:])).astype(
+                np.float32)).to(a.device)
+            a = torch.einsum("ncj,ij->nci", a, d)
+        rel = float((a - b).abs().max() / (a.abs().max() + 1e-9))
+        del a
+        rels.append(f"{k} {rel:.3g}")
+        if not rel < E3GNN_EQUI_TOL:
+            fail(f"{arch} is not equivariant on the rotated graph: block "
+                 f"{k} off by {rel:.4g} of its largest")
+    del rot
+    print(f"{arch} on positions rotated by R: every block within "
+          f"{E3GNN_EQUI_TOL} of its largest of the rotated output "
+          f"({', '.join(rels)})")
+
+
+def e3gnn_infer(np, torch, ops, dev, arch, g, prof: bool) -> dict:
+    """One model at config() widths over ``g`` (ogb_products with
+    positions): a warm-up and GNN_FORWARDS timed forwards through
+    ``apply`` with the counters read around them (0 launches), the
+    equivariance check and the per-layer oracle."""
+    from repro_torch.configs import get_arch, gnn_common
+
+    mod = get_arch(arch)
+    model = mod.model
+    cfg = gnn_common.shape_config(mod.config(), GNN_SHAPE)
+    n = g.node_mask.shape[0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params = model.init(cfg, gen, dev)
+    chunks = f"edge chunk {model.EDGE_CHUNK}" + (
+        f", node chunk {model.NODE_CHUNK}" if arch == "mace" else "")
+    print(f"{arch}: {cfg}; {chunks}")
+    out = model.apply(params, cfg, g)          # warm-up, off the clock
+    torch.cuda.synchronize()
+    del out
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    fwd = []
+    for _ in range(GNN_FORWARDS):
+        out = None
+        t = time.perf_counter()
+        out = model.apply(params, cfg, g)
+        torch.cuda.synchronize()
+        fwd.append(time.perf_counter() - t)
+    launches = ops.launches()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    fwd_ms = np.array(fwd) * 1e3
+    print(f"{arch} forward over {n} nodes: "
+          f"{[round(x, 3) for x in fwd_ms.tolist()]} ms | median "
+          f"{np.median(fwd_ms):.3f} ms | {n / np.median(fwd):.1f} nodes/s | "
+          f"peak allocated {peak_gb:.3f} GB")
+    print(f"{arch} forward launches ({GNN_FORWARDS} forwards): {launches}")
+    if any(launches.values()):
+        fail(f"{arch}.apply launched a kernel: {launches}")
+    out = e3_blocks(arch, out)
+    for k, t in out.items():
+        if t.shape[0] != n or not torch.isfinite(t).all():
+            fail(f"{arch} output {k} malformed: {tuple(t.shape)}")
+    t = time.perf_counter()
+    e3gnn_equivariance(np, torch, arch, model, cfg, params, g, out)
+    torch.cuda.empty_cache()
+    t_equi, t = time.perf_counter() - t, time.perf_counter()
+    nodes = torch.from_numpy(np.sort(np.random.default_rng(SEED).choice(
+        n, GNN_ORACLE_NODES, replace=False))).to(dev)
+    e3gnn_layer_checks(np, torch, arch, model, cfg, params, g, nodes, out)
+    print(f"{arch} checks: the rotated forward {t_equi:.1f} s, the layer "
+          f"by layer drive and its oracle {time.perf_counter() - t:.1f} s")
+    del out
+    torch.cuda.empty_cache()
+    if prof:
+        profile_window(torch, f"one {arch} forward over {n} nodes",
+                       lambda: model.apply(params, cfg, g))
+    return {"forward_ms": fwd_ms.tolist(), "peak_gb": peak_gb,
+            "launches": launches}
+
+
+def e3gnn_train(np, torch, ops, dev, arch) -> None:
+    """One model at config() widths on the molecule shape: the card's
+    gradients against the CPU's at the same weights (GAT_GRAD_RTOL and
+    GAT_GRAD_ATOL_OF_SCALE, every leaf finite), E3GNN_TRAIN_STEPS
+    TRAIN_CFG steps timed (median of the last 3), and ``smoke()`` on the
+    card."""
+    from repro_torch.configs import get_arch, gnn_common
+    from repro_torch.data import graph_synth
+    from repro_torch.train import loop, tree
+
+    mod = get_arch(arch)
+    model = mod.model
+    cfg = gnn_common.shape_config(mod.config(), E3GNN_TRAIN_SHAPE)
+    sh = gnn_common.GNN_SHAPES[E3GNN_TRAIN_SHAPE]
+    b = sh["n_graphs"]
+    gk = dict(batch=b, n_nodes=sh["n_nodes"] // b,
+              n_edges=sh["n_edges"] // b, d_feat=sh["d_feat"], seed=SEED)
+    g_cpu = graph_synth.molecule_batch(device="cpu", **gk)
+    g_dev = graph_synth.molecule_batch(device=dev, **gk)
+    loops = int(((g_cpu.edge_src == g_cpu.edge_dst)
+                 & (g_cpu.edge_src >= 0)).sum())
+    p_cpu = model.init(cfg, torch.Generator().manual_seed(SEED),
+                       device="cpu")
+    p_dev = tree.tree_map(lambda t: t.to(dev), p_cpu)
+    tc = gnn_common.TRAIN_CFG
+    s_cpu = loop.make_train_state(p_cpu, tc)
+    s_dev = loop.make_train_state(p_dev, tc)
+
+    def loss(p, gg):
+        return model.loss_fn(p, cfg, gg)
+
+    want, _ = loop.compute_grads(loss, s_cpu["params"], g_cpu)
+    got, _ = loop.compute_grads(loss, s_dev["params"], g_dev)
+    worst = 0.0
+    for (name, a), w in zip(tree.flatten(got), tree.leaves(want)):
+        a = a.cpu()
+        if not (torch.isfinite(a).all() and torch.isfinite(w).all()):
+            fail(f"{arch} gradient {name} is not finite")
+        atol = GAT_GRAD_ATOL_OF_SCALE * float(w.abs().max())
+        worst = max(worst, float(((a - w).abs() / (atol + GAT_GRAD_RTOL
+                                                   * w.abs())).max()))
+        if not torch.allclose(a, w, rtol=GAT_GRAD_RTOL, atol=atol):
+            fail(f"{arch} gradient {name} on the card differs from the "
+                 f"CPU's: max abs err {float((a - w).abs().max()):.4g}")
+    del got, want
+    step = loop.make_train_step(loss, tc)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    times, losses = [], []
+    for _ in range(E3GNN_TRAIN_STEPS):
+        t = time.perf_counter()
+        s_dev, m = step(s_dev, g_dev)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(m["loss"]))
+    launches = ops.launches()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    if any(launches.values()) or not np.isfinite(losses).all():
+        fail(f"{arch} train steps: launches {launches}, losses {losses}")
+    smoke = mod.smoke(device=dev)
+    if not np.isfinite(float(smoke["loss"])):
+        fail(f"{arch} smoke() on the card: loss {smoke}")
+    print(f"{arch} at {E3GNN_TRAIN_SHAPE} ({sh['n_graphs']} molecules, "
+          f"{sh['n_nodes']} nodes, {sh['n_edges']} edges, {loops} "
+          f"self-loops, {sh['d_feat']} features): gradients on the card "
+          f"finite and within rtol {GAT_GRAD_RTOL} atol "
+          f"{GAT_GRAD_ATOL_OF_SCALE} x the leaf's largest of the CPU's "
+          f"(worst at {worst:.3f} of the tolerance); {E3GNN_TRAIN_STEPS} "
+          f"steps {[round(t, 3) for t in times]} ms, median of the last 3 "
+          f"{float(np.median(times[1:])):.3f} ms, loss {losses[0]:.6f} -> "
+          f"{losses[-1]:.6f}, peak allocated {peak_gb:.3f} GB, launches "
+          f"{launches}; smoke() on the card: loss "
+          f"{float(smoke['loss']):.6f}")
+
+
+def e3gnn_path(np, torch, ops, dev, g=None, prof: bool = False) -> dict:
+    """Phase 14: the CG signs; egnn, nequip and mace at config() widths
+    over the ogb_products graph with positions (``g``, phase 8's graph on
+    the host, or drawn here) and trained at the molecule shape."""
+    from repro_torch.configs import gnn_common
+    from repro_torch.data import graph_synth
+
+    t0 = time.perf_counter()
+    print_cg_signs(np)
+    sh = gnn_common.GNN_SHAPES[GNN_SHAPE]
+    if g is None:
+        g = graph_synth.random_graph(sh["n_nodes"], sh["n_edges"],
+                                     sh["d_feat"], n_classes=sh["n_classes"],
+                                     seed=SEED, geometric=True, device=dev)
+        how = "made on the host and moved to the card"
+    else:
+        g = graph_to(torch, g, dev)
+        how = "phase 8's, moved back to the card"
+    torch.cuda.synchronize()
+    print(f"GNN graph {GNN_SHAPE} with positions: {sh['n_nodes']} nodes, "
+          f"{sh['n_edges']} edges, {how} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    rows = {}
+    for arch in E3GNN_ARCHS:
+        t = time.perf_counter()
+        rows[arch] = e3gnn_infer(np, torch, ops, dev, arch, g, prof)
+        torch.cuda.empty_cache()
+        print(f"{arch} over {GNN_SHAPE} took {time.perf_counter() - t:.1f} s")
+    del g
+    torch.cuda.empty_cache()
+    for arch in E3GNN_ARCHS:
+        e3gnn_train(np, torch, ops, dev, arch)
+        torch.cuda.empty_cache()
+    print(f"phase 14 took {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {pathlib.Path(__file__).name}: run "
@@ -4560,6 +5044,14 @@ def main() -> None:
         print(f"chip_smoke --mla-only took "
               f"{time.perf_counter() - T_START:.1f} s")
         return
+    if "--e3gnn-only" in sys.argv[1:]:
+        # Phases 1-2 and phase 14 alone: the equivariant GNNs.
+        rows = e3gnn_path(np, torch, ops, dev,
+                          prof="--profile" in sys.argv[1:])
+        print(json.dumps(rows))
+        print(f"chip_smoke --e3gnn-only took "
+              f"{time.perf_counter() - T_START:.1f} s")
+        return
     if "--shard-only" in sys.argv[1:]:
         # Phases 1-2 and phase 9 alone: the sharded paths.
         launches, nccl = shard_path(np, torch, ops, dev)
@@ -4585,8 +5077,11 @@ def main() -> None:
     for name, row in rows.items():
         row["launches"] = launches[name]
     prof = "--profile" in sys.argv[1:]
+    kept = {}
     for path in (retrieval_path, serving_path, lm_path, gnn_path):
-        row, path_launches = path(np, torch, ops, dev, prof)
+        row, path_launches = path(np, torch, ops, dev, prof,
+                                  **({"keep": kept} if path is gnn_path
+                                     else {}))
         row["launches"] = path_launches[row["name"]]
         rows[row["name"]] = row
         torch.cuda.empty_cache()
@@ -4617,6 +5112,9 @@ def main() -> None:
     rows["flash_attention"].update(fwd)
     rows["flash_attention_backward"].update(bwd)
     print(f"mla_path done at {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    e3gnn_path(np, torch, ops, dev, kept.pop("graph"), prof)
+    print(f"e3gnn_path done at {time.perf_counter() - t0:.1f} s")
     kernels = [rows[n] for n in ("rank_join_lookup", "merge_topk",
                                  "topk_score_pruned", "embedding_bag",
                                  "embedding_bag_backward",

@@ -1,9 +1,8 @@
 """Architecture registry: ``--arch <id>`` resolution for every entry point
 (counterpart of ``repro.configs``).
 
-The same eleven names as the reference. An architecture the port does not
-have yet (the equivariant GNNs) raises ``NotImplementedError``; an unknown
-name raises ``KeyError``, as in the reference.
+The same eleven names as the reference, each mapped to the port's config
+module; an unknown name raises ``KeyError``, as in the reference.
 """
 from __future__ import annotations
 
@@ -15,10 +14,10 @@ _ARCHS = {
     "gemma3-27b": "repro_torch.configs.gemma3_27b",
     "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
     "granite-moe-3b-a800m": "repro_torch.configs.granite_moe_3b_a800m",
-    "egnn": None,
+    "egnn": "repro_torch.configs.egnn",
     "gat-cora": "repro_torch.configs.gat_cora",
-    "nequip": None,
-    "mace": None,
+    "nequip": "repro_torch.configs.nequip",
+    "mace": "repro_torch.configs.mace",
     "two-tower-retrieval": "repro_torch.configs.two_tower_retrieval",
     # The paper's own engine as a first-class serving config (bonus arch).
     "kg-specqp": "repro_torch.configs.kg_specqp",
@@ -30,10 +29,6 @@ ASSIGNED_ARCHS = [a for a in _ARCHS if a != "kg-specqp"]
 def get_arch(name: str):
     if name not in _ARCHS:
         raise KeyError(f"unknown arch {name!r}; known: {list(_ARCHS)}")
-    if _ARCHS[name] is None:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported to PyTorch yet (ROADMAP.md, "
-            "Queue 1)")
     return importlib.import_module(_ARCHS[name])
 
 

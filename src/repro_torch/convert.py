@@ -2,9 +2,10 @@
 into the port.
 
 The arguments are numpy arrays: the ``TripleStore`` / ``RelaxTable``
-fields (the sketch as uint32 words), a two-tower, LM or GAT parameter
-tree, or a two-tower, LM or GAT train state. The results are the port's types
-on ``device``, so both packages then read the very same data.
+fields (the sketch as uint32 words), a two-tower, LM or GNN (GAT, EGNN,
+NequIP, MACE) parameter tree, or a train state of any of them. The
+results are the port's types on ``device``, so both packages then read the
+very same data.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe
 from repro_torch.models import recsys
 from repro_torch.models import transformer as tf
-from repro_torch.models.gnn import gat
+from repro_torch.models.gnn import egnn, gat, mace, nequip
 from repro_torch.train import tree
 
 
@@ -165,24 +166,65 @@ def _lm_layer_tree(values, cfg: tf.LMConfig) -> dict:
     return out
 
 
+def _tree_from_numpy(name, values, specs, dev) -> dict:
+    """A nested dict of arrays → float32 tensors on ``dev``, checked key
+    set by key set and shape by shape against ``specs`` (a nested dict of
+    ``(shape, scale)`` leaves, or of shapes)."""
+    _keys(name, values, specs)
+    out = {}
+    for k, spec in specs.items():
+        path = f"{name}.{k}" if name != "top-level" else k
+        if isinstance(spec, dict):
+            out[k] = _tree_from_numpy(path, values[k], spec, dev)
+            continue
+        shape = spec[0] if isinstance(spec[0], tuple) else spec
+        a = np.asarray(values[k], dtype=np.float32)
+        if a.shape != tuple(shape):
+            raise ValueError(f"{path} has shape {a.shape}, the config's is "
+                             f"{tuple(shape)}")
+        out[k] = _tensor(a, dev)
+    return out
+
+
 def gat_from_numpy(values, cfg: gat.GATConfig, device=None):
     """``values`` is the reference's ``gat.init(...)[0]`` as numpy arrays:
     ``{"layer_i": {"w", "a_src", "a_dst"}}``. Raises where a key set or a
     shape does not match ``cfg``."""
-    dev = resolve_device(device)
-    shapes = gat.layer_shapes(cfg)
-    _keys("top-level", values, shapes)
-    params = {}
-    for name, layer in shapes.items():
-        _keys(name, values[name], layer)
-        params[name] = {}
-        for k, shape in layer.items():
-            a = np.asarray(values[name][k], dtype=np.float32)
-            if a.shape != shape:
-                raise ValueError(f"{name}.{k} has shape {a.shape}, the "
-                                 f"config's is {shape}")
-            params[name][k] = _tensor(a, dev)
-    return params
+    return _tree_from_numpy("top-level", values, gat.layer_shapes(cfg),
+                            resolve_device(device))
+
+
+def egnn_from_numpy(values, cfg: egnn.EGNNConfig, device=None):
+    """``values`` is the reference's ``egnn.init(...)[0]`` as numpy arrays:
+    ``embed``, ``layer_i.{edge_mlp, coord_mlp, node_mlp}`` and ``head``,
+    each ``{"w<k>"}``. Raises where a key set or a shape does not match
+    ``cfg``."""
+    return _tree_from_numpy("top-level", values, egnn.param_specs(cfg),
+                            resolve_device(device))
+
+
+def nequip_from_numpy(values, cfg: nequip.NequIPConfig, device=None):
+    """``values`` is the reference's ``nequip.init(...)[0]`` as numpy
+    arrays: ``embed``, ``layer_i.{rad_w0, rad_w1, self_<l>, gate_w}``,
+    ``head0`` and ``head1``. Raises where a key set or a shape does not
+    match ``cfg``."""
+    return _tree_from_numpy("top-level", values, nequip.param_specs(cfg),
+                            resolve_device(device))
+
+
+def mace_from_numpy(values, cfg: mace.MACEConfig, device=None):
+    """``values`` is the reference's ``mace.init(...)[0]`` as numpy arrays:
+    ``embed``, ``layer_i.{rad_w0, rad_w1, b2_w, b3_w, msg_<l>, res_<l>}``,
+    ``head0`` and ``head1``. Raises where a key set or a shape does not
+    match ``cfg``."""
+    return _tree_from_numpy("top-level", values, mace.param_specs(cfg),
+                            resolve_device(device))
+
+
+_GNN_FROM_NUMPY = {gat.GATConfig: gat_from_numpy,
+                   egnn.EGNNConfig: egnn_from_numpy,
+                   nequip.NequIPConfig: nequip_from_numpy,
+                   mace.MACEConfig: mace_from_numpy}
 
 
 def train_state_from_numpy(values, cfg, device=None):
@@ -192,8 +234,9 @@ def train_state_from_numpy(values, cfg, device=None):
     ``two_tower_from_numpy``, returned as its ``param_tree``, so the state
     trains that model), an ``LMConfig`` (``lm_from_numpy``, returned as
     ``transformer.param_tree``: the reference's stacked layers and their
-    moments sliced into one entry a layer) or a ``GATConfig``
-    (``gat_from_numpy``). Moments keep their dtype (float32 or bfloat16,
+    moments sliced into one entry a layer) or the config of a GNN
+    (``gat_from_numpy``, ``egnn_from_numpy``, ``nequip_from_numpy``,
+    ``mace_from_numpy``). Moments keep their dtype (float32 or bfloat16,
     bit for bit); ``step`` is a 0-d int32."""
     dev = resolve_device(device)
     layout = None
@@ -203,8 +246,8 @@ def train_state_from_numpy(values, cfg, device=None):
     elif isinstance(cfg, tf.LMConfig):
         params = tf.param_tree(lm_from_numpy(values["params"], cfg, dev))
         layout = _lm_layer_tree
-    elif isinstance(cfg, gat.GATConfig):
-        params = gat_from_numpy(values["params"], cfg, dev)
+    elif type(cfg) in _GNN_FROM_NUMPY:
+        params = _GNN_FROM_NUMPY[type(cfg)](values["params"], cfg, dev)
     else:
         raise TypeError(f"no train state for a {type(cfg).__name__}")
 

@@ -5,14 +5,36 @@ one copy of ``lax.top_k``'s tie rule (the MoE router and the two-tower
 serving top-k use it).
 
 The reference's ``param`` / ``split`` / ``stack_layers`` machinery is
-replaced by the port's own parameters (``nn.Module``s); the numerics are
-the same: reductions in float32, results cast back to the input type.
+replaced by the port's own parameters (``nn.Module``s, or for the GNNs
+nested dicts of tensors built by ``init_tree``); the numerics are the
+same: reductions in float32, results cast back to the input type.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt
+
+
+def init_tree(specs: dict, generator: torch.Generator,
+              device: torch.device) -> dict:
+    """A nested dict of ``(shape, scale)`` or bare ``shape`` leaves → the
+    same dict of float32 tensors drawn normal × scale on ``device``, the
+    reference's ``param`` distribution (scale ``None`` or no scale:
+    1/√shape[0])."""
+    out = {}
+    for k, spec in specs.items():
+        if isinstance(spec, dict):
+            out[k] = init_tree(spec, generator, device)
+            continue
+        shape, scale = spec if isinstance(spec[0], tuple) else (spec, None)
+        if scale is None:
+            scale = 1.0 / math.sqrt(max(shape[0], 1))
+        out[k] = torch.randn(shape, generator=generator, device=device) \
+            * scale
+    return out
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor,

@@ -19,12 +19,12 @@ the gathered features for the backward.
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.types import resolve_device
+from repro_torch.models import common as cm
 from repro_torch.models.gnn import graph as G
 
 EDGE_CHUNK = 1 << 23
@@ -62,11 +62,7 @@ def init(cfg: GATConfig, generator: torch.Generator,
     """Random parameters on ``device`` (CUDA by default) with the
     reference's distribution: normal × 1/√shape[0]. The numbers differ from
     ``jax.random``'s; ``convert.gat_from_numpy`` carries the reference's."""
-    dev = resolve_device(device)
-    return {name: {k: torch.randn(shape, generator=generator, device=dev)
-                   / math.sqrt(max(shape[0], 1))
-                   for k, shape in layer.items()}
-            for name, layer in layer_shapes(cfg).items()}
+    return cm.init_tree(layer_shapes(cfg), generator, resolve_device(device))
 
 
 def aggregate(g: G.Graph, alpha: torch.Tensor, hw: torch.Tensor,
@@ -74,13 +70,11 @@ def aggregate(g: G.Graph, alpha: torch.Tensor, hw: torch.Tensor,
     """Σ over incoming edges of alpha · hw[src]: (E, H), (N, H, d) →
     (N, H, d), EDGE_CHUNK edges at a time (without gradients the messages
     are scaled in place to keep one chunk's buffer)."""
-    n_edges, chunk = g.edge_src.shape[0], EDGE_CHUNK
     out = hw.new_zeros((n_nodes + 1,) + hw.shape[1:])
     in_place = not torch.is_grad_enabled()
-    for lo in range(0, n_edges, chunk):
-        gc = dataclasses.replace(g, edge_src=g.edge_src[lo:lo + chunk],
-                                 edge_dst=g.edge_dst[lo:lo + chunk])
-        msgs, a = G.gather_src(gc, hw), alpha[lo:lo + chunk, :, None]
+    for lo, gc in G.edge_chunks(g, EDGE_CHUNK):
+        msgs = G.gather_src(gc, hw)
+        a = alpha[lo:lo + msgs.shape[0], :, None]
         msgs = msgs.mul_(a) if in_place else msgs * a
         G.scatter_add_(out, gc, msgs)
         del msgs
@@ -131,21 +125,8 @@ def apply(params, cfg: GATConfig, g: G.Graph) -> torch.Tensor:
 
 
 def loss_fn(params, cfg: GATConfig, g: G.Graph):
-    """``graph_reg``: mean squared error of each graph's summed node
-    outputs against its target. ``node_class``: mean cross-entropy over
-    the live nodes with a label ≥ 0. Returns (loss, {"loss"})."""
-    out = forward(params, cfg, g)
-    if cfg.task == "graph_reg":
-        n_graphs = int(g.labels.shape[0])
-        ids = g.graph_ids if g.graph_ids is not None else torch.zeros(
-            (out.shape[0],), dtype=torch.int32, device=out.device)
-        energy = out.new_zeros((n_graphs,)).index_add(
-            0, ids.long(), out[:, 0] * g.node_mask)
-        loss = torch.mean((energy - g.labels.float()) ** 2)
-        return loss, {"loss": loss}
-    mask = g.node_mask & (g.labels >= 0)
-    labels = torch.where(mask, g.labels, 0).long()
-    logp = F.log_softmax(out.float(), dim=-1)
-    nll = -logp.gather(1, labels[:, None])[:, 0]
-    loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
-    return loss, {"loss": loss}
+    """``graph.task_loss`` of the forward's outputs: ``graph_reg`` the
+    mean squared error of each graph's summed node outputs, ``node_class``
+    the mean cross-entropy over the live labelled nodes. Returns (loss,
+    {"loss"})."""
+    return G.task_loss(forward(params, cfg, g), g, cfg.task)

@@ -20,6 +20,7 @@ import dataclasses
 import math
 
 import torch
+import torch.nn.functional as F
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +60,14 @@ def gather_dst(g: Graph, x: torch.Tensor) -> torch.Tensor:
     return _gather(g.edge_dst, x)
 
 
+def edge_chunks(g: Graph, size: int):
+    """(lo, graph) for each run of ``size`` edges: the graph with only
+    those edges (views of ``g``'s), every node field as it is."""
+    for lo in range(0, g.edge_src.shape[0], size):
+        yield lo, dataclasses.replace(g, edge_src=g.edge_src[lo:lo + size],
+                                      edge_dst=g.edge_dst[lo:lo + size])
+
+
 def _ghost_dst(g: Graph, n_nodes: int) -> torch.Tensor:
     """Each edge's segment: its dst, or the ghost row for padding edges."""
     return torch.where(g.edge_src >= 0, g.edge_dst.long(), n_nodes)
@@ -90,6 +99,14 @@ def scatter_max(g: Graph, messages: torch.Tensor, n_nodes: int,
     return torch.where(torch.isfinite(out), out, fill)
 
 
+def in_degree(g: Graph, n_nodes: int, dtype=torch.float32) -> torch.Tensor:
+    """(N, 1) count of each node's valid in-edges, the denominator of
+    ``scatter_mean`` (exact integers in ``dtype``, so any order of the
+    count gives the same)."""
+    deg = torch.bincount(_ghost_dst(g, n_nodes), minlength=n_nodes + 1)
+    return deg[:n_nodes, None].to(dtype)
+
+
 def scatter_mean(g: Graph, messages: torch.Tensor,
                  n_nodes: int) -> torch.Tensor:
     s = scatter_sum(g, messages, n_nodes)
@@ -118,3 +135,25 @@ def radial_basis(r: torch.Tensor, n_rbf: int, cutoff: float) -> torch.Tensor:
     rb = torch.exp(-((r[:, None] - centers[None, :]) ** 2) / (2 * width**2))
     env = 0.5 * (torch.cos(math.pi * torch.clamp(r / cutoff, 0, 1)) + 1.0)
     return rb * env[:, None]
+
+
+def task_loss(out: torch.Tensor, g: Graph, task: str):
+    """The reference models' readout loss of per-node outputs ``out``.
+    ``graph_reg``: mean squared error of each graph's summed live-node
+    outputs ``out[:, 0]`` against its target. ``node_class``: mean
+    cross-entropy over the live nodes with a label ≥ 0. Returns (loss,
+    {"loss"})."""
+    if task == "graph_reg":
+        n_graphs = int(g.labels.shape[0])
+        ids = g.graph_ids if g.graph_ids is not None else torch.zeros(
+            (out.shape[0],), dtype=torch.int32, device=out.device)
+        energy = out.new_zeros((n_graphs,)).index_add(
+            0, ids.long(), out[:, 0] * g.node_mask)
+        loss = torch.mean((energy - g.labels.float()) ** 2)
+        return loss, {"loss": loss}
+    mask = g.node_mask & (g.labels >= 0)
+    labels = torch.where(mask, g.labels, 0).long()
+    logp = F.log_softmax(out.float(), dim=-1)
+    nll = -logp.gather(1, labels[:, None])[:, 0]
+    loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
+    return loss, {"loss": loss}

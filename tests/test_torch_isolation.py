@@ -30,7 +30,9 @@ def test_port_imports_no_jax_and_no_repro():
               "train.tree", "train.optimizer", "train.compression",
               "train.loop", "train.checkpoint", "train.fault_tolerance",
               "examples.train_retrieval", "configs.kg_specqp",
-              "launch.train", "examples.train_lm"):
+              "launch.train", "examples.train_lm", "models.gnn.e3",
+              "models.gnn.egnn", "models.gnn.nequip", "models.gnn.mace",
+              "configs.egnn", "configs.nequip", "configs.mace"):
         assert f"repro_torch.{m}" in mods, m
     code = "\n".join(
         ["import importlib, sys"]

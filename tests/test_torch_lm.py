@@ -344,10 +344,11 @@ def test_lm_from_numpy_bf16_bit_exact_and_key_checks():
         convert.lm_from_numpy(npv, star, device="cpu")
 
 
-def test_unported_configs_raise():
+def test_mla_mtp_configs_and_gnn_registry_entries():
     """MLA and MTP are ported: an MLA config and an MTP config build and
     run the backbone and prefill (an MTP model's prefill never reads its
-    mtp module); the registry still raises for the equivariant GNNs."""
+    mtp module); the registry gives the port's own config modules for the
+    equivariant GNNs."""
     gen = torch.Generator()
     base = granite_moe_3b_a800m.smoke_config()
     toks = torch.zeros((1, 4), dtype=torch.int32)
@@ -368,8 +369,9 @@ def test_unported_configs_raise():
         assert set(caches[0]) == ({"c_kv", "k_rope", "pos"} if cfg.mla
                                   else {"k", "v", "pos"})
     for name in ("egnn", "nequip", "mace"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            get_arch(name)
+        mod = get_arch(name)
+        assert mod.__name__ == f"repro_torch.configs.{name}"
+        assert mod.ARCH == name and mod.FAMILY == "gnn"
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
