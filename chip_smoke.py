@@ -210,7 +210,21 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    input; then at the molecule shape (128 molecules, 8,192 edges, 261
    self-loops) the card's gradients against the CPU's (EGNN's finite), 4
    ``TRAIN_CFG`` steps timed and ``smoke()`` on the card;
-15. print the kernel table as one JSON line (``launches``: each kernel's
+15. the dry run (``launch/dryrun.py``, ``sharding.py``): (a) the 12 dense
+   LM cells (gemma2-2b, starcoder2-3b, gemma3-27b x train_4k,
+   prefill_32k, decode_32k, long_500k) laid over the 16 x 16 production
+   mesh of a fake process group, fake CUDA tensors on this host, one
+   process a cell, DRYRUN_JOBS at a time: each cell's status, argument and
+   peak GB a card, flops, collective bytes, roofline terms and the
+   dominant one; (b) the dry run on a (1, 1) mesh of phases 7's and 11's
+   cuts of gemma2-2b (a prefill of 4 x 8192, a train step of 4 x 4096,
+   remat "full", bf16) beside the peak and time of the same calls
+   measured here, the predicted peak within DRYRUN_PEAK_BAND of the
+   measured; (c) gemma2-2b laid by ``sharding.distribute`` onto a (1, 1)
+   mesh of a 1-rank NCCL process group, a prefill of 4 x 8192 through the
+   constrain calls and the attention's custom op, its logits and caches
+   bit-equal to the unsharded prefill's, 26 ``flash_attention`` launches;
+16. print the kernel table as one JSON line (``launches``: each kernel's
    count on its own path, so 0 for ``neigh_softmax_agg`` on
    ``gat.apply``, phase 10's steps for ``embedding_bag_backward`` and
    phase 11's for ``flash_attention_backward``;
@@ -218,7 +232,8 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    the layers' data; rows 1-3 add ``sharded_launches``, summed over phase
    9's ranks; the two attention rows add phase 12's ``d64_*`` timings and
    ``granite_*`` launches and numbers and phase 13's ``d192_*`` and
-   ``deepseek_*``), then the result line ``{"ok": true, "device":
+   ``deepseek_*``, and ``flash_attention`` phase 15's
+   ``sharded_prefill_launches``), then the result line ``{"ok": true, "device":
    {...}}`` last.
 
 It exits non-zero without CUDA and when ``src/repro_torch`` is not beside
@@ -241,7 +256,8 @@ and stops the same way; ``--bag-bwd-only`` runs phases 1-2 and phase 10's
 and stops the same way; ``--moe-only`` runs phases 1-2 and phase 12, and
 stops the same way; ``--mla-only`` runs phases 1-2 and phase 13, and
 stops the same way; ``--e3gnn-only`` runs phases 1-2 and phase 14 (the
-graph drawn there), and stops the same way.
+graph drawn there), and stops the same way; ``--dryrun-only`` runs
+phases 1-2 and phase 15, and stops the same way.
 ``--profile`` adds ``torch.profiler``
 windows (device busy share, time by kernel) over one retrieval query in
 each mode, the serving batches, one LM prefill with 4 decode steps (of
@@ -4931,6 +4947,225 @@ def e3gnn_path(np, torch, ops, dev, g=None, prof: bool = False) -> dict:
     return rows
 
 
+DRYRUN_JOBS = 6               # cells dry-run at once (one process each)
+DRYRUN_CELLS = [(a, s) for a in ("gemma2-2b", "starcoder2-3b", "gemma3-27b")
+                for s in ("train_4k", "prefill_32k", "decode_32k",
+                          "long_500k")]
+# Phase 15 (b)'s bar: predicted peak within [1/2, 2] x the measured one.
+DRYRUN_PEAK_BAND = (0.5, 2.0)
+
+
+def dryrun_cells(cells, out_dir: pathlib.Path) -> list:
+    """Phase 15 (a): each cell through ``python -m repro_torch.launch.dryrun``
+    on the 16 x 16 mesh of a fake process group, DRYRUN_JOBS processes at
+    a time; every process is waited for. Returns the cells' results."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    todo, running, results, failed = list(cells), [], [], []
+    while todo or running:
+        while todo and len(running) < DRYRUN_JOBS:
+            arch, shape = todo.pop(0)
+            running.append(((arch, shape), subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 arch, "--shape", shape, "--out", str(out_dir)], cwd=ROOT,
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        cell, proc = running.pop(0)
+        log, _ = proc.communicate(timeout=900)
+        path = out_dir / f"{cell[0]}__{cell[1]}__16x16.json"
+        r = json.loads(path.read_text()) if path.exists() else {}
+        if proc.returncode != 0 or r.get("status") != "ok":
+            print(f"phase 15 (a) {cell}: failed (rc {proc.returncode}): "
+                  f"{r.get('error')}\n"
+                  f"{r.get('traceback', log)[-3000:]}", file=sys.stderr)
+            failed.append(cell)
+        else:
+            results.append(r)
+    if failed:
+        fail(f"the dry run failed for {failed}")
+    return results
+
+
+def dryrun_measured(np, torch, ops, dev) -> dict:
+    """Phase 15 (b)'s measurements: gemma2-2b at its published widths, a
+    prefill of LM_BATCH x LM_SEQ (phase 7's cut) and a train step of
+    LM_TRAIN_BATCH x LM_TRAIN_SEQ (phase 11's), each timed after a
+    warm-up, with the peak allocated bytes of the second call."""
+    from repro_torch.configs import gemma2_2b, lm_common
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import loop
+
+    cfg = gemma2_2b.config()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    out = {}
+    model = tf.init(cfg, gen, dev)
+    toks = torch.randint(0, cfg.vocab, (LM_BATCH, LM_SEQ), generator=gen,
+                         device=dev, dtype=torch.int32)
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t,
+                torch.cuda.max_memory_allocated(dev))
+
+    with torch.no_grad():
+        out["prefill"] = timed(lambda: tf.prefill(model, cfg, toks, LM_SEQ))
+    state = loop.make_train_state(tf.param_tree(model), lm_common.TRAIN_CFG)
+    step = loop.make_train_step(
+        lambda p, b: tf.loss_fn(p, cfg, b["tokens"], b["labels"]),
+        lm_common.TRAIN_CFG)
+    batch = train_launch.synth_lm_batch(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, 0,
+                                        dev)
+    out["train"] = timed(lambda: step(state, batch))
+    del model, state, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_predicted() -> dict:
+    """Phase 15 (b)'s predictions: the dry run of the same two cuts on a
+    (1, 1) mesh of a fake process group of one rank."""
+    from repro_torch.configs import gemma2_2b, lm_common
+    from repro_torch.launch import dryrun, mesh as mesh_lib
+
+    shapes = dict(lm_common.LM_SHAPES)
+    cuts = {"prefill": ("prefill_32k", LM_BATCH, LM_SEQ),
+            "train": ("train_4k", LM_TRAIN_BATCH, LM_TRAIN_SEQ)}
+    out = {}
+    try:
+        with dryrun.fake_world(1):
+            mesh = mesh_lib.make_device_mesh((1, 1))
+            for name, (shape, B, S) in cuts.items():
+                lm_common.LM_SHAPES[shape] = dict(shapes[shape], batch=B,
+                                                  seq=S)
+                out[name] = dryrun.run_cell(
+                    gemma2_2b.ARCH, shape, mesh,
+                    str(ROOT / "results" / "dryrun_torch_card_cuts"))
+                if out[name]["status"] != "ok":
+                    fail(f"dry run of the {name} cut failed: "
+                         f"{out[name].get('traceback')}")
+    finally:
+        lm_common.LM_SHAPES.update(shapes)
+    return out
+
+
+def dryrun_sharded_prefill(np, torch, ops, dev) -> int:
+    """Phase 15 (c): a 1-rank NCCL process group and (1, 1) mesh, gemma2-2b
+    at its published widths laid onto it by ``sharding.distribute`` and a
+    prefill of LM_BATCH x LM_SEQ through the constrain calls and the
+    attention's custom op; its logits and caches bit-equal to the
+    unsharded model's, its ``flash_attention`` launches counted. Returns
+    the launches."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch import sharding
+    from repro_torch.configs import gemma2_2b
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import transformer as tf
+
+    cfg = gemma2_2b.config()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    model = tf.init(cfg, gen, dev)
+    toks = torch.randint(0, cfg.vocab, (LM_BATCH, LM_SEQ), generator=gen,
+                         device=dev, dtype=torch.int32)
+    with torch.no_grad():
+        want_logits, want_caches = tf.prefill(model, cfg, toks, LM_SEQ)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = mesh_lib.make_device_mesh((1, 1), device_type=dev.type)
+        with sharding.use_rules(mesh):
+            sharding.distribute(model, tf.param_axes(model), mesh)
+            dtoks = sharding.distribute(toks, ("batch", "seq"), mesh)
+            ops.reset_launches()
+            with torch.no_grad(), implicit_replication():
+                logits, caches = tf.prefill(model, cfg, dtoks, LM_SEQ)
+            torch.cuda.synchronize()
+            launches = ops.launches()["flash_attention"]
+        if not isinstance(logits, DTensor):
+            fail("the sharded prefill's logits are not a DTensor")
+        if not torch.equal(logits.to_local(), want_logits):
+            fail("the sharded prefill's logits differ from the unsharded")
+        for i, (got, want) in enumerate(zip(caches, want_caches,
+                                            strict=True)):
+            for key in want:
+                g = got[key]
+                g = g.to_local() if isinstance(g, DTensor) else g
+                if not torch.equal(g, want[key]):
+                    fail(f"the sharded prefill's layer {i} cache {key} "
+                         "differs from the unsharded")
+    finally:
+        dist.destroy_process_group()
+    del model, caches, want_caches
+    torch.cuda.empty_cache()
+    if launches != cfg.n_layers:
+        fail(f"the sharded prefill launched flash_attention {launches} "
+             f"times, not {cfg.n_layers}")
+    print(f"phase 15 (c): the gemma2-2b prefill of {LM_BATCH} x {LM_SEQ} "
+          "on a (1, 1) NCCL mesh through the constrain calls and the "
+          f"custom op: logits and {cfg.n_layers} layers' caches bit-equal to "
+          f"the unsharded prefill's, {launches} flash_attention launches")
+    return launches
+
+
+def dryrun_path(np, torch, ops, dev) -> dict:
+    """Phase 15: the dry run (``launch/dryrun.py``). (a) The 12 dense LM
+    cells on the 16 x 16 production mesh of H100s, fake CUDA tensors on
+    this card's host, each cell's status, argument and peak GB a card,
+    flops, collective bytes and roofline terms printed; (b) the dry run of
+    phases 7's and 11's cuts on a (1, 1) mesh beside their measured peaks
+    and times, the peak held to DRYRUN_PEAK_BAND; (c) the sharded prefill
+    on a 1-rank NCCL mesh. Returns {"launches"}."""
+    t0 = time.perf_counter()
+    out_dir = ROOT / "results" / "dryrun_torch"
+    results = dryrun_cells(DRYRUN_CELLS, out_dir)
+    for r in results:
+        rl, mem = r["roofline"], r["memory"]
+        print(f"phase 15 (a) {r['arch']} {r['shape']} 16x16: {r['status']}, "
+              f"{r['device']}, args {mem['argument_bytes'] / 1e9:.3f} GB, "
+              f"peak {mem['peak_bytes'] / 1e9:.3f} GB a card, "
+              f"{rl['flops']:.4e} flops, {rl['coll_bytes'] / 1e9:.3f} GB "
+              f"collective, compute {rl['compute_s']:.4e} s, memory "
+              f"{rl['memory_s']:.4e} s, collective {rl['collective_s']:.4e} "
+              f"s: {rl['dominant']}; counts {r['collective_counts']}; "
+              f"{r['run_s']} s")
+    print(f"phase 15 (a): {len(results)} cells in "
+          f"{time.perf_counter() - t0:.1f} s")
+    predicted = dryrun_predicted()
+    measured = dryrun_measured(np, torch, ops, dev)
+    lo, hi = DRYRUN_PEAK_BAND
+    for name in ("prefill", "train"):
+        p, (secs, peak) = predicted[name], measured[name]
+        want = p["memory"]["peak_bytes"]
+        ratio = want / peak
+        print(f"phase 15 (b) {name}: predicted peak {want / 1e9:.3f} GB, "
+              f"measured {peak / 1e9:.3f} GB (ratio {ratio:.3f}); roofline "
+              f"bound {p['roofline']['compute_s']:.4f} / "
+              f"{p['roofline']['memory_s']:.4f} s (compute / memory: "
+              f"{p['roofline']['dominant']}), measured {secs:.4f} s")
+        if not lo <= ratio <= hi:
+            fail(f"phase 15 (b): the {name} cut's predicted peak is "
+                 f"{ratio:.3f} x the measured one, outside {lo}-{hi}")
+    launches = dryrun_sharded_prefill(np, torch, ops, dev)
+    print(f"phase 15 took {time.perf_counter() - t0:.1f} s")
+    return {"launches": launches}
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {pathlib.Path(__file__).name}: run "
@@ -5052,6 +5287,13 @@ def main() -> None:
         print(f"chip_smoke --e3gnn-only took "
               f"{time.perf_counter() - T_START:.1f} s")
         return
+    if "--dryrun-only" in sys.argv[1:]:
+        # Phases 1-2 and phase 15 alone: the dry run and the sharded
+        # prefill.
+        print(json.dumps(dryrun_path(np, torch, ops, dev)))
+        print(f"chip_smoke --dryrun-only took "
+              f"{time.perf_counter() - T_START:.1f} s")
+        return
     if "--shard-only" in sys.argv[1:]:
         # Phases 1-2 and phase 9 alone: the sharded paths.
         launches, nccl = shard_path(np, torch, ops, dev)
@@ -5115,6 +5357,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     e3gnn_path(np, torch, ops, dev, kept.pop("graph"), prof)
     print(f"e3gnn_path done at {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    dry = dryrun_path(np, torch, ops, dev)
+    rows["flash_attention"]["sharded_prefill_launches"] = dry["launches"]
+    print(f"dryrun_path done at {time.perf_counter() - t0:.1f} s")
     kernels = [rows[n] for n in ("rank_join_lookup", "merge_topk",
                                  "topk_score_pruned", "embedding_bag",
                                  "embedding_bag_backward",

@@ -1,10 +1,11 @@
-"""gemma2-2b [arXiv:2408.00118]: 26L, d_model 2304, 8H (GQA kv=4),
-d_ff 9216, vocab 256000 — local(4096):global alternating, attention
-softcap 50, GeGLU, sandwich norms. About 2.61 B parameters, 5.23 GB in
-bf16: one card holds it whole.
+"""gemma2-2b [arXiv:2408.00118]: 26L, d_model 2304, 8H (GQA kv=4), d_ff 9216,
+vocab 256000 — local(4096):global alternating, attention softcap 50,
+GeGLU, sandwich norms. About 2.61 B parameters, 5.23 GB in bf16: one card
+holds it whole.
 
 Counterpart of ``repro.configs.gemma2_2b``: the configuration, its reduced
-smoke configuration and the smoke run (one train step, then serving).
+smoke configuration, the dry run's cells (``make_cell``) and the smoke run
+(one train step, then serving).
 """
 from __future__ import annotations
 
@@ -34,6 +35,10 @@ def smoke_config() -> tf.LMConfig:
         d_ff=128, vocab=512, window_pattern=(16, 0), param_dtype="float32",
         compute_dtype="float32", attn_chunk_q=16, attn_chunk_k=16,
         moe_chunk=64)
+
+
+def make_cell(shape: str):
+    return lm_common.make_cell(ARCH, config(), shape)
 
 
 def smoke(device=None):

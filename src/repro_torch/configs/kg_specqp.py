@@ -16,6 +16,8 @@ from repro_torch.core.types import EngineConfig
 
 ARCH = "kg-specqp"
 FAMILY = "kg"
+# The reference's dry-run cells (not laid out over a mesh yet).
+SHAPES = ["serve_batch", "serve_trinit"]
 
 # Production store geometry (per shard): P patterns × L_SHARD items.
 N_PATTERNS = 1024

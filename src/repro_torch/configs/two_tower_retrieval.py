@@ -25,6 +25,8 @@ from repro_torch.train import optimizer as opt_lib
 
 ARCH = "two-tower-retrieval"
 FAMILY = "recsys"
+# The reference's dry-run cells (not laid out over a mesh yet).
+SHAPES = ["train_batch", "serve_p99", "serve_bulk", "retrieval_cand"]
 
 CORPUS = 1_048_576          # cached item embeddings for the serve shapes
 N_CAND = 1_000_000          # retrieval_cand logical size

@@ -1,6 +1,6 @@
 """CUDA wrappers of ``csrc/flash_attention.cu`` (the attention forward) and
-``csrc/flash_attention_bwd.cu`` (its backward), and the autograd Function
-that joins them.
+``csrc/flash_attention_bwd.cu`` (its backward), and the custom ops that
+join them.
 
 Counterpart of ``repro.kernels.flash_attention.flash_attention``; the plain
 versions are ``kernels.ref.flash_attention``, ``flash_attention_fwd_stats``
@@ -11,19 +11,29 @@ strided views, e.g. the model's (B, S, H, D) activations seen as (B, H, S,
 D): the kernels read them through their strides, and each output keeps its
 input's stride order.
 
-``flash_attention`` is differentiable: where q, k or v needs a gradient it
-runs ``Attention``, whose forward is the forward kernel with its lse output
-and whose backward is the backward kernel. ``flash_attention.launches``
-counts forward launches, ``flash_attention_backward.launches`` backward
-calls (each three kernels: the stat pass, dK/dV, dQ).
+``attention`` goes through the custom op ``repro_torch::flash_attention``
+(below): the forward kernel with its lse output for CUDA tensors,
+differentiable through the custom op
+``repro_torch::flash_attention_backward``, the backward kernel; the plain
+twins for CPU tensors; shapes only on the meta device or under
+``FakeTensorMode``; and a DTensor sharding rule, so that a sharded model
+runs the kernel on each rank's shard. ``flash_attention`` is the same on
+CUDA tensors and raises on others. ``flash_attention.launches`` counts
+forward launches, ``flash_attention_backward.launches`` backward calls
+(each three kernels: the stat pass, dK/dV, dQ).
 """
 from __future__ import annotations
 
 import ctypes
+import itertools
+import math
 
 import torch
+import torch.distributed as dist
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import ref as _ref
 from repro_torch.kernels._checks import check_cuda
 
 _P = ctypes.c_void_p
@@ -165,41 +175,212 @@ def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = True,
     return dq, dk, dv
 
 
-class Attention(torch.autograd.Function):
-    """o = attention(q, k, v), differentiable. ``fwd(q, k, v, **kw) → (o,
-    lse)`` and ``bwd(q, k, v, o, lse, do, **kw) → (dq, dk, dv)``: the CUDA
-    kernels, or their plain twins for CPU tensors (``kernels.ops``
-    chooses). The backward keeps q, k, v, o and lse: no (Sq, Sk) matrix."""
+# ---------------------------------------------------------- the custom op
+#
+# ``repro_torch::flash_attention`` (q, k, v, causal, window, softcap, scale)
+# → (o, lse) and ``repro_torch::flash_attention_backward`` (q, k, v, o, lse,
+# do, ...) → (dq, dk, dv) are the attention as PyTorch operators: the CUDA
+# kernels above for CUDA tensors, their plain twins (``kernels.ref``) for
+# CPU ones, shapes only under ``FakeTensorMode`` or on the meta device (the
+# fake impls never build or load the library, and count no launch). The
+# forward's autograd is the backward op, from the forward's o and lse, as
+# the reference's ``_flash`` custom VJP. Each has a FLOP formula (what
+# PERF.md's bounds count, ``pair_flops``) and a DTensor sharding rule, so
+# that a sharded program (``repro_torch.sharding``) runs the kernel on each
+# rank's shard: batch and head shards stay local, anything else is
+# redistributed to such a layout first.
 
-    @staticmethod
-    def forward(ctx, q, k, v, kw, fwd, bwd):
-        o, lse = fwd(q, k, v, **kw)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.kw, ctx.bwd = kw, bwd
-        return o
-
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = ctx.bwd(q, k, v, o, lse, do, **ctx.kw)
-        return dq, dk, dv, None, None, None
+# Flops a visible (query, key) pair and head costs: 4·D forward, 10·D
+# backward; at D = 192 (MLA's q·k, v padded from 128 to it) the work MLA
+# needs, 2·(192 + 128) and 2·(3·192 + 2·128), so the count does not grow
+# with the padding.
+MLA_PAIR_FLOPS = {192: (640, 1664)}
 
 
-def needs_grad(*tensors) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+def pair_flops(D: int, backward: bool = False) -> int:
+    fwd, bwd = MLA_PAIR_FLOPS.get(D, (4 * D, 10 * D))
+    return bwd if backward else fwd
+
+
+def visible_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """Visible (query, key) pairs of one (batch, head): query i sits at key
+    position Sk − Sq + i; causal keys at or before it; with ``window`` W
+    the keys in (pos − W, pos]."""
+    off = Sk - Sq
+    if not causal:
+        if not window:
+            return Sq * Sk
+        return sum(Sk - max(0, min(Sk, off + i - window + 1))
+                   for i in range(Sq))
+    W = window or max(Sk, 1)
+
+    def upto(x):                 # Σ over positions p in [0, x) of min(p+1, W)
+        x = max(x, 0)
+        return x * (x + 1) // 2 if x <= W else W * (W + 1) // 2 + (x - W) * W
+
+    return upto(off + Sq) - upto(off)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cpu")
+def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 causal: bool, window: int, softcap: float,
+                 scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward → (o, lse); CPU tensors: the plain twin, o laid out in
+    q's stride order as the kernel writes it (and the fake impl says)."""
+    o, lse = _ref.flash_attention_fwd_stats(q, k, v, causal=causal,
+                                            window=window, softcap=softcap,
+                                            scale=scale)
+    return _like(q, o), lse
+
+
+def _like(t: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """``values`` in a new tensor of ``t``'s stride order."""
+    return torch.empty_like(t, dtype=values.dtype).copy_(values)
+
+
+@attention_op.register_kernel("cuda")
+def _attention_cuda(q, k, v, causal, window, softcap, scale):
+    return flash_attention_fwd_stats(q, k, v, causal=causal, window=window,
+                                     softcap=softcap, scale=scale)
+
+
+@attention_op.register_fake
+def _attention_fake(q, k, v, causal, window, softcap, scale):
+    B, Hq, Sq, _ = q.shape
+    return (torch.empty_like(q),
+            q.new_empty((B, Hq, Sq), dtype=torch.float32))
+
+
+@torch.library.custom_op("repro_torch::flash_attention_backward",
+                         mutates_args=(), device_types="cpu")
+def attention_backward_op(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+        lse: torch.Tensor, do: torch.Tensor, causal: bool, window: int,
+        softcap: float, scale: float
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward → (dq, dk, dv); CPU tensors: the plain twin, each in
+    its input's stride order as the kernel writes them."""
+    grads = _ref.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                     window=window, softcap=softcap,
+                                     scale=scale)
+    return tuple(_like(t, g) for t, g in zip((q, k, v), grads))
+
+
+@attention_backward_op.register_kernel("cuda")
+def _attention_backward_cuda(q, k, v, o, lse, do, causal, window, softcap,
+                             scale):
+    return flash_attention_backward(q, k, v, o, lse, do, causal=causal,
+                                    window=window, softcap=softcap,
+                                    scale=scale)
+
+
+@attention_backward_op.register_fake
+def _attention_backward_fake(q, k, v, o, lse, do, causal, window, softcap,
+                             scale):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, causal, window, softcap, scale = inputs
+    ctx.save_for_backward(q, k, v, *output)
+    ctx.args = (causal, window, softcap, scale)
+
+
+def _backward(ctx, do, _dlse):
+    q, k, v, o, lse = ctx.saved_tensors
+    dq, dk, dv = attention_backward_op(q, k, v, o, lse, do, *ctx.args)
+    return dq, dk, dv, None, None, None, None
+
+
+attention_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+def _attention_flops(q_shape, k_shape, _v_shape, causal, window, *_args,
+                     backward=False):
+    B, Hq, Sq, D = q_shape
+    return (B * Hq * visible_pairs(Sq, k_shape[2], causal, window)
+            * pair_flops(D, backward))
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _attention_op_flops(q_shape, k_shape, v_shape, causal, window, softcap,
+                        scale, out_shape=None, **kwargs) -> int:
+    return _attention_flops(q_shape, k_shape, v_shape, causal, window)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_backward)
+def _attention_backward_op_flops(q_shape, k_shape, v_shape, _o, _lse, _do,
+                                 causal, window, softcap, scale,
+                                 out_shape=None, **kwargs) -> int:
+    return _attention_flops(q_shape, k_shape, v_shape, causal, window,
+                            backward=True)
+
+
+def _heads_split_evenly(mesh, Hq: int, Hkv: int) -> bool:
+    """Whether every count of head shards the mesh can make (a product of
+    its dimensions) that Hkv can take divides both head counts, so that
+    each rank's q heads are those of its own kv heads."""
+    sizes = list(mesh.shape)
+    for r in range(1, len(sizes) + 1):
+        for dims in itertools.combinations(sizes, r):
+            n = math.prod(dims)
+            if n <= Hkv and (Hkv % n or Hq % n):
+                return False
+    return True
+
+
+def _attention_layouts(q, k, n_in: int, n_out: int, n_rest: int):
+    """One mesh dimension's layouts of the attention ops: all replicated,
+    all split by batch, and all split by head where the heads split evenly
+    (q, k, v, o, do (B, H, S, D) and lse (B, H, S) alike). A sequence
+    shard, or q's heads split where k's cannot be, is redistributed to one
+    of these first."""
+    from torch.distributed.tensor import Replicate, Shard
+    layouts = [Replicate(), Shard(0)]
+    if _heads_split_evenly(q.mesh, q.shape[1], k.shape[1]):
+        layouts.append(Shard(1))
+    return [([p] * n_out, [p] * n_in + [None] * n_rest) for p in layouts]
+
+
+def _register_sharding():
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.repro_torch.flash_attention.default)
+    def _forward_rule(q, k, v, causal, window, softcap, scale):
+        return _attention_layouts(q, k, 3, 2, 4)
+
+    @register_sharding(torch.ops.repro_torch.flash_attention_backward.default)
+    def _backward_rule(q, k, v, o, lse, do, causal, window, softcap, scale):
+        return _attention_layouts(q, k, 6, 3, 4)
+
+
+if dist.is_available():
+    _register_sharding()
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int | None = None,
+              softcap: float | None = None,
+              scale: float | None = None) -> torch.Tensor:
+    """q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D) → o (B, Hq, Sq, D), through
+    ``repro_torch::flash_attention`` on any device: the kernel for bf16
+    CUDA tensors, the plain twin for CPU ones, the shapes for meta or fake
+    ones, the DTensor rule for sharded ones; differentiable through the
+    backward op."""
+    return attention_op(q, k, v, causal, int(window or 0),
+                        float(softcap or 0.0), _scale(scale, q.shape[-1]))[0]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     softcap: float | None = None,
                     scale: float | None = None) -> torch.Tensor:
-    """q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D), bf16 → (B, Hq, Sq, D) bf16,
-    on the card; differentiable through ``Attention``."""
-    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
-    if needs_grad(q, k, v):
-        return Attention.apply(q, k, v, kw, flash_attention_fwd_stats,
-                               flash_attention_backward)
-    return flash_attention_fwd_stats(q, k, v, stats=False, **kw)[0]
+    """``attention`` on the card: CUDA tensors only, or raise; bf16 of
+    the head_dims the kernel takes."""
+    check_cuda(q, k, v)
+    return attention(q, k, v, causal=causal, window=window, softcap=softcap,
+                     scale=scale)
 
 
 flash_attention.launches = 0

@@ -91,17 +91,19 @@ def embedding_bag_backward(dout, ids, weights, table, *,
 def flash_attention(q, k, v, *, causal: bool = True, window=None,
                     softcap=None, scale=None, impl: str = "auto"):
     """Attention: (B, Hq, Sq, D), (B, Hkv, Sk, D) ×2 → (B, Hq, Sq, D);
-    window 0 / None is global, softcap 0 / None is none. Differentiable
-    through ``flash_attention.Attention``: on the card the forward kernel
-    with its lse and the backward kernel, on the CPU their plain twins."""
+    window 0 / None is global, softcap 0 / None is none. Through the
+    custom op ``repro_torch::flash_attention`` (``kernels.flash_attention``):
+    the kernel on the card, its plain twin on the CPU, the shapes on the
+    meta device or under ``FakeTensorMode``, each rank's shard of a
+    ``DTensor``; differentiable through the backward op (on the card the
+    backward kernel, on the CPU its plain twin). ``impl="ref"`` is the
+    plain version on any device."""
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
-    if _plain(q, impl):
-        if _flash_attention.needs_grad(q, k, v):
-            return _flash_attention.Attention.apply(
-                q, k, v, kw, _ref.flash_attention_fwd_stats,
-                _ref.flash_attention_bwd)
+    if impl not in ("auto", "ref"):
+        raise ValueError(f"impl must be 'auto' or 'ref', got {impl!r}")
+    if impl == "ref":
         return _ref.flash_attention(q, k, v, **kw)
-    return _flash_attention.flash_attention(q, k, v, **kw)
+    return _flash_attention.attention(q, k, v, **kw)
 
 
 def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = True,

@@ -19,8 +19,12 @@ buffer's device: the planner's cardinalities, the (Q, k) result buffers
 and the counters, a few KiB a batch.
 
 ``spawn`` starts one process per mesh position, each with its mesh, and
-returns what each rank's function returned. ``make_production_mesh``
-(the 16 x 16 TPU pods) is not ported.
+returns what each rank's function returned.
+
+``make_device_mesh`` and ``make_production_mesh`` build a
+``torch.distributed`` ``DeviceMesh`` instead, the mesh of the models'
+logical-axis sharding (``repro_torch.sharding``: DTensor layouts), over
+the default process group, real or fake.
 """
 from __future__ import annotations
 
@@ -235,3 +239,34 @@ def spawn(fn, shape, axes=("data", "model"), *, backend: str, device=None,
             with open(os.path.join(tmp, f"out{r}.pkl"), "rb") as f:
                 outs.append(pickle.load(f))
         return outs
+
+
+def make_device_mesh(shape=(1, 1), axes=("data", "model"), *,
+                     device_type: str = "cuda"):
+    """A ``DeviceMesh`` of ``shape`` with named dimensions ``axes`` over the
+    default process group, which must hold ``prod(shape)`` ranks (row-major,
+    as ``Mesh`` orders them): the mesh ``sharding.install`` takes."""
+    from torch.distributed.device_mesh import init_device_mesh
+    if not dist.is_initialized() or dist.get_world_size() != math.prod(shape):
+        raise ValueError(f"a {tuple(shape)} mesh needs a default process "
+                         f"group of {math.prod(shape)} ranks")
+    return init_device_mesh(device_type, tuple(shape),
+                            mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """The production mesh: 16 × 16 ("data", "model"), 256 cards, or
+    2 × 16 × 16 ("pod", "data", "model"), 512, over the default process
+    group (a real one, or the dry run's fake one of that size).
+
+    On Hopper these are 32 and 64 nodes of 8 H100s, each node's cards
+    joined by NVLink, the nodes by InfiniBand. Ranks go row-major, so a
+    16-wide ``model`` row spans two nodes: its collectives cross
+    InfiniBand, as the ``data`` and ``pod`` axes' do (``launch.analysis``
+    prices each axis by the slowest link it crosses). The reference's mesh
+    is a TPU v5e pod slice of 256 chips on one ICI torus, and 2 of them
+    over DCN."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_device_mesh(shape, axes, device_type=device_type)

@@ -41,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
+from repro_torch import sharding
 from repro_torch.kernels import ops as kops
 from repro_torch.models import common as cm
 from repro_torch.models.moe import normal_
@@ -88,6 +89,23 @@ def init_gqa(cfg: AttnConfig, gen, device, dtype) -> GQA:
                normal_((D, Hkv, Dh), gen, device, dtype),
                normal_((D, Hkv, Dh), gen, device, dtype),
                normal_((H, Dh, D), gen, device, dtype))
+
+
+def gqa_axes() -> dict:
+    """The logical axes of a ``GQA``'s parameters, as the reference's
+    ``init_gqa`` gives them."""
+    return {"wq": ("embed_fsdp", "heads", None),
+            "wk": ("embed_fsdp", "kv_heads", None),
+            "wv": ("embed_fsdp", "kv_heads", None),
+            "wo": ("heads", None, "embed_fsdp")}
+
+
+def param_axes(p) -> dict:
+    """The logical axes of an attention block's parameters. GQA only: MLA's
+    (``q_lora``, ``kv_lora``) come with its sharded slice."""
+    if isinstance(p, MLA):
+        raise NotImplementedError("MLA's parameter axes are not ported yet")
+    return gqa_axes()
 
 
 class MLA(nn.Module):
@@ -241,29 +259,81 @@ def _attend(q, k, v, qpos, kpos, window: int, cfg: AttnConfig, impl,
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         causal=True, window=window or None, softcap=cfg.softcap,
         scale=scale)
-    return out.transpose(1, 2)
+    # The kernel writes o in q's stride order, so this is a view of a
+    # contiguous (B, S, H, D) tensor and ``contiguous`` copies nothing; a
+    # plain twin's or a DTensor shard's (B, H, S, D) output is copied, so
+    # that the next product can view it flat.
+    return out.transpose(1, 2).contiguous()
 
 
-def _qkv(p: GQA, cfg: AttnConfig, x, positions):
-    """Roped q (B, S, H, Dh), roped k and v (B, S, Hkv, Dh)."""
+def _weights(p: GQA, pin: bool) -> dict:
+    """A ``GQA``'s weights by name; with ``pin``, under the use-site FSDP
+    pins of the reference's ``_pin_gqa`` (under installed rules each layer
+    gathers its own weights where it uses them: ``sharding.pin_weight``)."""
+    if not pin:
+        return {name: getattr(p, name) for name in gqa_axes()}
+    return {name: sharding.pin_weight(getattr(p, name), *axes)
+            for name, axes in gqa_axes().items()}
+
+
+def _project(x, w, heads: str):
+    """x (B, S, D) · w (D, H, Dh) → (B, S, H, Dh), one product over the
+    flattened H·Dh columns (the same product ``einsum`` runs for
+    "bsd,dhk->bshk"). A DTensor product may come out split by those
+    columns; where the ``heads`` do not split over the mesh the (H, Dh)
+    view cannot carry that split, so the columns are gathered first (the
+    heads stay whole, as the reference's rules leave them)."""
+    w2 = w.flatten(1)
+    whole = sharding.active() and \
+        sharding.spec(heads, shape=w.shape[1:2]) == (None,)
+    if whole:
+        # Also in the backward: the flattened weight's gradient is laid
+        # out as the weight before it is viewed as (D, H, Dh) again.
+        w2 = sharding.constrain(w2, "embed_fsdp", None)
+    y = torch.einsum("bsd,dn->bsn", x, w2)
+    if whole:
+        y = sharding.constrain(y, "batch", "seq", None)
+    return y.unflatten(-1, tuple(w.shape[1:]))
+
+
+def _qkv(w: dict, cfg: AttnConfig, x, positions):
+    """Roped q (B, S, H, Dh), roped k and v (B, S, Hkv, Dh) from the
+    weights ``w`` (``_weights``)."""
     dt = x.dtype
-    q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(dt))
-    k = torch.einsum("bsd,dhk->bshk", x, p.wk.to(dt))
-    v = torch.einsum("bsd,dhk->bshk", x, p.wv.to(dt))
+    q = _project(x, w["wq"].to(dt), "heads")
+    k = _project(x, w["wk"].to(dt), "kv_heads")
+    v = _project(x, w["wv"].to(dt), "kv_heads")
     pos = positions[:, :, None]            # broadcast over heads
     return (cm.rope(q, pos, cfg.rope_theta), cm.rope(k, pos, cfg.rope_theta),
             v)
 
 
-def _out(p: GQA, out, dt):
-    return torch.einsum("bshk,hkd->bsd", out.to(dt), p.wo.to(dt))
+def _attend_gqa(w: dict, cfg: AttnConfig, x, positions, window: int, impl):
+    """The forward's projections and attention → (out (B, S, D), k, v),
+    q and k laid out as the reference's ``gqa_forward`` lays them."""
+    # The sequence-parallel residual is gathered before the projections
+    # (the reference leaves this to GSPMD).
+    x = sharding.constrain(x, "batch", "seq", None)
+    q, k, v = _qkv(w, cfg, x, positions)
+    q = sharding.constrain(q, "batch", "seq", "heads", None)
+    k = sharding.constrain(k, "batch", "seq", "kv_heads", None)
+    out = _attend(q, k, v, positions[0], positions[0], window, cfg, impl)
+    # Scattered back onto the sequence-parallel residual (a reduce-scatter
+    # of the heads' partial sums); in the backward the residual's gradient
+    # is gathered here, before the product flattens (B, S).
+    out = sharding.constrain(_out(w["wo"], out, x.dtype), "batch", "act_seq",
+                             None)
+    return out, k, v
+
+
+def _out(wo, out, dt):
+    return torch.einsum("bshk,hkd->bsd", out.to(dt), wo.to(dt))
 
 
 def gqa_forward(p: GQA, cfg: AttnConfig, x, positions, window: int, impl):
     """Training/prefill forward. x: (B, S, D) → (B, S, D)."""
-    q, k, v = _qkv(p, cfg, x, positions)
-    out = _attend(q, k, v, positions[0], positions[0], window, cfg, impl)
-    return _out(p, out, x.dtype)
+    return _attend_gqa(_weights(p, pin=True), cfg, x, positions, window,
+                       impl)[0]
 
 
 def _ring_cache(arrays: dict, positions, cache_len: int) -> dict:
@@ -286,21 +356,28 @@ def _ring_cache(arrays: dict, positions, cache_len: int) -> dict:
     return out
 
 
+def _gqa_cache(k, v, positions, cache_len: int) -> dict:
+    cache = _ring_cache({"k": k, "v": v}, positions, cache_len)
+    for key in ("k", "v"):
+        cache[key] = sharding.constrain(cache[key], "batch", "kv_seq",
+                                        "kv_heads", None)
+    return cache
+
+
 def gqa_prefill_cache(p: GQA, cfg: AttnConfig, x, positions,
                       cache_len: int):
     """Build the (ring) KV cache from a prompt. Returns the cache dict."""
-    _, k, v = _qkv(p, cfg, x, positions)
-    return _ring_cache({"k": k, "v": v}, positions, cache_len)
+    _, k, v = _qkv(_weights(p, pin=False), cfg, x, positions)
+    return _gqa_cache(k, v, positions, cache_len)
 
 
 def gqa_prefill(p: GQA, cfg: AttnConfig, x, positions, window: int, impl,
                 cache_len: int):
     """``gqa_forward`` and ``gqa_prefill_cache`` from one projection of
     k and v → (out, cache)."""
-    q, k, v = _qkv(p, cfg, x, positions)
-    out = _attend(q, k, v, positions[0], positions[0], window, cfg, impl)
-    return _out(p, out, x.dtype), _ring_cache({"k": k, "v": v}, positions,
-                                              cache_len)
+    out, k, v = _attend_gqa(_weights(p, pin=True), cfg, x, positions,
+                            window, impl)
+    return out, _gqa_cache(k, v, positions, cache_len)
 
 
 def gqa_decode(p: GQA, cfg: AttnConfig, x, pos, window: int, cache,
@@ -310,11 +387,15 @@ def gqa_decode(p: GQA, cfg: AttnConfig, x, pos, window: int, cache,
     is written in place and returned. → (out (B, 1, D), cache)."""
     dt = x.dtype
     B = x.shape[0]
-    q, k, v = _qkv(p, cfg, x, pos[:, None])
+    w = _weights(p, pin=False)
+    q, k, v = _qkv(w, cfg, x, pos[:, None])
+    # Split-K over the cache's kv_seq split: each rank's slice of the cache
+    # meets every head, so q's heads are gathered (the reference leaves
+    # this to GSPMD).
+    q = sharding.constrain(q, "batch", "seq", None, None)
     slot = step % cache["k"].shape[1]
-    cache["k"][:, slot] = k[:, 0]
-    cache["v"][:, slot] = v[:, 0]
-    cache["pos"][:, slot] = pos
+    for key, new in (("k", k[:, 0]), ("v", v[:, 0]), ("pos", pos)):
+        sharding.update_slice(cache[key], 1, slot, new)
     ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
 
     Hkv, g, Dh = cfg.n_kv, cfg.n_heads // cfg.n_kv, cfg.head_dim
@@ -328,7 +409,7 @@ def gqa_decode(p: GQA, cfg: AttnConfig, x, pos, window: int, cache,
     p_attn = torch.softmax(s.masked_fill(~ok, NEG_INF), dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p_attn, cv.float())
     out = out.reshape(B, 1, cfg.n_heads, Dh)
-    return _out(p, out, dt), cache
+    return _out(w["wo"], out, dt), cache
 
 
 def _mla_qkv(p: MLA, cfg: AttnConfig, x, positions):
@@ -364,7 +445,7 @@ def _mla_attend(p: MLA, cfg: AttnConfig, x, positions, window: int, impl,
     cfg_v = dataclasses.replace(cfg, n_kv=H, head_dim=qk)
     out = _attend(q, k, v, positions[0], positions[0], window, cfg_v, impl,
                   scale=qk ** -0.5)
-    return _out(p, out[..., :m.v_head_dim], dt)
+    return _out(p.wo, out[..., :m.v_head_dim], dt)
 
 
 def mla_forward(p: MLA, cfg: AttnConfig, x, positions, window: int, impl):
@@ -418,7 +499,7 @@ def mla_decode(p: MLA, cfg: AttnConfig, x, pos, window: int, cache,
     pr = torch.softmax(s.masked_fill(~ok, NEG_INF), dim=-1)
     ctx = torch.einsum("bhs,bsr->bhr", pr, c_kv)
     out = torch.einsum("bhr,rhk->bhk", ctx, p.w_uv.float())
-    return _out(p, out[:, None], dt), cache
+    return _out(p.wo, out[:, None], dt), cache
 
 
 def forward(p, cfg: AttnConfig, x, positions, window: int,

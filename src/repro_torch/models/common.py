@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt
 
+from repro_torch import sharding
+
 
 def init_tree(specs: dict, generator: torch.Generator,
               device: torch.device) -> dict:
@@ -72,13 +74,41 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+class _GatherLast(torch.autograd.Function):
+    """``torch.gather(x, -1, idx)`` whose backward scatters into
+    ``zeros_like(x)``, both run on each rank's shards for a DTensor x
+    (``sharding.on_shards``; the caller keeps x's last dim whole).
+    Autograd's own backward builds its zeros at x's full shape, the whole
+    (global) tensor on every rank of a DTensor, and DTensor's gather may
+    split the vocab into a masked partial that its later ops cannot
+    reduce. The numbers are the same."""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.save_for_backward(x, idx)
+        return sharding.on_shards(lambda a, i: torch.gather(a, -1, i), x, x,
+                                  idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, idx = ctx.saved_tensors
+        return sharding.on_shards(
+            lambda a, i, g: torch.zeros_like(a).scatter_add_(-1, i, g), x,
+            x, idx, grad), None
+
+
 def _nll(logits, labels, softcap_val, ignore_id: int):
     """Per-token negative log-likelihood in f32, 0 where ignored."""
     logits = softcap(logits.float(), softcap_val)
     mask = labels != ignore_id
     safe = torch.where(mask, labels, 0).long()
+    # Over a vocab-sharded head the vocab is gathered first, as GSPMD
+    # gathers an operand it cannot split: DTensor has no split rule for
+    # the log-sum-exp, and its split gather has none for the backward.
+    logits = sharding.constrain(logits, "batch",
+                                *(None,) * (logits.dim() - 1))
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    gold = _GatherLast.apply(logits, safe[..., None])[..., 0]
     return (lse - gold) * mask
 
 

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
+from repro_torch import sharding
 from repro_torch.models import common as cm
 
 
@@ -86,14 +87,46 @@ def init_dense_ffn(cfg: FFNConfig, gen, device, dtype) -> DenseFFN:
                     else None)
 
 
+def dense_axes(gated: bool) -> dict:
+    """The logical axes of a ``DenseFFN``'s parameters, as the reference's
+    ``init_dense_ffn`` gives them."""
+    axes = {"w_in": ("embed_fsdp", "mlp"), "w_out": ("mlp", "embed_fsdp")}
+    if gated:
+        axes["w_gate"] = ("embed_fsdp", "mlp")
+    return axes
+
+
+def param_axes(p) -> dict:
+    """The logical axes of an FFN block's parameters. Dense only: the MoE's
+    (``expert``, ``expert_mlp``) come with its sharded slice."""
+    if isinstance(p, MoEFFN):
+        raise NotImplementedError("the MoE's parameter axes are not ported "
+                                  "yet")
+    return dense_axes(p.w_gate is not None)
+
+
 def dense_ffn(p: DenseFFN, cfg: FFNConfig, x):
+    """The MLP. Under installed rules the weights are pinned where they are
+    used (the reference's use-site FSDP pins) and the hidden activation is
+    laid out over ``mlp``: over ``moe_tokens`` for a 2-D input (the MoE's
+    shared expert), over ``batch`` for the layer's (B, S, F)."""
     dt = x.dtype
-    h = x @ p.w_in.to(dt)
+    c, pin = sharding.constrain, sharding.pin_weight
+    lead = (("moe_tokens",) if x.dim() == 2
+            else ("batch",) + (None,) * (x.dim() - 2))
+    # The sequence-parallel residual is gathered before the MLP (the
+    # reference leaves this to GSPMD, around the sharded h below).
+    x = c(x, *lead, None)
+    h = x @ pin(p.w_in, "embed_fsdp", "mlp").to(dt)
     if cfg.gated:
-        h = _act(x @ p.w_gate.to(dt), cfg.act) * h
+        h = _act(x @ pin(p.w_gate, "embed_fsdp", "mlp").to(dt), cfg.act) * h
     else:
         h = _act(h, cfg.act)
-    return h @ p.w_out.to(dt)
+    h = c(h, *lead, "mlp")
+    out = h @ pin(p.w_out, "mlp", "embed_fsdp").to(dt)
+    # Scattered back onto the sequence-parallel residual, as attention's.
+    return out if out.dim() == 2 else c(out, "batch", "act_seq",
+                                        *(None,) * (out.dim() - 2))
 
 
 # ------------------------------------------------------------------ MoE

@@ -35,9 +35,11 @@ import functools
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
+from repro_torch import sharding
 from repro_torch.core.types import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
@@ -187,8 +189,43 @@ def init(cfg: LMConfig, generator: torch.Generator, device=None) -> LM:
     return LM(embed, zeros(), layers, lm_head, mtp)
 
 
-def _embed(params: LM, cfg: LMConfig, tokens):
-    x = params.embed[tokens.long()].to(cfg.cdtype)
+def _layer_axes(lp: Layer) -> dict:
+    axes = {"attn": attn.param_axes(lp.attn),
+            "ffn": ffnlib.param_axes(lp.ffn)}
+    for name in ("attn_norm", "ffn_norm", "attn_post", "ffn_post"):
+        if getattr(lp, name) is not None:
+            axes[name] = ("embed",)
+    return axes
+
+
+def param_axes(model: LM) -> dict:
+    """The logical axes of each parameter, a tree mirroring
+    ``param_tree(model)``: those the reference's ``init`` gives (through
+    ``common.param``), without its leading stacked-layers axis, since the
+    port keeps a list of layers. Dense layers with GQA only (the MoE's and
+    MLA's axes come with their sharded slices)."""
+    axes = {"embed": ("vocab", "embed_fsdp"), "final_norm": ("embed",)}
+    if model.lm_head is not None:
+        axes["lm_head"] = ("embed_fsdp", "vocab")
+    axes["layers"] = [_layer_axes(lp) for lp in model.layers]
+    if model.mtp is not None:
+        axes["mtp"] = {"proj": ("embed", "embed_fsdp"),
+                       "layer": _layer_axes(model.mtp.layer)}
+    return axes
+
+
+def _embed_table(params):
+    return sharding.constrain(params.embed, "vocab", "embed_fsdp")
+
+
+def _embed(params: LM, cfg: LMConfig, tokens, table=None):
+    """The scaled embedding of ``tokens`` from ``table`` (``params.embed``
+    by default). Under installed rules the table's FSDP split is gathered
+    where it is used and its vocab split stays: each rank looks up the
+    ids it holds (DTensor's vocab-parallel embedding)."""
+    table = params.embed if table is None else table
+    table = sharding.pin_weight(table, "vocab", "embed_fsdp")
+    x = F.embedding(tokens.long(), table).to(cfg.cdtype)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.cdtype)
     return x
@@ -209,9 +246,11 @@ def _layer_fwd(lp: Layer, cfg: LMConfig, dense: bool, x, attend):
 
 
 def _positions(tokens):
-    B, S = tokens.shape
-    return torch.arange(S, dtype=torch.int32,
-                        device=tokens.device).expand(B, S)
+    """(B, S) int32 positions 0..S-1, laid out as ``tokens`` (a sharded
+    batch keeps its shards)."""
+    S = tokens.shape[1]
+    return (torch.zeros_like(tokens, dtype=torch.int32)
+            + torch.arange(S, dtype=torch.int32, device=tokens.device))
 
 
 class _Tree:
@@ -294,7 +333,8 @@ def backbone(params: LM, cfg: LMConfig, tokens):
     """tokens (B, S) → final hidden states (B, S, D), aux loss (a 0-d f32
     tensor). Each layer runs under ``cfg.remat``."""
     params = _as_model(params)
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, _embed_table(params))
+    x = sharding.constrain(x, "batch", "seq", None)
     positions = _positions(tokens)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -306,6 +346,9 @@ def backbone(params: LM, cfg: LMConfig, tokens):
     for lp, dense, w in zip(params.layers, cfg.dense_layers(),
                             cfg.windows()):
         x, aux = _remat(functools.partial(layer, lp, dense, w), cfg.remat, x)
+        # Sequence-parallel residual stream: the carried activation (and
+        # what remat saves of it) is split over model on its seq dim.
+        x = sharding.constrain(x, "batch", "act_seq", None)
         aux_total = aux_total + aux
     return x, aux_total
 
@@ -315,12 +358,22 @@ def logits_from_hidden(params: LM, cfg: LMConfig, x):
     reference applies it in the loss only."""
     x = cm.rms_norm(x, params.final_norm, cfg.norm_eps)
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
-    return x @ head.to(x.dtype)
+    logits = x @ head.to(x.dtype)
+    return sharding.constrain(logits, "batch",
+                              *(None,) * (logits.dim() - 2), "vocab")
 
 
 def _lm_head_loss(params, cfg: LMConfig, x, labels):
+    # The residual's sequence split is gathered and the head's FSDP split
+    # with it, so that the loss's chunks keep their batch split and the
+    # logits their vocab split (the reference leaves this to GSPMD).
+    x = sharding.constrain(x, "batch", "seq", None)
     x = cm.rms_norm(x, params.final_norm, cfg.norm_eps)
-    head = params.embed.T if cfg.tie_embeddings else params.lm_head
+    if cfg.tie_embeddings:
+        head = sharding.pin_weight(_embed_table(params), "vocab",
+                                   "embed_fsdp").T
+    else:
+        head = sharding.pin_weight(params.lm_head, "embed_fsdp", "vocab")
     return cm.chunked_cross_entropy(x, head.to(x.dtype), labels,
                                     softcap_val=cfg.logit_softcap)
 
@@ -334,7 +387,8 @@ def _mtp_loss(params, cfg: LMConfig, x, tokens, labels):
     if params.mtp is None:
         raise ValueError(f"{cfg.name}: mtp_depth is {cfg.mtp_depth} but the "
                          "parameters hold no mtp")
-    emb_next = params.embed[labels.clamp(min=0).long()].to(x.dtype)
+    emb_next = _embed_table(params)[labels.clamp(min=0).long()].to(x.dtype)
+    emb_next = sharding.constrain(emb_next, "batch", "act_seq", None)
     h = torch.cat([x, emb_next], -1) @ params.mtp.proj.to(x.dtype)
     positions = _positions(tokens)
     lp = params.mtp.layer
@@ -405,7 +459,10 @@ def caches_by_run(cfg: LMConfig, caches: list[dict]) -> list[dict]:
 def prefill(params: LM, cfg: LMConfig, tokens, max_seq: int):
     """Run the prompt, build per-layer caches. Returns (last_logits
     (B, 1, V), caches)."""
-    x = _embed(params, cfg, tokens)
+    params = _as_model(params)
+    # The reference leaves this layout to GSPMD; it is named here as the
+    # backbone names it.
+    x = sharding.constrain(_embed(params, cfg, tokens), "batch", "seq", None)
     positions = _positions(tokens)
     caches = []
     for lp, dense, w in zip(params.layers, cfg.dense_layers(),
@@ -421,7 +478,9 @@ def decode_step(params: LM, cfg: LMConfig, token, pos, caches, step: int):
     """One decode step. token: (B,) int; pos: (B,) abs position; step: the
     ring-write counter. Writes ``caches`` in place; returns (logits (B, V),
     caches)."""
-    x = _embed(params, cfg, token)[:, None]
+    params = _as_model(params)
+    x = sharding.constrain(_embed(params, cfg, token)[:, None], "batch",
+                           "seq", None)     # as in ``prefill``
     for lp, dense, w, cache in zip(params.layers, cfg.dense_layers(),
                                    cfg.windows(), caches):
         x, _, _ = _layer_fwd(lp, cfg, dense, x, lambda h: attn.decode(

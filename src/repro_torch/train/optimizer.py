@@ -69,12 +69,28 @@ def _chunks(t: torch.Tensor):
         yield flat[lo:lo + CHUNK]
 
 
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _local(t):
+    """A replicated 0-d DTensor (the step's scalars when the leaves are
+    DTensors) as this rank's plain tensor; anything else as it is."""
+    return t.to_local() if _is_dtensor(t) else t
+
+
 @torch.no_grad()
 def global_norm(tree_) -> torch.Tensor:
     """√(Σ over the leaves, in JAX's order, of Σ x²) in float32; a 0-d
-    tensor on the leaves' device."""
+    tensor on the leaves' device. A DTensor leaf's Σ x² is its shards'
+    sum, all-reduced (``full_tensor``)."""
     total = None
     for leaf in tree.leaves(tree_):
+        if _is_dtensor(leaf):
+            s = torch.sum(torch.square(leaf.detach().float())).full_tensor()
+            total = s if total is None else total + s
+            continue
         for c in _chunks(leaf.detach().contiguous()):
             s = torch.sum(torch.square(c.float()))
             total = s if total is None else total + s
@@ -128,11 +144,17 @@ def apply_updates(params, grads, opt_state, cfg: AdamWConfig):
     lr = schedule(cfg, step)
     bc1 = 1 - torch.pow(cfg.b1, step.float())
     bc2 = 1 - torch.pow(cfg.b2, step.float())
+    scale, lr_, bc1, bc2 = (_local(t) for t in (scale, lr, bc1, bc2))
     for p, g, m, v in zip(tree.leaves(params), tree.leaves(grads),
                           tree.leaves(opt_state["m"]),
                           tree.leaves(opt_state["v"])):
-        for pc, gc, mc, vc in zip(_chunks(p.detach()),
-                                  _chunks(g.contiguous()), _chunks(m),
-                                  _chunks(v)):
-            _update_chunk(pc, gc, mc, vc, scale, lr, bc1, bc2, cfg)
+        p = p.detach()
+        if _is_dtensor(p):
+            # The update is elementwise: each rank updates its own shards,
+            # the gradient laid out as the parameter first.
+            g = g.redistribute(p.device_mesh, p.placements)
+            p, g, m, v = (t.to_local() for t in (p, g, m, v))
+        for pc, gc, mc, vc in zip(_chunks(p), _chunks(g.contiguous()),
+                                  _chunks(m), _chunks(v)):
+            _update_chunk(pc, gc, mc, vc, scale, lr_, bc1, bc2, cfg)
     return params, opt_state, {"grad_norm": gnorm, "lr": lr}

@@ -1,0 +1,237 @@
+"""The port's dry run (``repro_torch.configs.base``, ``configs.lm_common``'s
+``make_cell``, ``launch.analysis``, ``launch.dryrun``) against the JAX
+package's: the dense LMs' cells argument by argument, their bytes a card on
+the 16 × 16 mesh, the model flops and active parameters of every LM, the
+roofline's arithmetic, a fake (2, 2) run's flops per rank, and ``--all``'s
+control flow."""
+import json
+import math
+
+import jax
+import jax.numpy as jnp
+import pytest
+
+from repro import compat
+from repro import sharding as jsharding
+from repro.configs import get_arch as jget_arch
+from repro.launch import analysis as janalysis
+from repro_torch import sharding
+from repro_torch.configs import get_arch, lm_common
+from repro_torch.launch import analysis, dryrun
+from repro_torch.launch import mesh as mesh_lib
+
+DENSE = ("gemma2-2b", "starcoder2-3b", "gemma3-27b")
+LMS = DENSE + ("granite-moe-3b-a800m", "deepseek-v3-671b")
+SHAPES = tuple(lm_common.LM_SHAPES)
+
+
+def _unstack_params(tree, cfg):
+    """JAX's parameter (or moment) tree → the port's layout: each
+    ``stack_<i>`` leaf, (L, ...) with axes ("layers", ...), as L leaves
+    without the leading axis. Leaves are (shape, dtype, axes)."""
+    out = {k: v for k, v in tree.items() if not k.startswith("stack_")}
+    layers = []
+    for si, (_, _, n) in enumerate(cfg.stacks()):
+        for i in range(n):
+            layers.append(jax.tree_util.tree_map(
+                lambda l: (l[0][1:], l[1], l[2][1:]), tree[f"stack_{si}"],
+                is_leaf=lambda x: isinstance(x, tuple)))
+    out["layers"] = layers
+    return out
+
+
+def _jax_leaves(spec_tree, axes_tree):
+    return jax.tree_util.tree_map(
+        lambda s, a: (tuple(s.shape), str(s.dtype), a), spec_tree, axes_tree,
+        is_leaf=lambda x: isinstance(x, tuple) or x is None)
+
+
+def _port_leaves(arg, axes):
+    return sharding.tree_map_axes(
+        lambda a, t: (tuple(t.shape), str(t.dtype).split(".")[-1], a),
+        axes, arg)
+
+
+def _decode_caches(jtree, cfg):
+    """JAX's per-run stacked caches → one (shape, dtype, axes) a layer."""
+    layers = []
+    for run in jtree:
+        n = next(iter(run.values()))[0][0]
+        for _ in range(n):
+            layers.append({k: (s[1:], d, a[1:]) for k, (s, d, a)
+                           in run.items()})
+    return layers
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("arch", DENSE)
+def test_make_cell_matches_jax(arch, shape):
+    """Every argument's shape, dtype and axes, leaf for leaf, after the
+    port's layout changes: the stacked layers as a list, the decode caches
+    one a layer, the decode step a Python int."""
+    jcell = jget_arch(arch).make_cell(shape)
+    cell = get_arch(arch).make_cell(shape)
+    cfg = get_arch(arch).config()
+    assert (cell.arch, cell.shape, cell.kind) == (jcell.arch, jcell.shape,
+                                                  jcell.kind)
+    want = [_jax_leaves(s, a) for s, a in zip(jcell.args, jcell.arg_axes)]
+    got = [_port_leaves(t, a) for t, a in zip(cell.args, cell.arg_axes)
+           if not isinstance(t, int)]
+    if cell.kind == "train":
+        ws = want[0]
+        want[0] = {"params": _unstack_params(ws["params"], cfg),
+                   "opt": {"m": _unstack_params(ws["opt"]["m"], cfg),
+                           "v": _unstack_params(ws["opt"]["v"], cfg),
+                           "step": ws["opt"]["step"]}}
+    else:
+        want[0] = _unstack_params(want[0], cfg)
+    if cell.kind == "decode":
+        assert cell.args[4] == lm_common.DECODE_STEP
+        assert want.pop() == ((), "int32", ())        # JAX's traced step
+        want[3] = _decode_caches(want[3], cfg)
+    assert got == want
+
+
+def _jax_card_bytes(jcell, mesh):
+    """Σ over JAX's argument leaves of the bytes of one shard under its
+    ``sharding.spec``."""
+    size = dict(mesh.shape)
+    total = 0
+    with jsharding.use_rules(mesh):
+        for args, axes in zip(jcell.args, jcell.arg_axes):
+            ax_leaves = jax.tree_util.tree_leaves(
+                axes, is_leaf=lambda x: isinstance(x, tuple) or x is None)
+            for a, s in zip(ax_leaves, jax.tree_util.tree_leaves(args),
+                            strict=True):
+                shape = list(s.shape)
+                if isinstance(a, tuple) and len(a) == len(shape):
+                    spec = jsharding.spec(*a, shape=tuple(shape))
+                    for d, part in enumerate(spec):
+                        for ax in (part if isinstance(part, tuple)
+                                   else (part,)):
+                            if ax is not None:
+                                shape[d] //= size[ax]
+                total += math.prod(shape) * jnp.dtype(s.dtype).itemsize
+    return total
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("arch", DENSE)
+def test_card_argument_bytes_match_jax(arch, shape):
+    jcell = jget_arch(arch).make_cell(shape)
+    want = _jax_card_bytes(jcell, compat.abstract_mesh((16, 16),
+                                                       ("data", "model")))
+    if jcell.kind == "decode":
+        want -= 4                  # JAX's step is an array, the port's an int
+    with dryrun.fake_world(256):
+        mesh = mesh_lib.make_production_mesh()
+        with sharding.use_rules(mesh):
+            assert get_arch(arch).make_cell(shape).argument_bytes() == want
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("arch", LMS)
+def test_model_flops_and_active_params_match_jax(arch, shape):
+    cfg, jcfg = get_arch(arch).config(), jget_arch(arch).config()
+    sh = lm_common.LM_SHAPES[shape]
+    assert analysis.lm_active_params(cfg) == \
+        janalysis.lm_active_params(jcfg)
+    assert analysis.lm_model_flops(cfg, sh["batch"], sh["seq"],
+                                   sh["kind"]) == \
+        janalysis.lm_model_flops(jcfg, sh["batch"], sh["seq"], sh["kind"])
+
+
+def test_roofline_arithmetic():
+    hw = analysis.HW
+    coll = analysis.collective_bytes([
+        ("all-gather", 100, 400, True), ("all-reduce", 50, 50, True),
+        ("reduce-scatter", 80, 20, False), ("all-to-all", 60, 60, True)])
+    assert coll["wire"] == {"all-gather": 300, "all-reduce": 100,
+                            "reduce-scatter": 80, "all-to-all": 60,
+                            "collective-permute": 0}
+    assert coll["wire_total"] == 540 and coll["wire_nvlink"] == 80
+    assert coll["total"] == 290
+    assert coll["counts"]["all-gather"] == 1
+    rl = analysis.Roofline(flops=989.4e12, bytes_accessed=6.7e12,
+                           coll_bytes=540e9, n_chips=4,
+                           model_flops=2 * 989.4e12,
+                           nvlink_bytes=80e9)
+    assert rl.compute_s == pytest.approx(1.0)
+    assert rl.memory_s == pytest.approx(2.0)
+    assert rl.collective_s == pytest.approx(80e9 / hw["nvlink_bw"]
+                                            + 460e9 / hw["ib_bw"])
+    assert rl.dominant == "collective" and rl.bound_s == rl.collective_s
+    assert rl.useful_flops_ratio == pytest.approx(0.5)
+    assert set(rl.row()) == {"flops", "bytes", "coll_bytes", "chips",
+                             "compute_s", "memory_s", "collective_s",
+                             "dominant", "model_flops", "useful_ratio"}
+
+
+def test_fake_run_flops_per_rank(monkeypatch):
+    """gemma2-2b's smoke prefill (B 4, S 32) on a fake (2, 2) mesh: each
+    rank's products and attention are a quarter of the cell's (batch over
+    data; heads, the MLP and the last token's vocab over model)."""
+    monkeypatch.setattr(lm_common, "LM_SHAPES", {
+        "prefill_32k": dict(seq=32, batch=4, kind="prefill")})
+    cfg = get_arch("gemma2-2b").smoke_config()
+    B, S, D, F, V = 4, 32, cfg.d_model, cfg.d_ff, cfg.vocab
+    H, Hkv, Dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    layer = (2 * B * S * D * (H + 2 * Hkv) * Dh + 2 * B * S * H * Dh * D
+             + 3 * 2 * B * S * D * F)
+    pairs = {16: 16 * 17 // 2 + 16 * 16, 0: S * (S + 1) // 2}
+    attn = sum(4 * Dh * B * H * pairs[w] for w in cfg.windows())
+    with dryrun.fake_world(4):
+        mesh = mesh_lib.make_device_mesh((2, 2))
+        with sharding.use_rules(mesh):
+            m = dryrun.measure(lm_common.make_cell("gemma2-2b", cfg,
+                                                   "prefill_32k"), mesh)
+    by_op = m["cost"]["flops_by_op"]
+    assert by_op["repro_torch.flash_attention"] == attn // 4
+    assert by_op.get("aten.mm", 0) + by_op.get("aten.bmm", 0) == \
+        (cfg.n_layers * layer + 2 * B * D * V) // 4
+    assert m["cost"]["flops"] == sum(by_op.values())
+    assert m["memory"]["peak_bytes"] >= m["memory"]["argument_bytes"] > 0
+
+
+def _small_cells(monkeypatch):
+    """Every LM shape cut to a few tokens and the dense archs to their
+    smoke configs, so ``--all`` runs its whole control flow in seconds."""
+    monkeypatch.setattr(lm_common, "LM_SHAPES", {
+        name: dict(sh, seq=32, batch=16) for name, sh in
+        lm_common.LM_SHAPES.items()})
+    for arch in DENSE:
+        mod = get_arch(arch)
+        small = mod.smoke_config()
+        monkeypatch.setattr(mod, "config", lambda small=small: small)
+
+
+def test_all_writes_ok_and_skipped(monkeypatch, tmp_path, capsys):
+    _small_cells(monkeypatch)
+    assert dryrun.main(["--all", "--out", str(tmp_path)]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    status = {}
+    for f in tmp_path.glob("*.json"):
+        r = json.loads(f.read_text())
+        status[(r["arch"], r["shape"])] = r["status"]
+        assert r["mesh"] == "16x16"
+        if r["status"] == "ok":
+            assert set(r) >= {"memory", "cost", "collectives",
+                              "collective_counts", "roofline"}
+    assert {k for k, v in status.items() if v == "ok"} == \
+        {(a, s) for a in DENSE for s in SHAPES}
+    assert all(v == "skipped" for (a, _), v in status.items()
+               if a not in DENSE)
+    assert len(lines) == len(status)
+
+
+def test_an_error_makes_the_run_fail(monkeypatch, tmp_path):
+    _small_cells(monkeypatch)
+
+    def broken(shape):
+        raise RuntimeError("boom")
+
+    monkeypatch.setattr(get_arch("starcoder2-3b"), "make_cell", broken)
+    assert dryrun.main(["--arch", "starcoder2-3b", "--shape", "train_4k",
+                        "--out", str(tmp_path)]) == 1
+    r = json.loads(next(tmp_path.glob("*.json")).read_text())
+    assert r["status"] == "error" and "boom" in r["error"]

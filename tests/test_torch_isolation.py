@@ -32,7 +32,9 @@ def test_port_imports_no_jax_and_no_repro():
               "examples.train_retrieval", "configs.kg_specqp",
               "launch.train", "examples.train_lm", "models.gnn.e3",
               "models.gnn.egnn", "models.gnn.nequip", "models.gnn.mace",
-              "configs.egnn", "configs.nequip", "configs.mace"):
+              "configs.egnn", "configs.nequip", "configs.mace",
+              "sharding", "configs.base", "launch.analysis",
+              "launch.dryrun"):
         assert f"repro_torch.{m}" in mods, m
     code = "\n".join(
         ["import importlib, sys"]
@@ -63,3 +65,32 @@ def test_chip_smoke_imports_no_jax():
         s = line.strip()
         if s.startswith(("import ", "from ")):
             assert s.split()[1].split(".")[0] not in ("jax", "repro"), line
+
+
+def test_sharding_and_dry_run_start_nothing_when_imported():
+    """Importing the sharding and dry-run modules starts no process group,
+    builds and loads no kernel, and leaves no rules installed; importing
+    the kernels registers the attention's custom ops and their FLOP
+    formulas, and builds nothing either."""
+    code = "\n".join([
+        "import torch, torch.distributed as dist",
+        "from repro_torch import sharding",
+        "from repro_torch.configs import base",
+        "from repro_torch.launch import analysis, dryrun",
+        "from repro_torch.kernels import _build",
+        "from torch.utils.flop_counter import flop_registry",
+        "assert not dist.is_initialized()",
+        "assert not _build._libs and not _build.build_log",
+        "assert not sharding.active()",
+        "from repro_torch.kernels import ops",
+        "assert not _build._libs and not dist.is_initialized()",
+        "op = torch.ops.repro_torch.flash_attention",
+        "assert op in flop_registry",
+        "assert torch.ops.repro_torch.flash_attention_backward in "
+        "flop_registry",
+        "print('ok')"])
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
