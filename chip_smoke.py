@@ -210,20 +210,29 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    input; then at the molecule shape (128 molecules, 8,192 edges, 261
    self-loops) the card's gradients against the CPU's (EGNN's finite), 4
    ``TRAIN_CFG`` steps timed and ``smoke()`` on the card;
-15. the dry run (``launch/dryrun.py``, ``sharding.py``): (a) the 12 dense
-   LM cells (gemma2-2b, starcoder2-3b, gemma3-27b x train_4k,
-   prefill_32k, decode_32k, long_500k) laid over the 16 x 16 production
-   mesh of a fake process group, fake CUDA tensors on this host, one
-   process a cell, DRYRUN_JOBS at a time: each cell's status, argument and
-   peak GB a card, flops, collective bytes, roofline terms and the
-   dominant one; (b) the dry run on a (1, 1) mesh of phases 7's and 11's
-   cuts of gemma2-2b (a prefill of 4 x 8192, a train step of 4 x 4096,
-   remat "full", bf16) beside the peak and time of the same calls
-   measured here, the predicted peak within DRYRUN_PEAK_BAND of the
-   measured; (c) gemma2-2b laid by ``sharding.distribute`` onto a (1, 1)
-   mesh of a 1-rank NCCL process group, a prefill of 4 x 8192 through the
-   constrain calls and the attention's custom op, its logits and caches
-   bit-equal to the unsharded prefill's, 26 ``flash_attention`` launches;
+15. the dry run (``launch/dryrun.py``, ``sharding.py``, the sharded MoE
+   ``models/moe.py`` ``_Layout``): (a) the 20 LM cells (gemma2-2b,
+   starcoder2-3b, gemma3-27b, granite-moe-3b-a800m and deepseek-v3-671b x
+   train_4k, prefill_32k, decode_32k, long_500k; the MoE archs'
+   long_500k must come out skipped with their configs' SKIP_SHAPES
+   reasons, every other cell ok) laid over the 16 x 16 production mesh of
+   a fake process group, fake CUDA tensors on this host, one process a
+   cell, slowest first, in a thread that a whole run starts after phase 3
+   (DRYRUN_JOBS_BESIDE processes at once, beside phases 4-14; they use the
+   host's cores only) and ``--dryrun-only`` at phase 15 (DRYRUN_JOBS): each
+   cell's status, argument and peak GB a card, flops, collective bytes,
+   roofline terms and the dominant one; (b) the dry run on a (1, 1) mesh
+   of phases 7's, 11's, 12's and 13's cuts (gemma2-2b's prefill of 4 x
+   8192 and step of 4 x 4096; granite's prefill of 4 x 8192 and step of 8
+   x 4096; deepseek's serving cut's prefill of 4 x 8192 and training
+   cut's step of 4 x 4096; bf16, remat "full") beside the peak and time
+   of the same calls measured here, each predicted peak within
+   DRYRUN_PEAK_BAND of the measured; (c) gemma2-2b, granite and
+   deepseek's serving cut, each laid by ``sharding.distribute`` onto a
+   (1, 1) mesh of a 1-rank NCCL process group, a prefill of 4 x 8192
+   through the constrain calls, the attention's custom op and the sharded
+   MoE, its logits and caches bit-equal to the unsharded prefill's, one
+   ``flash_attention`` launch a layer (26, 32, 4);
 16. print the kernel table as one JSON line (``launches``: each kernel's
    count on its own path, so 0 for ``neigh_softmax_agg`` on
    ``gat.apply``, phase 10's steps for ``embedding_bag_backward`` and
@@ -274,6 +283,7 @@ import math
 import pathlib
 import subprocess
 import sys
+import threading
 import time
 
 T_START = time.perf_counter()
@@ -1871,9 +1881,14 @@ def serve_lm(np, torch, ops, dev, cfg, prof: bool, check,
                                                       1))
         lf = tf.logits_from_hidden(model, ccfg, x[:, -1])[0].float()
         pos = torch.full((1,), ds, dtype=torch.int32, device=dev)
-        # The backbone's experts of position ds, one layer after another.
-        routes = [r.reshape(-1, r.shape[-1])[ds].view(1, 1, -1)
-                  for r in routes]
+        # The backbone's experts of position ds, one layer after another
+        # (a layer's chunks may come in several calls: ``moe_ffn`` runs
+        # them in batches of ``moe.chunks_at_once``).
+        if routes:
+            rows = torch.cat([r.reshape(-1, r.shape[-1]) for r in routes])
+            rows = rows.view(sum(not d for d in ccfg.dense_layers()), -1,
+                             rows.shape[-1])
+            routes = [r[ds].view(1, 1, -1) for r in rows]
         with held_routing(replay=routes):
             ld, _ = tf.decode_step(model, ccfg, nxt, pos, caches, ds)
         ld = ld[0].float()
@@ -4948,62 +4963,147 @@ def e3gnn_path(np, torch, ops, dev, g=None, prof: bool = False) -> dict:
 
 
 DRYRUN_JOBS = 6               # cells dry-run at once (one process each)
-DRYRUN_CELLS = [(a, s) for a in ("gemma2-2b", "starcoder2-3b", "gemma3-27b")
-                for s in ("train_4k", "prefill_32k", "decode_32k",
-                          "long_500k")]
+# In a whole run phase 15 (a) starts after phase 3 and runs beside phases
+# 4-14 (the dry run uses only the host's cores), with fewer processes at
+# once, so that phase 15 need not wait for it.
+DRYRUN_JOBS_BESIDE = 2
+# The cells of phase 15 (a), slowest first: each must come out as listed
+# ("skipped" with its config's SKIP_SHAPES reason).
+DRYRUN_MOE = ("granite-moe-3b-a800m", "deepseek-v3-671b")
+DRYRUN_CELLS = ([("deepseek-v3-671b", "train_4k"),
+                 ("granite-moe-3b-a800m", "train_4k"),
+                 ("deepseek-v3-671b", "prefill_32k")]
+                + [(a, s) for a in ("gemma2-2b", "starcoder2-3b", "gemma3-27b")
+                   for s in ("train_4k", "prefill_32k", "decode_32k",
+                             "long_500k")]
+                + [("granite-moe-3b-a800m", "prefill_32k"),
+                   ("deepseek-v3-671b", "decode_32k"),
+                   ("granite-moe-3b-a800m", "decode_32k")]
+                + [(a, "long_500k") for a in DRYRUN_MOE])
+DRYRUN_CELL_S = 900           # a cell's process is killed after this
 # Phase 15 (b)'s bar: predicted peak within [1/2, 2] x the measured one.
 DRYRUN_PEAK_BAND = (0.5, 2.0)
 
 
-def dryrun_cells(cells, out_dir: pathlib.Path) -> list:
-    """Phase 15 (a): each cell through ``python -m repro_torch.launch.dryrun``
-    on the 16 x 16 mesh of a fake process group, DRYRUN_JOBS processes at
-    a time; every process is waited for. Returns the cells' results."""
-    import os
+class DryrunCells(threading.Thread):
+    """Phase 15 (a), in a thread of its own, so that the card's phases (b)
+    and (c) run beside it: each cell through ``python -m
+    repro_torch.launch.dryrun`` on the 16 x 16 mesh of a fake process
+    group, DRYRUN_JOBS processes at a time (they use the host's cores, not
+    the card). A cell of its config's SKIP_SHAPES must come out "skipped"
+    with that reason, every other "ok". ``stop`` kills the processes
+    still running; ``results`` and ``failed`` are read after ``join``."""
 
-    env = dict(os.environ, PYTHONPATH=str(SRC))
-    todo, running, results, failed = list(cells), [], [], []
-    while todo or running:
-        while todo and len(running) < DRYRUN_JOBS:
-            arch, shape = todo.pop(0)
-            running.append(((arch, shape), subprocess.Popen(
-                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-                 arch, "--shape", shape, "--out", str(out_dir)], cwd=ROOT,
-                env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
-        cell, proc = running.pop(0)
-        log, _ = proc.communicate(timeout=900)
-        path = out_dir / f"{cell[0]}__{cell[1]}__16x16.json"
+    def __init__(self, cells, out_dir: pathlib.Path,
+                 jobs: int = DRYRUN_JOBS):
+        super().__init__(daemon=True)
+        self.todo, self.out_dir, self.jobs = list(cells), out_dir, jobs
+        self.running, self.results, self.failed = [], [], []
+        self.error = None
+        self.t0 = time.perf_counter()
+        self._lock = threading.Lock()    # starting against stopping
+        self._stopped = False
+
+    def start(self):
+        import atexit
+        atexit.register(self.stop)     # also when an earlier phase fails
+        super().start()
+
+    def run(self):
+        try:
+            self._run()
+        except Exception as e:  # noqa: BLE001 - reported by the caller
+            self.error = e
+
+    def _run(self):
+        import os
+
+        env = dict(os.environ, PYTHONPATH=str(SRC))
+        self.out_dir.mkdir(parents=True, exist_ok=True)
+        while True:
+            with self._lock:
+                if self._stopped or not (self.todo or self.running):
+                    return
+                while self.todo and len(self.running) < self.jobs:
+                    cell = self.todo.pop(0)
+                    log = self.out_dir / f"{cell[0]}__{cell[1]}.log"
+                    with open(log, "w") as f:
+                        self.running.append((cell, log, time.perf_counter(),
+                                             subprocess.Popen(
+                            [sys.executable, "-m",
+                             "repro_torch.launch.dryrun", "--arch", cell[0],
+                             "--shape", cell[1], "--out", str(self.out_dir)],
+                            cwd=ROOT, env=env, stdout=f,
+                            stderr=subprocess.STDOUT)))
+                for _, _, t0, proc in self.running:
+                    if time.perf_counter() - t0 > DRYRUN_CELL_S:
+                        proc.kill()
+                done = [r for r in self.running if r[3].poll() is not None]
+                for item in done:
+                    self.running.remove(item)
+            for item in done:
+                self._collect(*item)
+            if not done:
+                time.sleep(0.5)
+
+    def _collect(self, cell, log, t0, proc):
+        from repro_torch.configs import get_arch
+
+        path = self.out_dir / f"{cell[0]}__{cell[1]}__16x16.json"
         r = json.loads(path.read_text()) if path.exists() else {}
-        if proc.returncode != 0 or r.get("status") != "ok":
-            print(f"phase 15 (a) {cell}: failed (rc {proc.returncode}): "
-                  f"{r.get('error')}\n"
-                  f"{r.get('traceback', log)[-3000:]}", file=sys.stderr)
-            failed.append(cell)
+        reason = getattr(get_arch(cell[0]), "SKIP_SHAPES", {}).get(cell[1])
+        want = "skipped" if reason else "ok"
+        if proc.returncode != 0 or r.get("status") != want or (
+                reason and r.get("reason") != reason):
+            print(f"phase 15 (a) {cell}: {r.get('status')}, not {want} "
+                  f"(rc {proc.returncode} after "
+                  f"{time.perf_counter() - t0:.0f} s): {r.get('error')}\n"
+                  f"{r.get('traceback', log.read_text())[-3000:]}",
+                  file=sys.stderr)
+            self.failed.append(cell)
         else:
-            results.append(r)
-    if failed:
-        fail(f"the dry run failed for {failed}")
-    return results
+            self.results.append(r)
+
+    def stop(self):
+        with self._lock:
+            self._stopped = True
+            self.todo = []
+            for *_, proc in self.running:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
 
 
-def dryrun_measured(np, torch, ops, dev) -> dict:
-    """Phase 15 (b)'s measurements: gemma2-2b at its published widths, a
-    prefill of LM_BATCH x LM_SEQ (phase 7's cut) and a train step of
-    LM_TRAIN_BATCH x LM_TRAIN_SEQ (phase 11's), each timed after a
-    warm-up, with the peak allocated bytes of the second call."""
-    from repro_torch.configs import gemma2_2b, lm_common
+def dryrun_cuts():
+    """Phase 15 (b)'s cuts: (name, arch module, config, shape name, batch,
+    seq), each a call phases 7 and 11-13 run."""
+    from repro_torch.configs import deepseek_v3_671b as deepseek
+    from repro_torch.configs import gemma2_2b, granite_moe_3b_a800m as granite
+
+    return [("gemma2-2b prefill", gemma2_2b, gemma2_2b.config(),
+             "prefill_32k", LM_BATCH, LM_SEQ),
+            ("gemma2-2b train", gemma2_2b, gemma2_2b.config(), "train_4k",
+             LM_TRAIN_BATCH, LM_TRAIN_SEQ),
+            ("granite prefill", granite, granite.config(), "prefill_32k",
+             LM_BATCH, LM_SEQ),
+            ("granite train", granite, granite.config(), "train_4k",
+             MOE_TRAIN_BATCH, LM_TRAIN_SEQ),
+            ("deepseek serve-cut prefill", deepseek,
+             deepseek.serve_card_config(), "prefill_32k", LM_BATCH, LM_SEQ),
+            ("deepseek train-cut train", deepseek,
+             deepseek.train_card_config(), "train_4k", MLA_TRAIN_BATCH,
+             LM_TRAIN_SEQ)]
+
+
+def dryrun_measured(np, torch, ops, dev, cuts) -> dict:
+    """Phase 15 (b)'s measurements: each cut's call (a prefill, or one
+    ``TRAIN_CFG`` step) timed after a warm-up, with the peak allocated
+    bytes of the second call; one model on the card at a time. Returns
+    {name: (seconds, peak bytes)}."""
+    from repro_torch.configs import lm_common
     from repro_torch.launch import train as train_launch
     from repro_torch.models import transformer as tf
     from repro_torch.train import loop
-
-    cfg = gemma2_2b.config()
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED)
-    out = {}
-    model = tf.init(cfg, gen, dev)
-    toks = torch.randint(0, cfg.vocab, (LM_BATCH, LM_SEQ), generator=gen,
-                         device=dev, dtype=torch.int32)
 
     def timed(fn):
         fn()
@@ -5015,54 +5115,69 @@ def dryrun_measured(np, torch, ops, dev) -> dict:
         return (time.perf_counter() - t,
                 torch.cuda.max_memory_allocated(dev))
 
-    with torch.no_grad():
-        out["prefill"] = timed(lambda: tf.prefill(model, cfg, toks, LM_SEQ))
-    state = loop.make_train_state(tf.param_tree(model), lm_common.TRAIN_CFG)
-    step = loop.make_train_step(
-        lambda p, b: tf.loss_fn(p, cfg, b["tokens"], b["labels"]),
-        lm_common.TRAIN_CFG)
-    batch = train_launch.synth_lm_batch(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, 0,
-                                        dev)
-    out["train"] = timed(lambda: step(state, batch))
-    del model, state, batch
-    torch.cuda.empty_cache()
+    out = {}
+    for name, _, cfg, shape, B, S in cuts:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        model = tf.init(cfg, gen, dev)
+        if shape == "prefill_32k":
+            toks = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                                 device=dev, dtype=torch.int32)
+            with torch.no_grad():
+                out[name] = timed(lambda: tf.prefill(model, cfg, toks, S))
+            del toks
+        else:
+            state = loop.make_train_state(tf.param_tree(model),
+                                          lm_common.TRAIN_CFG)
+            step = loop.make_train_step(
+                lambda p, b, cfg=cfg: tf.loss_fn(p, cfg, b["tokens"],
+                                                 b["labels"]),
+                lm_common.TRAIN_CFG)
+            batch = train_launch.synth_lm_batch(cfg, B, S, 0, dev)
+            out[name] = timed(lambda: step(state, batch))
+            del state, batch
+        del model
+        torch.cuda.empty_cache()
     return out
 
 
-def dryrun_predicted() -> dict:
-    """Phase 15 (b)'s predictions: the dry run of the same two cuts on a
-    (1, 1) mesh of a fake process group of one rank."""
-    from repro_torch.configs import gemma2_2b, lm_common
+def dryrun_predicted(cuts) -> dict:
+    """Phase 15 (b)'s predictions: the dry run of the same cuts on a (1, 1)
+    mesh of a fake process group of one rank (each arch's ``config``
+    replaced by the cut's while it runs)."""
+    from repro_torch.configs import lm_common
     from repro_torch.launch import dryrun, mesh as mesh_lib
 
     shapes = dict(lm_common.LM_SHAPES)
-    cuts = {"prefill": ("prefill_32k", LM_BATCH, LM_SEQ),
-            "train": ("train_4k", LM_TRAIN_BATCH, LM_TRAIN_SEQ)}
     out = {}
-    try:
-        with dryrun.fake_world(1):
-            mesh = mesh_lib.make_device_mesh((1, 1))
-            for name, (shape, B, S) in cuts.items():
+    with dryrun.fake_world(1):
+        mesh = mesh_lib.make_device_mesh((1, 1))
+        for name, mod, cfg, shape, B, S in cuts:
+            config = mod.config
+            try:
                 lm_common.LM_SHAPES[shape] = dict(shapes[shape], batch=B,
                                                   seq=S)
+                mod.config = lambda cfg=cfg: cfg
                 out[name] = dryrun.run_cell(
-                    gemma2_2b.ARCH, shape, mesh,
+                    mod.ARCH, shape, mesh,
                     str(ROOT / "results" / "dryrun_torch_card_cuts"))
-                if out[name]["status"] != "ok":
-                    fail(f"dry run of the {name} cut failed: "
-                         f"{out[name].get('traceback')}")
-    finally:
-        lm_common.LM_SHAPES.update(shapes)
+            finally:
+                mod.config = config
+                lm_common.LM_SHAPES.update(shapes)
+            if out[name]["status"] != "ok":
+                fail(f"dry run of the {name} cut failed: "
+                     f"{out[name].get('traceback')}")
     return out
 
 
-def dryrun_sharded_prefill(np, torch, ops, dev) -> int:
-    """Phase 15 (c): a 1-rank NCCL process group and (1, 1) mesh, gemma2-2b
-    at its published widths laid onto it by ``sharding.distribute`` and a
-    prefill of LM_BATCH x LM_SEQ through the constrain calls and the
-    attention's custom op; its logits and caches bit-equal to the
-    unsharded model's, its ``flash_attention`` launches counted. Returns
-    the launches."""
+def dryrun_sharded_prefill(np, torch, ops, dev) -> dict:
+    """Phase 15 (c): a 1-rank NCCL process group and (1, 1) mesh; gemma2-2b
+    and granite-moe-3b-a800m at their published widths and deepseek's
+    serving cut, each laid onto it by ``sharding.distribute`` and a prefill
+    of LM_BATCH x LM_SEQ through the constrain calls, the attention's
+    custom op and the MoE's sharded dispatch (``moe._Layout``); logits and
+    caches bit-equal to the unsharded model's, its ``flash_attention``
+    launches one a layer. Returns {arch: launches}."""
     import socket
 
     import torch.distributed as dist
@@ -5070,71 +5185,100 @@ def dryrun_sharded_prefill(np, torch, ops, dev) -> int:
     from torch.distributed.tensor.experimental import implicit_replication
 
     from repro_torch import sharding
-    from repro_torch.configs import gemma2_2b
+    from repro_torch.configs import deepseek_v3_671b as deepseek
+    from repro_torch.configs import gemma2_2b, granite_moe_3b_a800m as granite
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.models import transformer as tf
 
-    cfg = gemma2_2b.config()
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED)
-    model = tf.init(cfg, gen, dev)
-    toks = torch.randint(0, cfg.vocab, (LM_BATCH, LM_SEQ), generator=gen,
-                         device=dev, dtype=torch.int32)
-    with torch.no_grad():
-        want_logits, want_caches = tf.prefill(model, cfg, toks, LM_SEQ)
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
     dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
                             world_size=1, rank=0)
+    out = {}
     try:
         mesh = mesh_lib.make_device_mesh((1, 1), device_type=dev.type)
-        with sharding.use_rules(mesh):
-            sharding.distribute(model, tf.param_axes(model), mesh)
-            dtoks = sharding.distribute(toks, ("batch", "seq"), mesh)
-            ops.reset_launches()
-            with torch.no_grad(), implicit_replication():
-                logits, caches = tf.prefill(model, cfg, dtoks, LM_SEQ)
-            torch.cuda.synchronize()
-            launches = ops.launches()["flash_attention"]
-        if not isinstance(logits, DTensor):
-            fail("the sharded prefill's logits are not a DTensor")
-        if not torch.equal(logits.to_local(), want_logits):
-            fail("the sharded prefill's logits differ from the unsharded")
-        for i, (got, want) in enumerate(zip(caches, want_caches,
-                                            strict=True)):
-            for key in want:
-                g = got[key]
-                g = g.to_local() if isinstance(g, DTensor) else g
-                if not torch.equal(g, want[key]):
-                    fail(f"the sharded prefill's layer {i} cache {key} "
-                         "differs from the unsharded")
+        for arch, cfg in ((gemma2_2b.ARCH, gemma2_2b.config()),
+                          (granite.ARCH, granite.config()),
+                          (deepseek.ARCH, deepseek.serve_card_config())):
+            t0 = time.perf_counter()
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(SEED)
+            model = tf.init(cfg, gen, dev)
+            toks = torch.randint(0, cfg.vocab, (LM_BATCH, LM_SEQ),
+                                 generator=gen, device=dev,
+                                 dtype=torch.int32)
+            with torch.no_grad():
+                want_logits, want_caches = tf.prefill(model, cfg, toks,
+                                                      LM_SEQ)
+            with sharding.use_rules(mesh):
+                sharding.distribute(model, tf.param_axes(model), mesh)
+                dtoks = sharding.distribute(toks, ("batch", "seq"), mesh)
+                ops.reset_launches()
+                with torch.no_grad(), implicit_replication():
+                    logits, caches = tf.prefill(model, cfg, dtoks, LM_SEQ)
+                torch.cuda.synchronize()
+                launches = ops.launches()["flash_attention"]
+            if not isinstance(logits, DTensor):
+                fail(f"{arch}: the sharded prefill's logits are not a "
+                     "DTensor")
+            if not torch.equal(logits.to_local(), want_logits):
+                fail(f"{arch}: the sharded prefill's logits differ from the "
+                     "unsharded")
+            for i, (got, want) in enumerate(zip(caches, want_caches,
+                                                strict=True)):
+                for key in want:
+                    g = got[key]
+                    g = g.to_local() if isinstance(g, DTensor) else g
+                    if not torch.equal(g, want[key]):
+                        fail(f"{arch}: the sharded prefill's layer {i} "
+                             f"cache {key} differs from the unsharded")
+            del model, caches, want_caches, logits, want_logits
+            torch.cuda.empty_cache()
+            if launches != cfg.n_layers:
+                fail(f"{arch}: the sharded prefill launched "
+                     f"flash_attention {launches} times, not "
+                     f"{cfg.n_layers}")
+            out[arch] = launches
+            print(f"phase 15 (c): the {arch} prefill of {LM_BATCH} x "
+                  f"{LM_SEQ} ({cfg.n_layers} layers) on a (1, 1) NCCL mesh "
+                  "through the constrain calls, the custom op and the "
+                  "sharded MoE: logits and every layer's caches bit-equal "
+                  f"to the unsharded prefill's, {launches} flash_attention "
+                  f"launches; {time.perf_counter() - t0:.1f} s")
     finally:
         dist.destroy_process_group()
-    del model, caches, want_caches
-    torch.cuda.empty_cache()
-    if launches != cfg.n_layers:
-        fail(f"the sharded prefill launched flash_attention {launches} "
-             f"times, not {cfg.n_layers}")
-    print(f"phase 15 (c): the gemma2-2b prefill of {LM_BATCH} x {LM_SEQ} "
-          "on a (1, 1) NCCL mesh through the constrain calls and the "
-          f"custom op: logits and {cfg.n_layers} layers' caches bit-equal to "
-          f"the unsharded prefill's, {launches} flash_attention launches")
-    return launches
+    return out
 
 
-def dryrun_path(np, torch, ops, dev) -> dict:
-    """Phase 15: the dry run (``launch/dryrun.py``). (a) The 12 dense LM
-    cells on the 16 x 16 production mesh of H100s, fake CUDA tensors on
-    this card's host, each cell's status, argument and peak GB a card,
-    flops, collective bytes and roofline terms printed; (b) the dry run of
-    phases 7's and 11's cuts on a (1, 1) mesh beside their measured peaks
-    and times, the peak held to DRYRUN_PEAK_BAND; (c) the sharded prefill
-    on a 1-rank NCCL mesh. Returns {"launches"}."""
+def dryrun_path(np, torch, ops, dev, cells=None) -> dict:
+    """Phase 15: the dry run (``launch/dryrun.py``). (a) The LM cells on the
+    16 x 16 production mesh of H100s (the dense, granite's and deepseek's;
+    their long_500k skipped), fake CUDA tensors on this card's host, each
+    cell's status, argument and peak GB a card, flops, collective bytes
+    and roofline terms printed; (b) the dry run of phases 7's, 11's, 12's
+    and 13's cuts on a (1, 1) mesh beside their measured peaks and times,
+    each peak held to DRYRUN_PEAK_BAND; (c) the sharded prefills on a
+    1-rank NCCL mesh. ``cells``: (a) already started (a whole run starts
+    it after phase 3). Returns {"launches"}: gemma2-2b's in (c)."""
     t0 = time.perf_counter()
-    out_dir = ROOT / "results" / "dryrun_torch"
-    results = dryrun_cells(DRYRUN_CELLS, out_dir)
-    for r in results:
+    if cells is None:
+        cells = DryrunCells(DRYRUN_CELLS, ROOT / "results" / "dryrun_torch")
+        cells.start()
+    try:
+        launches = dryrun_card(np, torch, ops, dev)
+        cells.join()
+    finally:
+        cells.stop()
+    if cells.error is not None:
+        fail(f"phase 15 (a) raised {cells.error!r}")
+    if cells.failed:
+        fail(f"the dry run failed for {cells.failed}")
+    for r in cells.results:
+        if r["status"] == "skipped":
+            print(f"phase 15 (a) {r['arch']} {r['shape']} 16x16: skipped "
+                  f"({r['reason']})")
+            continue
         rl, mem = r["roofline"], r["memory"]
         print(f"phase 15 (a) {r['arch']} {r['shape']} 16x16: {r['status']}, "
               f"{r['device']}, args {mem['argument_bytes'] / 1e9:.3f} GB, "
@@ -5144,12 +5288,24 @@ def dryrun_path(np, torch, ops, dev) -> dict:
               f"{rl['memory_s']:.4e} s, collective {rl['collective_s']:.4e} "
               f"s: {rl['dominant']}; counts {r['collective_counts']}; "
               f"{r['run_s']} s")
-    print(f"phase 15 (a): {len(results)} cells in "
-          f"{time.perf_counter() - t0:.1f} s")
-    predicted = dryrun_predicted()
-    measured = dryrun_measured(np, torch, ops, dev)
+    print(f"phase 15 (a): {len(cells.results)} cells in "
+          f"{time.perf_counter() - cells.t0:.1f} s, {cells.jobs} at a time, "
+          "beside the card's work")
+    print(f"phase 15 took {time.perf_counter() - t0:.1f} s")
+    return {"launches": launches["gemma2-2b"]}
+
+
+def dryrun_card(np, torch, ops, dev) -> dict:
+    """Phase 15 (b) and (c), the parts that use the card. Returns (c)'s
+    launches by arch."""
+    t1 = time.perf_counter()
+    cuts = dryrun_cuts()
+    predicted = dryrun_predicted(cuts)
+    print(f"phase 15 (b): the (1, 1) dry runs took "
+          f"{time.perf_counter() - t1:.1f} s")
+    measured = dryrun_measured(np, torch, ops, dev, cuts)
     lo, hi = DRYRUN_PEAK_BAND
-    for name in ("prefill", "train"):
+    for name, *_ in cuts:
         p, (secs, peak) = predicted[name], measured[name]
         want = p["memory"]["peak_bytes"]
         ratio = want / peak
@@ -5161,9 +5317,8 @@ def dryrun_path(np, torch, ops, dev) -> dict:
         if not lo <= ratio <= hi:
             fail(f"phase 15 (b): the {name} cut's predicted peak is "
                  f"{ratio:.3f} x the measured one, outside {lo}-{hi}")
-    launches = dryrun_sharded_prefill(np, torch, ops, dev)
-    print(f"phase 15 took {time.perf_counter() - t0:.1f} s")
-    return {"launches": launches}
+    print(f"phase 15 (b) took {time.perf_counter() - t1:.1f} s")
+    return dryrun_sharded_prefill(np, torch, ops, dev)
 
 
 def main() -> None:
@@ -5310,6 +5465,9 @@ def main() -> None:
         print(f"chip_smoke --kg-only took "
               f"{time.perf_counter() - T_START:.1f} s")
         return
+    cells = DryrunCells(DRYRUN_CELLS, ROOT / "results" / "dryrun_torch",
+                        DRYRUN_JOBS_BESIDE)
+    cells.start()
     launches, report, state = main_path(np, torch, dev)
     t4 = time.perf_counter()
     online_path(np, torch, dev, report, state)
@@ -5358,7 +5516,7 @@ def main() -> None:
     e3gnn_path(np, torch, ops, dev, kept.pop("graph"), prof)
     print(f"e3gnn_path done at {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
-    dry = dryrun_path(np, torch, ops, dev)
+    dry = dryrun_path(np, torch, ops, dev, cells)
     rows["flash_attention"]["sharded_prefill_launches"] = dry["launches"]
     print(f"dryrun_path done at {time.perf_counter() - t0:.1f} s")
     kernels = [rows[n] for n in ("rank_join_lookup", "merge_topk",

@@ -4,12 +4,12 @@ shared, d_ff_expert 2048 (dense prefix of 3 layers at 18432), vocab
 129280, MTP. About 682.6 B parameters, 1,365 GB in bf16.
 
 Counterpart of ``repro.configs.deepseek_v3_671b``: the configuration, its
-reduced smoke configuration and the smoke run (one train step, then
-serving). The whole model is far more than one card holds, so the card
-runs two named cuts at the published widths (every width kept, depth and
-for training the routed experts cut): ``serve_card_config`` and
-``train_card_config``. ``make_cell`` stays with the reference (it builds
-XLA cells).
+reduced smoke configuration, the dry run's cells (``make_cell``: the whole
+model over the production mesh, the 256 routed experts one a card) and
+the smoke run (one train step, then serving). The whole model is far more
+than one card holds, so the card runs two named cuts at the published
+widths (every width kept, depth and for training the routed experts
+cut): ``serve_card_config`` and ``train_card_config``.
 """
 from __future__ import annotations
 
@@ -78,6 +78,10 @@ def train_card_config() -> tf.LMConfig:
     return dataclasses.replace(
         cfg, n_layers=2, first_dense_layers=1,
         moe=dataclasses.replace(cfg.moe, n_experts=32))
+
+
+def make_cell(shape: str):
+    return lm_common.make_cell(ARCH, config(), shape)
 
 
 def smoke(device=None):

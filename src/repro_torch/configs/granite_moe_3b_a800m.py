@@ -3,9 +3,11 @@ kv=8) of 64, MoE 40 experts top-8, d_ff_expert 512, vocab 49155. About
 3.30 B parameters, 6.60 GB in bf16: one card serves and trains it whole.
 
 Counterpart of ``repro.configs.granite_moe_3b_a800m``: the configuration,
-its reduced smoke configuration and the smoke run (one train step, then
-serving). ``shard_experts=False`` is the reference's mesh choice (40
-experts do not divide its model axis); on one card it changes nothing.
+its reduced smoke configuration, the dry run's cells (``make_cell``) and
+the smoke run (one train step, then serving). ``shard_experts=False`` is
+the reference's mesh choice: 40 experts do not divide the 16-wide model
+axis, so every card keeps every expert and the experts' FFN width splits
+over ``expert_mlp``. On one card it changes nothing.
 """
 from __future__ import annotations
 
@@ -18,6 +20,10 @@ from repro_torch.models import transformer as tf
 ARCH = "granite-moe-3b-a800m"
 FAMILY = "lm"
 SHAPES = list(lm_common.LM_SHAPES)
+SKIP_SHAPES = {
+    "long_500k": "pure full-attention arch (no sliding-window layers); "
+                 "skipped per the assignment's full-attention rule.",
+}
 
 
 def config() -> tf.LMConfig:
@@ -40,6 +46,10 @@ def smoke_config() -> tf.LMConfig:
                           capacity_factor=2.0, shard_experts=False),
         vocab=512, param_dtype="float32", compute_dtype="float32",
         attn_chunk_q=16, attn_chunk_k=16, moe_chunk=64)
+
+
+def make_cell(shape: str):
+    return lm_common.make_cell(ARCH, config(), shape)
 
 
 def smoke(device=None):

@@ -125,7 +125,8 @@ def lm_from_numpy(values, cfg: tf.LMConfig, device=None) -> tf.LM:
         ffn = dense_ffn(f) if dense else moe.MoEFFN(
             *(_tensor(f[n], dev) for n in ("router", "w_gate", "w_in",
                                            "w_out")),
-            dense_ffn(f["shared"]) if "shared" in f else None)
+            dense_ffn(f["shared"]) if "shared" in f else None,
+            cfg.moe.shard_experts)
         block = (attn.MLA(*(_tensor(a[n], dev) for n in attn.MLA.NAMES))
                  if cfg.mla else
                  attn.GQA(*(_tensor(a[n], dev) for n in ("wq", "wk", "wv",

@@ -27,7 +27,9 @@ Fake tensors are CUDA tensors where PyTorch has CUDA (``base.fake_device``)
 and meta tensors elsewhere; both take the kernels' path (the custom ops'
 fake impls), not the plain twins'. One JSON per cell is written to
 ``results/dryrun_torch/<arch>__<shape>__<mesh>.json`` with the
-reference's keys. Cells outside the ported slice are written ``skipped``.
+reference's keys. A cell in its architecture's ``SKIP_SHAPES`` is written
+``skipped`` with the configuration's reason, as the reference writes it;
+so is a cell outside the ported slices.
 A cell that raises is written ``error``, and the run then exits non-zero.
 
 Usage:
@@ -59,10 +61,9 @@ from repro_torch.launch import mesh as mesh_lib
 OUT_DIR = "results/dryrun_torch"
 # The architectures whose cells this port lays out; the others wait for
 # their slices (ROADMAP.md, Queue 1, item 3).
-PORTED = ("gemma2-2b", "starcoder2-3b", "gemma3-27b")
+PORTED = ("gemma2-2b", "starcoder2-3b", "gemma3-27b",
+          "granite-moe-3b-a800m", "deepseek-v3-671b")
 LATER = {
-    "granite-moe-3b-a800m": "the MoE slice (expert over (data, model))",
-    "deepseek-v3-671b": "the MoE and MLA slices",
     "egnn": "the GNN slice", "gat-cora": "the GNN slice",
     "nequip": "the GNN slice", "mace": "the GNN slice",
     "two-tower-retrieval": "the two-tower slice",
@@ -324,6 +325,10 @@ def run_cell(arch: str, shape: str, mesh, out_dir: str = OUT_DIR) -> dict:
     mod = get_arch(arch)
     result = {"arch": arch, "shape": shape,
               "mesh": _mesh_name(tuple(mesh.shape))}
+    if shape in getattr(mod, "SKIP_SHAPES", {}):
+        result.update(status="skipped", reason=mod.SKIP_SHAPES[shape])
+        _write(out_dir, result)
+        return result
     if arch not in PORTED:
         result.update(status="skipped", reason="not ported yet: "
                       f"{LATER.get(arch, 'a later slice')} (ROADMAP.md, "

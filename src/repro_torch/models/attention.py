@@ -37,7 +37,6 @@ import dataclasses
 import functools
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
@@ -100,12 +99,20 @@ def gqa_axes() -> dict:
             "wo": ("heads", None, "embed_fsdp")}
 
 
+def mla_axes() -> dict:
+    """The logical axes of an ``MLA``'s parameters, as the reference's
+    ``init_mla`` gives them."""
+    return {"w_dq": ("embed_fsdp", "q_lora"), "q_norm": ("q_lora",),
+            "w_uq": ("q_lora", "heads", None),
+            "w_dkv": ("embed_fsdp", "kv_lora"), "kv_norm": ("kv_lora",),
+            "w_uk": ("kv_lora", "heads", None),
+            "w_uv": ("kv_lora", "heads", None),
+            "wo": ("heads", None, "embed_fsdp")}
+
+
 def param_axes(p) -> dict:
-    """The logical axes of an attention block's parameters. GQA only: MLA's
-    (``q_lora``, ``kv_lora``) come with its sharded slice."""
-    if isinstance(p, MLA):
-        raise NotImplementedError("MLA's parameter axes are not ported yet")
-    return gqa_axes()
+    """The logical axes of an attention block's parameters."""
+    return mla_axes() if isinstance(p, MLA) else gqa_axes()
 
 
 class MLA(nn.Module):
@@ -412,82 +419,139 @@ def gqa_decode(p: GQA, cfg: AttnConfig, x, pos, window: int, cache,
     return _out(w["wo"], out, dt), cache
 
 
-def _mla_qkv(p: MLA, cfg: AttnConfig, x, positions):
+def _pin_mla(p: MLA) -> dict:
+    """An ``MLA``'s weights by name under the reference's use-site pins
+    (``_pin_mla``: each product's weight gathered over its FSDP axes where
+    it is used, ``sharding.pin_weight``); the norms as they lie."""
+    axes = mla_axes()
+    return {name: getattr(p, name) if name.endswith("_norm")
+            else sharding.pin_weight(getattr(p, name), *axes[name])
+            for name in MLA.NAMES}
+
+
+def _mla_qkv(p, cfg: AttnConfig, x, positions):
     """→ q_nope (B, S, H, nope), roped q_rope (B, S, H, rope), the normed
     latent c_kv (B, S, kv_lora) and the roped shared key k_rope (B, S,
     rope). Only c_kv's half of the down-projection is normed: k_rope comes
-    from the unnormed rest, as in the reference."""
+    from the unnormed rest, as in the reference. ``p`` is an ``MLA`` or
+    its ``_pin_mla`` weights. Under installed rules ``cq`` is split over
+    ``q_lora`` (its norm's mean is then a sum over the shards), q's
+    up-projection leaves a partial sum over those shards, laid out over
+    ``heads`` at once (a reduce-scatter)."""
+    w = p if isinstance(p, dict) else _pin_mla(p)
     m, dt = cfg.mla, x.dtype
-    cq = cm.rms_norm(x @ p.w_dq.to(dt), p.q_norm)
-    q = torch.einsum("bsr,rhk->bshk", cq, p.w_uq.to(dt))
+    # The sequence-parallel residual is gathered first, as for GQA.
+    x = sharding.constrain(x, "batch", "seq", None)
+    cq = cm.rms_norm(x @ w["w_dq"].to(dt), w["q_norm"])
+    q = sharding.constrain(_project(cq, w["w_uq"].to(dt), "heads"), "batch",
+                           "seq", "heads", None)
     nope = m.qk_nope_head_dim
     q_rope = cm.rope(q[..., nope:], positions[:, :, None], cfg.rope_theta)
-    ckv = x @ p.w_dkv.to(dt)
-    c_kv = cm.rms_norm(ckv[..., :m.kv_lora_rank], p.kv_norm)
+    ckv = x @ w["w_dkv"].to(dt)
+    c_kv = cm.rms_norm(ckv[..., :m.kv_lora_rank], w["kv_norm"])
     k_rope = cm.rope(ckv[..., m.kv_lora_rank:], positions, cfg.rope_theta)
     return q[..., :nope], q_rope, c_kv, k_rope
 
 
-def _mla_attend(p: MLA, cfg: AttnConfig, x, positions, window: int, impl,
+def _mla_attend(w: dict, cfg: AttnConfig, x, positions, window: int, impl,
                 q_nope, q_rope, c_kv, k_rope):
     """The direct form: k = [k_nope ; k_rope broadcast over the heads], v
     padded to q·k's width, one attention of that head_dim at its scale
-    with n_kv = n_heads, the output cut to v's width. → (B, S, D)."""
+    with n_kv = n_heads, the output cut to v's width. → (B, S, D), laid
+    out as the reference's ``mla_forward`` lays q, k and v (over
+    ``heads``) and scattered onto the sequence-parallel residual as
+    GQA's."""
     m, dt = cfg.mla, x.dtype
     B, S = x.shape[:2]
     H, qk = cfg.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim
-    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p.w_uk.to(dt))
-    v = torch.einsum("bsr,rhk->bshk", c_kv, p.w_uv.to(dt))
-    q = torch.cat([q_nope, q_rope], -1)
-    k = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, H,
-                                                     m.qk_rope_head_dim)], -1)
-    v = F.pad(v, (0, qk - m.v_head_dim))
+    c = sharding.constrain
+    c_kv = c(c_kv, "batch", "seq", None)
+    k_nope = c(_project(c_kv, w["w_uk"].to(dt), "heads"), "batch", "seq",
+               "heads", None)
+    v = c(_project(c_kv, w["w_uv"].to(dt), "heads"), "batch", "seq", "heads",
+          None)
+    k_rope = c(k_rope[:, :, None].expand(B, S, H, m.qk_rope_head_dim),
+               "batch", "seq", "heads", None)
+    q = c(torch.cat([q_nope, q_rope], -1), "batch", "seq", "heads", None)
+    k = c(torch.cat([k_nope, k_rope], -1), "batch", "seq", "heads", None)
+    pad = torch.zeros_like(v[..., :1]).expand(*v.shape[:-1],
+                                              qk - m.v_head_dim)
+    v = c(torch.cat([v, pad], -1), "batch", "seq", "heads", None)
     cfg_v = dataclasses.replace(cfg, n_kv=H, head_dim=qk)
     out = _attend(q, k, v, positions[0], positions[0], window, cfg_v, impl,
                   scale=qk ** -0.5)
-    return _out(p.wo, out[..., :m.v_head_dim], dt)
+    return c(_out(w["wo"], out[..., :m.v_head_dim], dt), "batch", "act_seq",
+             None)
 
 
 def mla_forward(p: MLA, cfg: AttnConfig, x, positions, window: int, impl):
     """Training/prefill MLA forward (direct form). x (B, S, D) → (B, S,
     D)."""
-    return _mla_attend(p, cfg, x, positions, window, impl,
-                       *_mla_qkv(p, cfg, x, positions))
+    w = _pin_mla(p)
+    return _mla_attend(w, cfg, x, positions, window, impl,
+                       *_mla_qkv(w, cfg, x, positions))
+
+
+def _mla_cache(c_kv, k_rope, positions, cache_len: int) -> dict:
+    cache = _ring_cache({"c_kv": c_kv, "k_rope": k_rope}, positions,
+                        cache_len)
+    for key in ("c_kv", "k_rope"):
+        cache[key] = sharding.constrain(cache[key], "batch", "kv_seq", None)
+    return cache
 
 
 def mla_prefill_cache(p: MLA, cfg: AttnConfig, x, positions,
                       cache_len: int):
-    """The (ring) MLA cache of a prompt: {"c_kv", "k_rope", "pos"}."""
+    """The (ring) MLA cache of a prompt: {"c_kv", "k_rope", "pos"}, the
+    latents laid out over ``kv_seq``."""
     _, _, c_kv, k_rope = _mla_qkv(p, cfg, x, positions)
-    return _ring_cache({"c_kv": c_kv, "k_rope": k_rope}, positions,
-                       cache_len)
+    return _mla_cache(c_kv, k_rope, positions, cache_len)
 
 
 def mla_prefill(p: MLA, cfg: AttnConfig, x, positions, window: int, impl,
                 cache_len: int):
     """``mla_forward`` and ``mla_prefill_cache`` from one ``_mla_qkv`` →
     (out, cache)."""
-    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x, positions)
-    out = _mla_attend(p, cfg, x, positions, window, impl, q_nope, q_rope,
+    w = _pin_mla(p)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(w, cfg, x, positions)
+    out = _mla_attend(w, cfg, x, positions, window, impl, q_nope, q_rope,
                       c_kv, k_rope)
-    return out, _ring_cache({"c_kv": c_kv, "k_rope": k_rope}, positions,
-                            cache_len)
+    return out, _mla_cache(c_kv, k_rope, positions, cache_len)
+
+
+def _softmax_split(s):
+    """Softmax over the last axis as its max, exp and sum: on a DTensor
+    split along that axis (a decode cache's ``kv_seq``) each rank keeps
+    its slice of the scores, and the max and the sum are the only values
+    reduced (two all-reduces of (..., 1)) where ``torch.softmax`` would
+    gather every score."""
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    return e / e.sum(-1, keepdim=True)
 
 
 def mla_decode(p: MLA, cfg: AttnConfig, x, pos, window: int, cache,
                step: int):
     """One absorbed-form decode step in float32: scores q_nope · W_uk ·
     c_kv + q_rope · k_rope, the context through W_uv; only c_kv and k_rope
-    are cached. Writes the cache in place (slot = step % cache_len);
-    → (out (B, 1, D), cache)."""
+    are cached. Writes the cache in place (slot = step % cache_len, on its
+    own shard of a ``kv_seq``-split cache: ``sharding.update_slice``);
+    → (out (B, 1, D), cache). Under installed rules q's heads are
+    gathered (split-K: each rank's slice of the cache meets every head),
+    and the f32 softmax runs over the cache axis, split or not
+    (``_softmax_split``)."""
     m, dt = cfg.mla, x.dtype
-    q_nope, q_rope, c_new, kr_new = _mla_qkv(p, cfg, x, pos[:, None])
+    w = _pin_mla(p)
+    q_nope, q_rope, c_new, kr_new = _mla_qkv(w, cfg, x, pos[:, None])
+    c = sharding.constrain
+    q_nope = c(q_nope, "batch", "seq", None, None)
+    q_rope = c(q_rope, "batch", "seq", None, None)
     slot = step % cache["c_kv"].shape[1]
-    cache["c_kv"][:, slot] = c_new[:, 0]
-    cache["k_rope"][:, slot] = kr_new[:, 0]
-    cache["pos"][:, slot] = pos
+    for key, new in (("c_kv", c_new[:, 0]), ("k_rope", kr_new[:, 0]),
+                     ("pos", pos)):
+        sharding.update_slice(cache[key], 1, slot, new)
     c_kv, cpos = cache["c_kv"].float(), cache["pos"]
-    q_abs = torch.einsum("bshk,rhk->bhr", q_nope.float(), p.w_uk.float())
+    q_abs = c(torch.einsum("bshk,rhk->bhr", q_nope.float(),
+                           w["w_uk"].float()), "batch", None, None)
     s = (torch.einsum("bhr,bsr->bhs", q_abs, c_kv)
          + torch.einsum("bshk,bSk->bhS", q_rope.float(),
                         cache["k_rope"].float()))
@@ -496,10 +560,10 @@ def mla_decode(p: MLA, cfg: AttnConfig, x, pos, window: int, cache,
     ok = (cp <= ps) & (cp >= 0)
     if window > 0:
         ok &= cp > ps - window
-    pr = torch.softmax(s.masked_fill(~ok, NEG_INF), dim=-1)
+    pr = _softmax_split(s.masked_fill(~ok, NEG_INF))
     ctx = torch.einsum("bhs,bsr->bhr", pr, c_kv)
-    out = torch.einsum("bhr,rhk->bhk", ctx, p.w_uv.float())
-    return _out(p.wo, out[:, None], dt), cache
+    out = torch.einsum("bhr,rhk->bhk", ctx, w["w_uv"].float())
+    return _out(w["wo"], out[:, None], dt), cache
 
 
 def forward(p, cfg: AttnConfig, x, positions, window: int,

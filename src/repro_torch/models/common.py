@@ -41,11 +41,13 @@ def init_tree(specs: dict, generator: torch.Generator,
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
-    """x · rsqrt(mean(x²) + eps) · (1 + gamma), in f32, cast back."""
+    """x · rsqrt(mean(x²) + eps) · (1 + gamma), in f32 (f64 for an f64
+    x), cast back."""
     dt = x.dtype
-    xf = x.float()
+    up = torch.promote_types(dt, torch.float32)
+    xf = x.to(up)
     var = xf.square().mean(-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * (1.0 + gamma.float())).to(dt)
+    return (xf * torch.rsqrt(var + eps) * (1.0 + gamma.to(up))).to(dt)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,

@@ -45,8 +45,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
 from repro_torch.models import moe as ffnlib
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-           "float16": torch.float16}
+_DTYPES = {"float64": torch.float64, "float32": torch.float32,
+           "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -202,8 +202,8 @@ def param_axes(model: LM) -> dict:
     """The logical axes of each parameter, a tree mirroring
     ``param_tree(model)``: those the reference's ``init`` gives (through
     ``common.param``), without its leading stacked-layers axis, since the
-    port keeps a list of layers. Dense layers with GQA only (the MoE's and
-    MLA's axes come with their sharded slices)."""
+    port keeps a list of layers: dense and MoE layers (deepseek's dense
+    prefix and MoE stack alike), GQA and MLA, and the MTP layer."""
     axes = {"embed": ("vocab", "embed_fsdp"), "final_norm": ("embed",)}
     if model.lm_head is not None:
         axes["lm_head"] = ("embed_fsdp", "vocab")
@@ -387,9 +387,19 @@ def _mtp_loss(params, cfg: LMConfig, x, tokens, labels):
     if params.mtp is None:
         raise ValueError(f"{cfg.name}: mtp_depth is {cfg.mtp_depth} but the "
                          "parameters hold no mtp")
-    emb_next = _embed_table(params)[labels.clamp(min=0).long()].to(x.dtype)
+    # The rows of max(labels, 0), looked up as ``_embed`` does (each rank
+    # the ids of its vocab shard; an index's gradient, an index_put on
+    # split ids, is refused by DTensor), unscaled.
+    table = sharding.pin_weight(_embed_table(params), "vocab", "embed_fsdp")
+    emb_next = F.embedding(labels.clamp(min=0).long(), table).to(x.dtype)
     emb_next = sharding.constrain(emb_next, "batch", "act_seq", None)
-    h = torch.cat([x, emb_next], -1) @ params.mtp.proj.to(x.dtype)
+    # The sequence-parallel halves are gathered before the projection, as
+    # before the attention's and the MLP's, and its output stays so: a
+    # product over (B, S) split by S, or its gradient's, is a flatten that
+    # DTensor refuses.
+    h = torch.cat([sharding.constrain(t, "batch", "seq", None)
+                   for t in (x, emb_next)], -1) @ params.mtp.proj.to(x.dtype)
+    h = sharding.constrain(h, "batch", "seq", None)
     positions = _positions(tokens)
     lp = params.mtp.layer
 

@@ -1,9 +1,10 @@
 """The port's dry run (``repro_torch.configs.base``, ``configs.lm_common``'s
 ``make_cell``, ``launch.analysis``, ``launch.dryrun``) against the JAX
-package's: the dense LMs' cells argument by argument, their bytes a card on
-the 16 × 16 mesh, the model flops and active parameters of every LM, the
-roofline's arithmetic, a fake (2, 2) run's flops per rank, and ``--all``'s
-control flow."""
+package's: every LM cell argument by argument (the dense archs', granite's
+and deepseek's), their bytes a card on the 16 × 16 mesh, the model flops
+and active parameters of every LM, the roofline's arithmetic, a fake (2, 2)
+run's flops per rank, ``--all``'s control flow and the skipped cells'
+reasons."""
 import json
 import math
 
@@ -21,8 +22,13 @@ from repro_torch.launch import analysis, dryrun
 from repro_torch.launch import mesh as mesh_lib
 
 DENSE = ("gemma2-2b", "starcoder2-3b", "gemma3-27b")
-LMS = DENSE + ("granite-moe-3b-a800m", "deepseek-v3-671b")
+MOE = ("granite-moe-3b-a800m", "deepseek-v3-671b")
+LMS = DENSE + MOE
 SHAPES = tuple(lm_common.LM_SHAPES)
+# Every LM cell the dry run lays out: the dense archs' four shapes, the
+# MoE archs' three (their long_500k is in their SKIP_SHAPES).
+CELLS = ([(a, s) for a in DENSE for s in SHAPES]
+         + [(a, s) for a in MOE for s in SHAPES if s != "long_500k"])
 
 
 def _unstack_params(tree, cfg):
@@ -63,8 +69,7 @@ def _decode_caches(jtree, cfg):
     return layers
 
 
-@pytest.mark.parametrize("shape", SHAPES)
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch,shape", CELLS)
 def test_make_cell_matches_jax(arch, shape):
     """Every argument's shape, dtype and axes, leaf for leaf, after the
     port's layout changes: the stacked layers as a list, the decode caches
@@ -115,8 +120,7 @@ def _jax_card_bytes(jcell, mesh):
     return total
 
 
-@pytest.mark.parametrize("shape", SHAPES)
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch,shape", CELLS)
 def test_card_argument_bytes_match_jax(arch, shape):
     jcell = jget_arch(arch).make_cell(shape)
     want = _jax_card_bytes(jcell, compat.abstract_mesh((16, 16),
@@ -194,12 +198,12 @@ def test_fake_run_flops_per_rank(monkeypatch):
 
 
 def _small_cells(monkeypatch):
-    """Every LM shape cut to a few tokens and the dense archs to their
-    smoke configs, so ``--all`` runs its whole control flow in seconds."""
+    """Every LM shape cut to a few tokens and the LMs to their smoke
+    configs, so ``--all`` runs its whole control flow in seconds."""
     monkeypatch.setattr(lm_common, "LM_SHAPES", {
         name: dict(sh, seq=32, batch=16) for name, sh in
         lm_common.LM_SHAPES.items()})
-    for arch in DENSE:
+    for arch in LMS:
         mod = get_arch(arch)
         small = mod.smoke_config()
         monkeypatch.setattr(mod, "config", lambda small=small: small)
@@ -217,11 +221,25 @@ def test_all_writes_ok_and_skipped(monkeypatch, tmp_path, capsys):
         if r["status"] == "ok":
             assert set(r) >= {"memory", "cost", "collectives",
                               "collective_counts", "roofline"}
-    assert {k for k, v in status.items() if v == "ok"} == \
-        {(a, s) for a in DENSE for s in SHAPES}
-    assert all(v == "skipped" for (a, _), v in status.items()
-               if a not in DENSE)
+    assert {k for k, v in status.items() if v == "ok"} == set(CELLS)
+    assert all(v == "skipped" for k, v in status.items() if k not in CELLS)
+    assert len(status) == sum(len(get_arch(a).SHAPES) for a in
+                              dryrun.all_archs())
     assert len(lines) == len(status)
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_long_500k_skipped_with_the_references_reason(arch, tmp_path):
+    """The reference writes a SKIP_SHAPES cell as skipped with its arch's
+    reason, before anything else; so does the port, word for word."""
+    reason = jget_arch(arch).SKIP_SHAPES["long_500k"]
+    assert get_arch(arch).SKIP_SHAPES == jget_arch(arch).SKIP_SHAPES
+    assert dryrun.main(["--arch", arch, "--shape", "long_500k", "--out",
+                        str(tmp_path)]) == 0
+    r = json.loads(next(tmp_path.glob("*.json")).read_text())
+    assert (r["status"], r["reason"], r["mesh"]) == ("skipped", reason,
+                                                     "16x16")
+    assert set(r) == {"arch", "shape", "mesh", "status", "reason"}
 
 
 def test_an_error_makes_the_run_fail(monkeypatch, tmp_path):

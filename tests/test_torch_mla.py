@@ -120,6 +120,28 @@ def test_mla_forward_matches_jax(mla, impl):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("impl", ["einsum", "blocked_causal"])
+def test_mla_forward_v_narrower_than_its_pad_matches_jax(impl):
+    """q·k at 128 + 64 with v at 16 (the launcher's widths in
+    ``chip_smoke.py``): v's zero padding (176 columns) is wider than v."""
+    import dataclasses
+    m = dataclasses.replace(jds.smoke_config().mla, qk_nope_head_dim=128,
+                            qk_rope_head_dim=64)
+    jcfg = dataclasses.replace(jds.smoke_config(), mla=m).attn_cfg()
+    jp, _ = jcm.split(jattn.init_mla(jax.random.PRNGKey(5), jcfg,
+                                     jnp.float32))
+    p = attn.MLA(*(_t(jp[n]) for n in attn.MLA.NAMES))
+    cfg = dataclasses.replace(deepseek_v3_671b.smoke_config(),
+                              mla=attn.MLAConfig(**dataclasses.asdict(m)))
+    cfg = cfg.attn_cfg()
+    x, pos = _x(2, 32, 6)
+    want = jattn.mla_forward(jp, jcfg, jnp.asarray(x), jnp.asarray(pos),
+                             jnp.int32(0), impl)
+    got = attn.mla_forward(p, cfg, _t(x), _t(pos), 0, impl)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
 def test_mla_ragged_length_matches_einsum(mla):
     """S = 40 is not a multiple of the chunk (16): the port's kernel path
     computes every row and equals JAX's einsum impl and its own (JAX's

@@ -22,7 +22,8 @@ from repro import sharding as jsharding
 from repro.configs import base as jbase
 from repro.models import transformer as jtf
 from repro_torch import sharding
-from repro_torch.configs import gemma2_2b, gemma3_27b, lm_common
+from repro_torch.configs import deepseek_v3_671b, gemma2_2b, gemma3_27b
+from repro_torch.configs import granite_moe_3b_a800m, lm_common
 from repro_torch.configs import starcoder2_3b
 from repro_torch.launch import dryrun
 from repro_torch.launch import mesh as mesh_lib
@@ -34,6 +35,10 @@ DIMS = (1, 2, 3, 4, 7, 8, 16, 24, 32, 256)
 NAMES = sorted(jsharding.DEFAULT_RULES) + [None]
 ARCHS = {"gemma2-2b": gemma2_2b, "starcoder2-3b": starcoder2_3b,
          "gemma3-27b": gemma3_27b}
+# Every LM, for the parameter axes: the MoE stacks, deepseek's dense
+# prefix, MLA and the MTP layer beside the dense ones.
+ALL_ARCHS = dict(ARCHS, **{"granite-moe-3b-a800m": granite_moe_3b_a800m,
+                           "deepseek-v3-671b": deepseek_v3_671b})
 # The sharded run: batch 4 over data, 32 tokens; smoke configs have 4
 # heads and 2 kv heads, so both mesh axes split something.
 GLOO_BATCH, GLOO_SEQ = 4, 32
@@ -160,9 +165,12 @@ def _jax_tree(jp, cfg):
 
 
 @pytest.mark.parametrize("width", ["smoke", "full"])
-@pytest.mark.parametrize("arch", list(ARCHS))
+@pytest.mark.parametrize("arch", list(ALL_ARCHS))
 def test_param_axes_match_jax_init(arch, width):
-    mod = ARCHS[arch]
+    """Every leaf's axes, shape and dtype: each stack's layers (a dense
+    prefix and an MoE stack for deepseek), the MTP layer (not stacked in
+    JAX either), the embedding, norms and head."""
+    mod = ALL_ARCHS[arch]
     cfg = mod.smoke_config() if width == "smoke" else mod.config()
     jmod = __import__(f"repro.configs.{mod.__name__.split('.')[-1]}",
                       fromlist=["config"])
@@ -171,19 +179,29 @@ def test_param_axes_match_jax_init(arch, width):
         lambda k: jtf.init(k, jcfg), jax.random.PRNGKey(0))
     model = tf.init(cfg, torch.Generator(), "meta")
     got = tf.param_axes(model)
-    stack = _jax_layer_axes(axes["stack_0"])
-    want = dict(_jax_tree(axes, cfg), layers=[stack] * cfg.n_layers)
+    want = _jax_tree(axes, cfg)
+    want["layers"] = [_jax_layer_axes(a) for a in want["layers"]]
+    assert set(got) == set(want)
     assert got == want
-    # Shapes and dtypes too, leaf for leaf.
+    assert len(cfg.stacks()) == (2 if cfg.first_dense_layers else 1)
+    assert ("mtp" in got) == bool(cfg.mtp_depth)
+    # Shapes and dtypes too, leaf for leaf: the stacked leaves without
+    # their layers axis, the rest as they are.
     sh = _jax_tree(shapes, cfg)
     params = tf.param_tree(model)
-    for k in ("embed", "final_norm"):
-        assert tuple(params[k].shape) == sh[k].shape
-    for lp in params["layers"]:
-        flat = sharding.tree_map_axes(lambda ax, p, s: (p, s), stack, lp,
-                                      sh["layers"][0])
+    for k in ("embed", "final_norm", "lm_head"):
+        assert (k in params) == (k in sh)
+        if k in params:
+            assert tuple(params[k].shape) == sh[k].shape
+    parts = [(got["layers"][i], lp, sh["layers"][i], 1)
+             for i, lp in enumerate(params["layers"])]
+    if cfg.mtp_depth:
+        parts.append((got["mtp"], params["mtp"], sh["mtp"], 0))
+    for ax_tree, tree, jtree, drop in parts:
+        flat = sharding.tree_map_axes(lambda ax, p, s: (p, s), ax_tree, tree,
+                                      jtree)
         for p, s in _pairs(flat):
-            assert tuple(p.shape) == s.shape[1:]
+            assert tuple(p.shape) == s.shape[drop:]
             assert str(p.dtype).split(".")[-1] == str(s.dtype)
 
 
