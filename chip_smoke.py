@@ -34,10 +34,11 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    port on the CPU (zeros and the 0.5 gate equal, atol 4e-3 rtol 1e-5);
    the pipelined plan/execute path in both modes, every query's keys,
    scores and counters equal to the offline pass's, with the planner's
-   seconds under execution; the 32 queries as Poisson arrivals through the
-   ``MicroBatcher`` at 0.5x and 0.9x of the offline specqp QPS (p50/p99
-   from submit to resolution), and all 32 at once drained by ``close()``,
-   every future's result equal to the offline pass's;
+   seconds under execution; the first 16 queries (ONLINE_QUERIES) as
+   Poisson arrivals through the ``MicroBatcher`` at 0.5x and 0.9x of the
+   offline specqp QPS (p50/p99 from submit to resolution), and all 16 at
+   once drained by ``close()``, every future's result equal to the
+   offline pass's (the pipelined passes serve the same 16);
 5. retrieval at the ``retrieval_cand`` shape of
    ``configs/two_tower_retrieval``: ``topk_score_pruned`` held against its
    plain version on a 1,048,576 x 256 norm-clustered corpus (Cauchy,
@@ -211,15 +212,18 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    self-loops) the card's gradients against the CPU's (EGNN's finite), 4
    ``TRAIN_CFG`` steps timed and ``smoke()`` on the card;
 15. the dry run (``launch/dryrun.py``, ``sharding.py``, the sharded MoE
-   ``models/moe.py`` ``_Layout``): (a) the 20 LM cells (gemma2-2b,
-   starcoder2-3b, gemma3-27b, granite-moe-3b-a800m and deepseek-v3-671b x
-   train_4k, prefill_32k, decode_32k, long_500k; the MoE archs'
-   long_500k must come out skipped with their configs' SKIP_SHAPES
-   reasons, every other cell ok) laid over the 16 x 16 production mesh of
+   ``models/moe.py`` ``_Layout``, the GNNs' ``graph.Partition``): (a) the
+   20 LM cells (gemma2-2b, starcoder2-3b, gemma3-27b, granite-moe-3b-a800m
+   and deepseek-v3-671b x train_4k, prefill_32k, decode_32k, long_500k; the
+   MoE archs' long_500k must come out skipped with their configs'
+   SKIP_SHAPES reasons) and the 16 GNN cells (gat-cora, egnn, nequip and
+   mace x full_graph_sm, minibatch_lg, ogb_products, molecule; one train
+   step each), every other cell ok, laid over the 16 x 16 production mesh of
    a fake process group, fake CUDA tensors on this host, one process a
    cell, slowest first, in a thread that a whole run starts after phase 3
-   (DRYRUN_JOBS_BESIDE processes at once, beside phases 4-14; they use the
-   host's cores only) and ``--dryrun-only`` at phase 15 (DRYRUN_JOBS): each
+   (DRYRUN_JOBS_BESIDE processes at once, beside phases 4-14, at the
+   lowest priority; they use the host's cores only) and ``--dryrun-only``
+   at phase 15 (DRYRUN_JOBS): each
    cell's status, argument and peak GB a card, flops, collective bytes,
    roofline terms and the dominant one; (b) the dry run on a (1, 1) mesh
    of phases 7's, 11's, 12's and 13's cuts (gemma2-2b's prefill of 4 x
@@ -227,12 +231,21 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    x 4096; deepseek's serving cut's prefill of 4 x 8192 and training
    cut's step of 4 x 4096; bf16, remat "full") beside the peak and time
    of the same calls measured here, each predicted peak within
-   DRYRUN_PEAK_BAND of the measured; (c) gemma2-2b, granite and
+   DRYRUN_PEAK_BAND of the measured, and likewise each GNN's
+   minibatch_lg cell (169,984 nodes, 168,960 edges, 602 features, at the
+   published widths, not cut) beside one ``TRAIN_CFG`` step measured over
+   ``graph_synth.random_graph`` of that shape; (c) gemma2-2b, granite and
    deepseek's serving cut, each laid by ``sharding.distribute`` onto a
    (1, 1) mesh of a 1-rank NCCL process group, a prefill of 4 x 8192
    through the constrain calls, the attention's custom op and the sharded
    MoE, its logits and caches bit-equal to the unsharded prefill's, one
-   ``flash_attention`` launch a layer (26, 32, 4);
+   ``flash_attention`` launch a layer (26, 32, 4); then on the same mesh
+   each GNN's minibatch_lg loss and gradients through the DTensor path
+   (``graph.Partition``) against the unsharded ones (loss rtol 1e-5, each
+   gradient leaf within 1e-5 of its largest |value|: the card's
+   ``index_add_`` sums by atomics), and a train state saved after one step
+   restored onto the mesh, every leaf bit-equal and placed as
+   ``sharding.distribute`` places it;
 16. print the kernel table as one JSON line (``launches``: each kernel's
    count on its own path, so 0 for ``neigh_softmax_agg`` on
    ``gat.apply``, phase 10's steps for ``embedding_bag_backward`` and
@@ -296,6 +309,9 @@ FP32_OPS_PER_S = 67e12     # 32-bit operations outside the tensor cores
 BF16_FLOP_PER_S = 989e12   # dense bf16 on the tensor cores
 LANES = 8
 N_QUERIES = 32
+# Phase 4's pipelined, online and drain passes serve the first this many
+# of the N_QUERIES queries.
+ONLINE_QUERIES = 16
 SEED = 0
 # two-tower serving: the serve_p99 batch, batches timed, corpus build chunk
 SERVE_BATCH = 512
@@ -917,6 +933,9 @@ def online_path(np, torch, dev, report, st) -> None:
           f"{SKETCH_ATOL} rtol {SKETCH_RTOL})")
 
     # --- pipelined plan/execute, both cardinality modes ---
+    # The pipelined, online and drain passes serve the first
+    # ONLINE_QUERIES queries (the same checks, half the depth).
+    qs = queries[:ONLINE_QUERIES]
     pipe = dataclasses.replace(bcfg, pipeline=True)
     for card, cfg, want in (("exact", exact_cfg, served["specqp"]),
                             ("sketch", sketch_cfg, sk_res)):
@@ -925,11 +944,13 @@ def online_path(np, torch, dev, report, st) -> None:
         plans = record_spans(ex, "plan_group")
         runs = record_spans(ex, "run_stream")
         ops.reset_launches()
-        res, wall, lat = serve.serve_offline(ex, queries)
+        res, wall, lat = serve.serve_offline(ex, qs)
         torch.cuda.synchronize()
         path_launches(ops, f"pipelined {card} pass")
-        check_same_results(np, f"pipelined {card} pass", res, want)
-        print(f"pipelined {card}: {len(queries) / wall:.2f} QPS | "
+        check_same_results(np, f"pipelined {card} pass", res,
+                           want[:len(qs)])
+        print(f"pipelined {card} ({len(qs)} queries): "
+              f"{len(qs) / wall:.2f} QPS | "
               f"{latency_line(np, lat)} | planner "
               f"{sum(b - a for a, b in plans):.4f} s in {len(plans)} "
               f"groups, {overlap_s(plans, runs):.4f} s of it under "
@@ -943,14 +964,15 @@ def online_path(np, torch, dev, report, st) -> None:
                                     bcfg, device=dev)
         ops.reset_launches()
         try:
-            res, wall, lat = serve.serve_online(ex, queries, rate, SEED)
+            res, wall, lat = serve.serve_online(ex, qs, rate, SEED)
         except Exception as e:  # noqa: BLE001 — a future held an error
             fail(f"online replay at {rate:.3f}/s: {e!r}")
         launches = path_launches(ops, f"online replay at {rate:.3f}/s")
         check_same_results(np, f"online replay at {rate:.3f}/s", res,
-                           served["specqp"])
-        print(f"online {frac:g}x ({rate:.3f} arrivals/s): "
-              f"{len(queries) / wall:.2f} QPS | {latency_line(np, lat)} | "
+                           served["specqp"][:len(qs)])
+        print(f"online {frac:g}x ({rate:.3f} arrivals/s, {len(qs)} "
+              f"queries): {len(qs) / wall:.2f} QPS | "
+              f"{latency_line(np, lat)} | "
               f"{len(ex.stats)} executor calls, mean "
               f"{np.mean([s.n_requests for s in ex.stats]):.2f} requests | "
               f"launches {launches['rank_join_lookup']} + "
@@ -960,7 +982,7 @@ def online_path(np, torch, dev, report, st) -> None:
                                 bcfg, device=dev)
     ops.reset_launches()
     mb = batching.MicroBatcher(ex)
-    futs = [mb.submit(q) for q in queries]
+    futs = [mb.submit(q) for q in qs]
     t0 = time.perf_counter()
     mb.close()
     drained = time.perf_counter() - t0
@@ -971,7 +993,7 @@ def online_path(np, torch, dev, report, st) -> None:
     if errors:
         fail(f"MicroBatcher.close(): a future holds {errors[0]!r}")
     check_same_results(np, "drain on close", [f.result() for f in futs],
-                       served["specqp"])
+                       served["specqp"][:len(qs)])
     print(f"close() drained {len(futs)} queued requests in {drained:.2f} s "
           f"({len(ex.stats)} executor calls); results equal the offline "
           f"pass")
@@ -2297,8 +2319,9 @@ def shard_rank(mesh, shard_dir: str, relax_np, gstats_np, queries):
     fns = {(c, m): (kg_specqp.serve_step(mesh, m) if c == "exact" else
                     distributed.make_batched_sharded_fn(cfgs[c], m, mesh))
            for c, m in SHARD_STEPS}
-    for fn in fns.values():        # warm-up (context, cuFFT plans) off the clock
-        fn(store, relax, gstats, queries[:1])
+    # One warm-up (context, cuFFT plans, the allocator) off the clock: the
+    # four steps share them.
+    next(iter(fns.values()))(store, relax, gstats, queries[:1])
     torch.cuda.synchronize()
 
     def timed(f, *args):
@@ -2384,8 +2407,9 @@ def nccl_rank(mesh):
     out = {}
     for mode in ("specqp", "trinit"):
         fn = kg_specqp.serve_step(mesh, mode)
-        fn(wl.store, wl.relax, wl.store.stats, queries[:1])    # warm-up
-        torch.cuda.synchronize()
+        if mode == "specqp":       # one warm-up: both modes share it
+            fn(wl.store, wl.relax, wl.store.stats, queries[:1])
+            torch.cuda.synchronize()
         ops.reset_launches()
         t0 = time.perf_counter()
         res = fn(wl.store, wl.relax, wl.store.stats, queries)
@@ -4965,20 +4989,31 @@ def e3gnn_path(np, torch, ops, dev, g=None, prof: bool = False) -> dict:
 DRYRUN_JOBS = 6               # cells dry-run at once (one process each)
 # In a whole run phase 15 (a) starts after phase 3 and runs beside phases
 # 4-14 (the dry run uses only the host's cores), with fewer processes at
-# once, so that phase 15 need not wait for it.
-DRYRUN_JOBS_BESIDE = 2
+# once, so that phase 15 need not wait for it. Its processes run at the
+# lowest priority (``nice`` DRYRUN_NICE): the host-bound card phases
+# beside them (phase 4's KG trips, phase 9's four gloo ranks) keep the
+# cores they need, and the dry run takes what is left.
+DRYRUN_JOBS_BESIDE = 3
+DRYRUN_NICE = 19
 # The cells of phase 15 (a), slowest first: each must come out as listed
-# ("skipped" with its config's SKIP_SHAPES reason).
+# ("skipped" with its config's SKIP_SHAPES reason). The GNN cells take
+# 5-66 s a process on a CPU (nequip's ogb_products the longest).
 DRYRUN_MOE = ("granite-moe-3b-a800m", "deepseek-v3-671b")
 DRYRUN_CELLS = ([("deepseek-v3-671b", "train_4k"),
                  ("granite-moe-3b-a800m", "train_4k"),
-                 ("deepseek-v3-671b", "prefill_32k")]
+                 ("deepseek-v3-671b", "prefill_32k"),
+                 ("nequip", "ogb_products"), ("mace", "ogb_products")]
                 + [(a, s) for a in ("gemma2-2b", "starcoder2-3b", "gemma3-27b")
                    for s in ("train_4k", "prefill_32k", "decode_32k",
                              "long_500k")]
                 + [("granite-moe-3b-a800m", "prefill_32k"),
                    ("deepseek-v3-671b", "decode_32k"),
                    ("granite-moe-3b-a800m", "decode_32k")]
+                + [(a, s) for a in ("nequip", "mace")
+                   for s in ("minibatch_lg", "full_graph_sm", "molecule")]
+                + [(a, s) for a in ("egnn", "gat-cora")
+                   for s in ("ogb_products", "minibatch_lg", "full_graph_sm",
+                             "molecule")]
                 + [(a, "long_500k") for a in DRYRUN_MOE])
 DRYRUN_CELL_S = 900           # a cell's process is killed after this
 # Phase 15 (b)'s bar: predicted peak within [1/2, 2] x the measured one.
@@ -5030,7 +5065,8 @@ class DryrunCells(threading.Thread):
                     with open(log, "w") as f:
                         self.running.append((cell, log, time.perf_counter(),
                                              subprocess.Popen(
-                            [sys.executable, "-m",
+                            ["nice", "-n", str(DRYRUN_NICE),
+                             sys.executable, "-m",
                              "repro_torch.launch.dryrun", "--arch", cell[0],
                              "--shape", cell[1], "--out", str(self.out_dir)],
                             cwd=ROOT, env=env, stdout=f,
@@ -5141,6 +5177,185 @@ def dryrun_measured(np, torch, ops, dev, cuts) -> dict:
     return out
 
 
+# Phase 15 (b) and (c)'s GNN step: each GNN's minibatch_lg cell, at its
+# published widths and the shape's full size (not cut), one TRAIN_CFG step
+# over ``graph_synth.random_graph`` of the shape (positions for the
+# geometric models). (c) holds the sharded step's loss to the unsharded
+# one's at GNN_LOSS_RTOL and each gradient leaf within GNN_GRAD_TOL of that
+# leaf's largest |value|: ``index_add_`` on the card sums by atomics, so
+# neither run is bit-equal to another.
+GNN_ARCHS = ("gat-cora", "egnn", "nequip", "mace")
+GNN_STEP_SHAPE = "minibatch_lg"
+GNN_LOSS_RTOL = 1e-5
+GNN_GRAD_TOL = 1e-5
+
+
+def gnn_step_graphs(torch) -> dict:
+    """{geometric: the GNN_STEP_SHAPE graph}, drawn on the host from SEED
+    and kept there: each arch moves its own to the card (``graph_to``), so
+    that a measured peak holds one graph."""
+    from repro_torch.configs import gnn_common
+    from repro_torch.data import graph_synth
+
+    sh = gnn_common.GNN_SHAPES[GNN_STEP_SHAPE]
+    return {geo: graph_synth.random_graph(
+        sh["n_nodes"], sh["n_edges"], sh["d_feat"],
+        n_classes=sh["n_classes"], seed=SEED, geometric=geo, device="cpu")
+        for geo in (False, True)}
+
+
+def gnn_step_model(torch, dev, arch: str):
+    """(config module, config at the shape, parameters from SEED on
+    ``dev``, loss function) of ``arch``'s GNN_STEP_SHAPE cell."""
+    from repro_torch.configs import get_arch, gnn_common
+
+    mod = get_arch(arch)
+    cfg = gnn_common.shape_config(mod.config(), GNN_STEP_SHAPE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params = mod.model.init(cfg, gen, dev)
+    return mod, cfg, params, (lambda p, g: mod.model.loss_fn(p, cfg, g))
+
+
+def dryrun_gnn_card(np, torch, dev, graphs) -> None:
+    """Phase 15 (b) for the GNNs: each arch's GNN_STEP_SHAPE cell dry-run
+    on a (1, 1) mesh of a fake process group of one rank beside one
+    measured ``TRAIN_CFG`` step (after a warm-up) on the card, each
+    predicted peak held to DRYRUN_PEAK_BAND."""
+    from repro_torch.configs import gnn_common
+    from repro_torch.launch import dryrun, mesh as mesh_lib
+    from repro_torch.train import loop
+
+    t0 = time.perf_counter()
+    predicted = {}
+    with dryrun.fake_world(1):
+        mesh = mesh_lib.make_device_mesh((1, 1))
+        for arch in GNN_ARCHS:
+            predicted[arch] = dryrun.run_cell(
+                arch, GNN_STEP_SHAPE, mesh,
+                str(ROOT / "results" / "dryrun_torch_card_cuts"))
+            if predicted[arch]["status"] != "ok":
+                fail(f"dry run of the {arch} {GNN_STEP_SHAPE} cell failed: "
+                     f"{predicted[arch].get('traceback')}")
+    print(f"phase 15 (b): the (1, 1) GNN dry runs took "
+          f"{time.perf_counter() - t0:.1f} s")
+    lo, hi = DRYRUN_PEAK_BAND
+    for arch in GNN_ARCHS:
+        mod, cfg, params, loss_fn = gnn_step_model(torch, dev, arch)
+        g = graph_to(torch, graphs[mod.GEOMETRIC], dev)
+        state = loop.make_train_state(params, gnn_common.TRAIN_CFG)
+        step = loop.make_train_step(loss_fn, gnn_common.TRAIN_CFG)
+        step(state, g)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.perf_counter()
+        step(state, g)
+        torch.cuda.synchronize()
+        secs, peak = (time.perf_counter() - t,
+                      torch.cuda.max_memory_allocated(dev))
+        del state, params, g
+        torch.cuda.empty_cache()
+        p = predicted[arch]
+        want = p["memory"]["peak_bytes"]
+        ratio = want / peak
+        print(f"phase 15 (b) {arch} {GNN_STEP_SHAPE} train: predicted peak "
+              f"{want / 1e9:.3f} GB, measured {peak / 1e9:.3f} GB (ratio "
+              f"{ratio:.3f}); roofline bound "
+              f"{p['roofline']['compute_s']:.4f} / "
+              f"{p['roofline']['memory_s']:.4f} s (compute / memory: "
+              f"{p['roofline']['dominant']}), measured {secs:.4f} s")
+        if not lo <= ratio <= hi:
+            fail(f"phase 15 (b): the {arch} {GNN_STEP_SHAPE} cell's "
+                 f"predicted peak is {ratio:.3f} x the measured one, outside "
+                 f"{lo}-{hi}")
+
+
+def gnn_sharded_steps(np, torch, dev, mesh, graphs) -> None:
+    """Phase 15 (c) for the GNNs, on the caller's (1, 1) mesh: each arch's
+    GNN_STEP_SHAPE loss and gradients with its parameters and graph laid
+    on the mesh by ``sharding.distribute`` (the DTensor path of
+    ``graph.Partition``) against the unsharded ones; then a train state
+    after one unsharded step, saved with its axes and restored onto the
+    mesh, every leaf a DTensor placed as ``distribute`` places it and
+    bit-equal to the saved leaf."""
+    import tempfile
+
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch import sharding
+    from repro_torch.configs import gnn_common
+    from repro_torch.models.gnn import graph as G
+    from repro_torch.train import checkpoint, loop, tree
+
+    sh = gnn_common.GNN_SHAPES[GNN_STEP_SHAPE]
+    for arch in GNN_ARCHS:
+        t0 = time.perf_counter()
+        mod, cfg, params, loss_fn = gnn_step_model(torch, dev, arch)
+        g = graph_to(torch, graphs[mod.GEOMETRIC], dev)
+        for p in tree.leaves(params):
+            p.requires_grad_(True)
+        want_loss, _, want = loop.value_and_grad(loss_fn, params, g)
+        p_axes = mod.model.param_axes(cfg)
+        with sharding.use_rules(mesh):
+            dparams = sharding.distribute(params, p_axes, mesh)
+            for p in tree.leaves(dparams):
+                p.requires_grad_(True)
+            dg = G.Graph(**sharding.distribute(
+                G.as_dict(g), gnn_common.graph_axes(sh, mod.GEOMETRIC),
+                mesh))
+            with implicit_replication():
+                loss, _, grads = loop.value_and_grad(loss_fn, dparams, dg)
+        torch.cuda.synchronize()
+        if not all(isinstance(t, DTensor) for t in tree.leaves(grads)):
+            fail(f"phase 15 (c) {arch}: a sharded gradient is not a DTensor")
+        loss_gap = abs(float(loss.full_tensor()) - float(want_loss)) / abs(
+            float(want_loss))
+        worst = 0.0
+        for (name, w), gt in zip(tree.flatten(want), tree.leaves(grads),
+                                 strict=True):
+            scale = float(w.abs().max())
+            gap = float((gt.full_tensor() - w).abs().max())
+            worst = max(worst, gap / scale if scale else gap)
+            if gap > GNN_GRAD_TOL * scale:
+                fail(f"phase 15 (c) {arch}: gradient {name} lies {gap:.3e} "
+                     f"from the unsharded, over {GNN_GRAD_TOL} x its "
+                     f"largest {scale:.3e}")
+        if not np.isfinite(loss_gap) or loss_gap > GNN_LOSS_RTOL:
+            fail(f"phase 15 (c) {arch}: the sharded loss lies {loss_gap:.3e} "
+                 f"(relative) from the unsharded")
+        del grads, want, dparams, dg
+        # The sharded restore of a train state saved after one step.
+        state = loop.make_train_state(params, gnn_common.TRAIN_CFG)
+        loop.make_train_step(loss_fn, gnn_common.TRAIN_CFG)(state, g)
+        axes = {"params": p_axes, "opt": {"m": p_axes, "v": p_axes,
+                                          "step": ()}}
+        with tempfile.TemporaryDirectory(prefix="ckpt-") as d:
+            checkpoint.save(d, 1, state, axes)
+            with sharding.use_rules(mesh):
+                got = checkpoint.restore(d, 1, state)
+        placed = sharding.distribute(state, axes, mesh)
+        n_leaves = 0
+        for (name, saved), r, w in zip(tree.flatten(state), tree.leaves(got),
+                                       tree.leaves(placed), strict=True):
+            if not (isinstance(r, DTensor)
+                    and tuple(r.placements) == tuple(w.placements)
+                    and torch.equal(r.full_tensor(), saved.detach())
+                    and r.requires_grad == saved.requires_grad):
+                fail(f"phase 15 (c) {arch}: the restored leaf {name} is not "
+                     "the saved one placed as distribute places it")
+            n_leaves += 1
+        del state, got, placed, params, g
+        torch.cuda.empty_cache()
+        print(f"phase 15 (c): the {arch} {GNN_STEP_SHAPE} loss and "
+              f"gradients on a (1, 1) NCCL mesh through graph.Partition: "
+              f"loss {float(want_loss):.6f}, {loss_gap:.3e} (relative) from "
+              f"the unsharded; worst gradient leaf {worst:.3e} of its "
+              f"largest |value| (bar {GNN_GRAD_TOL}); a train state of "
+              f"{n_leaves} leaves restored onto the mesh bit-equal; "
+              f"{time.perf_counter() - t0:.1f} s")
+
+
 def dryrun_predicted(cuts) -> dict:
     """Phase 15 (b)'s predictions: the dry run of the same cuts on a (1, 1)
     mesh of a fake process group of one rank (each arch's ``config``
@@ -5170,14 +5385,15 @@ def dryrun_predicted(cuts) -> dict:
     return out
 
 
-def dryrun_sharded_prefill(np, torch, ops, dev) -> dict:
+def dryrun_sharded_prefill(np, torch, ops, dev, graphs=None) -> dict:
     """Phase 15 (c): a 1-rank NCCL process group and (1, 1) mesh; gemma2-2b
     and granite-moe-3b-a800m at their published widths and deepseek's
     serving cut, each laid onto it by ``sharding.distribute`` and a prefill
     of LM_BATCH x LM_SEQ through the constrain calls, the attention's
     custom op and the MoE's sharded dispatch (``moe._Layout``); logits and
     caches bit-equal to the unsharded model's, its ``flash_attention``
-    launches one a layer. Returns {arch: launches}."""
+    launches one a layer. Then, with ``graphs``, the GNNs' sharded steps
+    and restores (``gnn_sharded_steps``). Returns {arch: launches}."""
     import socket
 
     import torch.distributed as dist
@@ -5246,21 +5462,25 @@ def dryrun_sharded_prefill(np, torch, ops, dev) -> dict:
                   "sharded MoE: logits and every layer's caches bit-equal "
                   f"to the unsharded prefill's, {launches} flash_attention "
                   f"launches; {time.perf_counter() - t0:.1f} s")
+        if graphs is not None:
+            gnn_sharded_steps(np, torch, dev, mesh, graphs)
     finally:
         dist.destroy_process_group()
     return out
 
 
 def dryrun_path(np, torch, ops, dev, cells=None) -> dict:
-    """Phase 15: the dry run (``launch/dryrun.py``). (a) The LM cells on the
-    16 x 16 production mesh of H100s (the dense, granite's and deepseek's;
-    their long_500k skipped), fake CUDA tensors on this card's host, each
-    cell's status, argument and peak GB a card, flops, collective bytes
-    and roofline terms printed; (b) the dry run of phases 7's, 11's, 12's
-    and 13's cuts on a (1, 1) mesh beside their measured peaks and times,
-    each peak held to DRYRUN_PEAK_BAND; (c) the sharded prefills on a
-    1-rank NCCL mesh. ``cells``: (a) already started (a whole run starts
-    it after phase 3). Returns {"launches"}: gemma2-2b's in (c)."""
+    """Phase 15: the dry run (``launch/dryrun.py``). (a) The LM and GNN
+    cells on the 16 x 16 production mesh of H100s (the dense, granite's and
+    deepseek's, their long_500k skipped; gat-cora's, EGNN's, NequIP's and
+    MACE's), fake CUDA tensors on this card's host, each cell's status,
+    argument and peak GB a card, flops, collective bytes and roofline terms
+    printed; (b) the dry run of phases 7's, 11's, 12's and 13's cuts and of
+    each GNN's minibatch_lg step on a (1, 1) mesh beside their measured
+    peaks and times, each peak held to DRYRUN_PEAK_BAND; (c) the sharded
+    prefills, the GNNs' sharded steps and the sharded restore on a 1-rank
+    NCCL mesh. ``cells``: (a) already started (a whole run starts it after
+    phase 3). Returns {"launches"}: gemma2-2b's in (c)."""
     t0 = time.perf_counter()
     if cells is None:
         cells = DryrunCells(DRYRUN_CELLS, ROOT / "results" / "dryrun_torch")
@@ -5317,8 +5537,13 @@ def dryrun_card(np, torch, ops, dev) -> dict:
         if not lo <= ratio <= hi:
             fail(f"phase 15 (b): the {name} cut's predicted peak is "
                  f"{ratio:.3f} x the measured one, outside {lo}-{hi}")
+    t2 = time.perf_counter()
+    graphs = gnn_step_graphs(torch)
+    print(f"phase 15: the {GNN_STEP_SHAPE} graphs drawn on the host in "
+          f"{time.perf_counter() - t2:.1f} s")
+    dryrun_gnn_card(np, torch, dev, graphs)
     print(f"phase 15 (b) took {time.perf_counter() - t1:.1f} s")
-    return dryrun_sharded_prefill(np, torch, ops, dev)
+    return dryrun_sharded_prefill(np, torch, ops, dev, graphs)
 
 
 def main() -> None:

@@ -1,9 +1,9 @@
 """egnn [arXiv:2102.09844]: 4 layers, d_hidden 64, E(n)-equivariant.
 
-Counterpart of ``repro.configs.egnn``: the configuration and its reduced
-smoke configuration; ``gnn_common.shape_config`` gives a shape's widths
-and ``smoke`` takes one train step (``gnn_common.smoke_run``). The TPU
-dry-run cell (``make_cell``) is not ported.
+Counterpart of ``repro.configs.egnn``: the configuration and its
+reduced smoke configuration, the dry run's cell of each shape
+(``make_cell``, built by ``gnn_common.make_cell``) and ``smoke``, one
+train step (``gnn_common.smoke_run``).
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ from repro_torch.models.gnn import egnn as model
 ARCH = "egnn"
 FAMILY = "gnn"
 SHAPES = list(gnn_common.GNN_SHAPES)
+SKIP_SHAPES: dict[str, str] = {}
 GEOMETRIC = True
 
 
@@ -24,6 +25,10 @@ def config() -> model.EGNNConfig:
 
 def smoke_config() -> model.EGNNConfig:
     return dataclasses.replace(config(), d_hidden=16, d_in=8, n_layers=2)
+
+
+def make_cell(shape: str):
+    return gnn_common.make_cell(ARCH, model, config(), shape, GEOMETRIC)
 
 
 def smoke(device=None):

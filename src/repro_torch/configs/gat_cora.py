@@ -1,9 +1,9 @@
 """gat-cora [arXiv:1710.10903]: 2 layers, d_hidden 8, 8 heads, attn agg.
 
 Counterpart of ``repro.configs.gat_cora``: the configuration and its
-reduced smoke configuration; ``gnn_common.shape_config`` gives a shape's
-widths and ``smoke`` takes one train step (``gnn_common.smoke_run``). The
-TPU dry-run cell (``make_cell``) is not ported.
+reduced smoke configuration, the dry run's cell of each shape
+(``make_cell``, built by ``gnn_common.make_cell``) and ``smoke``, one
+train step (``gnn_common.smoke_run``).
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ from repro_torch.models.gnn import gat as model
 ARCH = "gat-cora"
 FAMILY = "gnn"
 SHAPES = list(gnn_common.GNN_SHAPES)
+SKIP_SHAPES: dict[str, str] = {}
 GEOMETRIC = False
 
 
@@ -24,6 +25,10 @@ def config() -> model.GATConfig:
 
 def smoke_config() -> model.GATConfig:
     return dataclasses.replace(config(), d_hidden=4, n_heads=2, d_in=8)
+
+
+def make_cell(shape: str):
+    return gnn_common.make_cell(ARCH, model, config(), shape, GEOMETRIC)
 
 
 def smoke(device=None):

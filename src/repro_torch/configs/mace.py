@@ -1,10 +1,10 @@
 """mace [arXiv:2206.07697]: 2 layers, 128 channels, l_max 2,
 correlation order 3, 8 RBF, cutoff 5 — E(3)-ACE message passing.
 
-Counterpart of ``repro.configs.mace``: the configuration and its reduced
-smoke configuration; ``gnn_common.shape_config`` gives a shape's widths
-and ``smoke`` takes one train step (``gnn_common.smoke_run``). The TPU
-dry-run cell (``make_cell``) is not ported.
+Counterpart of ``repro.configs.mace``: the configuration and its
+reduced smoke configuration, the dry run's cell of each shape
+(``make_cell``, built by ``gnn_common.make_cell``) and ``smoke``, one
+train step (``gnn_common.smoke_run``).
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ from repro_torch.models.gnn import mace as model
 ARCH = "mace"
 FAMILY = "gnn"
 SHAPES = list(gnn_common.GNN_SHAPES)
+SKIP_SHAPES: dict[str, str] = {}
 GEOMETRIC = True
 
 
@@ -26,6 +27,10 @@ def config() -> model.MACEConfig:
 
 def smoke_config() -> model.MACEConfig:
     return dataclasses.replace(config(), d_hidden=16, d_in=8)
+
+
+def make_cell(shape: str):
+    return gnn_common.make_cell(ARCH, model, config(), shape, GEOMETRIC)
 
 
 def smoke(device=None):

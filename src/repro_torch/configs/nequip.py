@@ -1,10 +1,10 @@
 """nequip [arXiv:2101.03164]: 5 layers, 32 channels, l_max 2, 8 RBF,
 cutoff 5, E(3) tensor-product message passing.
 
-Counterpart of ``repro.configs.nequip``: the configuration and its reduced
-smoke configuration; ``gnn_common.shape_config`` gives a shape's widths
-and ``smoke`` takes one train step (``gnn_common.smoke_run``). The TPU
-dry-run cell (``make_cell``) is not ported.
+Counterpart of ``repro.configs.nequip``: the configuration and its
+reduced smoke configuration, the dry run's cell of each shape
+(``make_cell``, built by ``gnn_common.make_cell``) and ``smoke``, one
+train step (``gnn_common.smoke_run``).
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ from repro_torch.models.gnn import nequip as model
 ARCH = "nequip"
 FAMILY = "gnn"
 SHAPES = list(gnn_common.GNN_SHAPES)
+SKIP_SHAPES: dict[str, str] = {}
 GEOMETRIC = True
 
 
@@ -26,6 +27,10 @@ def config() -> model.NequIPConfig:
 
 def smoke_config() -> model.NequIPConfig:
     return dataclasses.replace(config(), d_hidden=8, n_layers=2, d_in=8)
+
+
+def make_cell(shape: str):
+    return gnn_common.make_cell(ARCH, model, config(), shape, GEOMETRIC)
 
 
 def smoke(device=None):

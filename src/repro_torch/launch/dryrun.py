@@ -62,10 +62,9 @@ OUT_DIR = "results/dryrun_torch"
 # The architectures whose cells this port lays out; the others wait for
 # their slices (ROADMAP.md, Queue 1, item 3).
 PORTED = ("gemma2-2b", "starcoder2-3b", "gemma3-27b",
-          "granite-moe-3b-a800m", "deepseek-v3-671b")
+          "granite-moe-3b-a800m", "deepseek-v3-671b",
+          "gat-cora", "egnn", "nequip", "mace")
 LATER = {
-    "egnn": "the GNN slice", "gat-cora": "the GNN slice",
-    "nequip": "the GNN slice", "mace": "the GNN slice",
     "two-tower-retrieval": "the two-tower slice",
     "kg-specqp": "the kg-specqp slice",
 }
@@ -341,14 +340,11 @@ def run_cell(arch: str, shape: str, mesh, out_dir: str = OUT_DIR) -> dict:
             cell = mod.make_cell(shape)
             m = measure(cell, mesh)
         coll = analysis.collective_bytes(m.pop("records"))
-        from repro_torch.configs.lm_common import LM_SHAPES
-        sh = LM_SHAPES[shape]
         rl = analysis.Roofline(
             flops=float(m["cost"]["flops"]),
             bytes_accessed=float(m["cost"]["bytes accessed"]),
             coll_bytes=float(coll["wire_total"]), n_chips=n_chips,
-            model_flops=analysis.lm_model_flops(mod.config(), sh["batch"],
-                                                sh["seq"], sh["kind"]),
+            model_flops=_model_flops(mod, shape),
             nvlink_bytes=float(coll["wire_nvlink"]))
         result.update({
             "status": "ok",
@@ -366,6 +362,17 @@ def run_cell(arch: str, shape: str, mesh, out_dir: str = OUT_DIR) -> dict:
         result["traceback"] = traceback.format_exc()[-4000:]
     _write(out_dir, result)
     return result
+
+
+def _model_flops(mod, shape: str) -> float:
+    """The useful flops of an LM cell (``analysis.lm_model_flops``); 0 for
+    any other family, as the reference's ``_model_flops`` gives."""
+    if getattr(mod, "FAMILY", "") != "lm":
+        return 0.0
+    from repro_torch.configs.lm_common import LM_SHAPES
+    sh = LM_SHAPES[shape]
+    return analysis.lm_model_flops(mod.config(), sh["batch"], sh["seq"],
+                                   sh["kind"])
 
 
 def _device_name() -> str:

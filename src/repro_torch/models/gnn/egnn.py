@@ -17,6 +17,10 @@ where its gradient is the identity; the reference's ``jnp.sqrt(d2)`` gives
 0 · ∞ = NaN there (``src/repro/models/gnn/egnn.py:75``), and from three
 layers on that NaN reaches the weights. ``_edge_len`` computes the same
 forward, bit for bit, with the true gradient 0 for |diff| at d² = 0.
+
+Laid over a mesh (``param_axes``, ``graph.Partition``), each rank runs the
+edge and coordinate MLPs over its own edges from h and x all-gathered once
+a layer, and the partial sums are reduce-scattered to the nodes' layout.
 """
 from __future__ import annotations
 
@@ -63,6 +67,20 @@ def param_specs(cfg: EGNNConfig) -> dict:
     return specs
 
 
+def _mlp_axes(n: int) -> dict:
+    """The reference's ``_mlp_init`` axes: ``embed_fsdp`` and ``mlp`` in
+    turn."""
+    names = ("embed_fsdp", "mlp")
+    return {f"w{i}": (names[i % 2], names[(i + 1) % 2]) for i in range(n)}
+
+
+def param_axes(cfg: EGNNConfig) -> dict:
+    """The logical axes of each parameter, the reference ``init``'s."""
+    return {k: (_mlp_axes(len(v)) if "w0" in v else
+                {m: _mlp_axes(len(w)) for m, w in v.items()})
+            for k, v in param_specs(cfg).items()}
+
+
 def init(cfg: EGNNConfig, generator: torch.Generator, device=None) -> dict:
     """Random parameters on ``device`` (CUDA by default) with the
     reference's distribution; ``convert.egnn_from_numpy`` carries the
@@ -73,7 +91,7 @@ def init(cfg: EGNNConfig, generator: torch.Generator, device=None) -> dict:
 def _mlp(p, x, act_last=False):
     n = len(p)
     for i in range(n):
-        x = x @ p[f"w{i}"]
+        x = x @ G.whole(p[f"w{i}"])
         if i < n - 1 or act_last:
             x = F.silu(x, inplace=not torch.is_grad_enabled())
     return x
@@ -86,24 +104,28 @@ def _edge_len(d2: torch.Tensor) -> torch.Tensor:
 
 
 def _layer(lp, g: G.Graph, h, x, deg, n: int):
-    """One EGNN layer: (h, x) → (h', x'), messages EDGE_CHUNK edges at a
-    time."""
-    agg = h.new_zeros((n + 1, h.shape[1]))
-    dx = x.new_zeros((n + 1, 3))
-    for _, gc in G.edge_chunks(g, EDGE_CHUNK):
-        diff = G.gather_dst(gc, x) - G.gather_src(gc, x)
+    """One EGNN layer: (h, x) → (h', x'), messages EDGE_CHUNK edges (of
+    the rank's own) at a time."""
+    part = G.Partition(g, n)
+    hl, xl = part.nodes(h), part.nodes(x)
+    edge_mlp, coord_mlp = ({k: part.weight(w) for k, w in lp[m].items()}
+                           for m in ("edge_mlp", "coord_mlp"))
+    agg = hl.new_zeros((n + 1, hl.shape[1]))
+    dx = xl.new_zeros((n + 1, 3))
+    for _, gc in part.chunks(EDGE_CHUNK):
+        diff = G.gather_dst(gc, xl) - G.gather_src(gc, xl)
         d2 = torch.sum(diff * diff, dim=-1, keepdim=True)
-        m = _mlp(lp["edge_mlp"], torch.cat(
-            [G.gather_dst(gc, h), G.gather_src(gc, h), d2], -1),
+        m = _mlp(edge_mlp, torch.cat(
+            [G.gather_dst(gc, hl), G.gather_src(gc, hl), d2], -1),
             act_last=True)                                   # (E, D)
-        w = torch.tanh(_mlp(lp["coord_mlp"], m))             # (E, 1)
+        w = torch.tanh(_mlp(coord_mlp, m))                   # (E, 1)
         # Distance-normalised, tanh-bounded coordinate messages (EGNN eq.
         # 4 with C = 1/(d + 1)), as in the reference.
         G.scatter_add_(dx, gc, diff / (_edge_len(d2) + 1.0) * w)
         G.scatter_add_(agg, gc, m)
         del diff, d2, m, w
-    x = x + dx[:n] / torch.clamp(deg, min=1.0)
-    h = h + _mlp(lp["node_mlp"], torch.cat([h, agg[:n]], -1))
+    x = x + part.sum(dx) / torch.clamp(deg, min=1.0)
+    h = h + _mlp(lp["node_mlp"], torch.cat([h, part.sum(agg)], -1))
     return h, x
 
 

@@ -15,6 +15,12 @@ the card holds. A chunk of 2**23 edges takes 12.6 GB there. The sum is the
 same up to float order. Without gradients a chunk's messages are scaled in
 place (one chunk's buffer); with them, out of place, since autograd keeps
 the gathered features for the backward.
+
+Laid over a mesh (``param_axes``, ``graph.Partition``), each rank
+aggregates its own edges, ``EDGE_CHUNK`` at a time, from the layer's
+projected features all-gathered once, and the partial sums are
+reduce-scattered to the nodes' layout; each weight is taken whole where it
+is used (``graph.whole``).
 """
 from __future__ import annotations
 
@@ -65,28 +71,38 @@ def init(cfg: GATConfig, generator: torch.Generator,
     return cm.init_tree(layer_shapes(cfg), generator, resolve_device(device))
 
 
+def param_axes(cfg: GATConfig) -> dict:
+    """The logical axes of each parameter, the reference ``init``'s."""
+    return {name: {"w": ("embed_fsdp", "heads", None),
+                   "a_src": ("heads", None), "a_dst": ("heads", None)}
+            for name in layer_shapes(cfg)}
+
+
 def aggregate(g: G.Graph, alpha: torch.Tensor, hw: torch.Tensor,
               n_nodes: int) -> torch.Tensor:
     """Σ over incoming edges of alpha · hw[src]: (E, H), (N, H, d) →
-    (N, H, d), EDGE_CHUNK edges at a time (without gradients the messages
-    are scaled in place to keep one chunk's buffer)."""
-    out = hw.new_zeros((n_nodes + 1,) + hw.shape[1:])
+    (N, H, d), EDGE_CHUNK edges (of the rank's own) at a time (without
+    gradients the messages are scaled in place to keep one chunk's
+    buffer)."""
+    part = G.Partition(g, n_nodes)
+    src, alpha = part.nodes(hw), part.edges(alpha)
+    out = src.new_zeros((n_nodes + 1,) + src.shape[1:])
     in_place = not torch.is_grad_enabled()
-    for lo, gc in G.edge_chunks(g, EDGE_CHUNK):
-        msgs = G.gather_src(gc, hw)
+    for lo, gc in part.chunks(EDGE_CHUNK):
+        msgs = G.gather_src(gc, src)
         a = alpha[lo:lo + msgs.shape[0], :, None]
         msgs = msgs.mul_(a) if in_place else msgs * a
         G.scatter_add_(out, gc, msgs)
         del msgs
-    return out[:n_nodes]
+    return part.sum(out)
 
 
 def layer_logits(lp, cfg: GATConfig, g: G.Graph, h: torch.Tensor):
     """A layer's projected features hw (N, H, d) and its per-edge attention
     logits after leaky_relu (E, H)."""
-    hw = torch.einsum("nf,fhd->nhd", h, lp["w"])           # (N, H, d)
-    e_src = torch.einsum("nhd,hd->nh", hw, lp["a_src"])    # (N, H)
-    e_dst = torch.einsum("nhd,hd->nh", hw, lp["a_dst"])
+    hw = torch.einsum("nf,fhd->nhd", h, G.whole(lp["w"]))  # (N, H, d)
+    e_src = torch.einsum("nhd,hd->nh", hw, G.whole(lp["a_src"]))  # (N, H)
+    e_dst = torch.einsum("nhd,hd->nh", hw, G.whole(lp["a_dst"]))
     logits = G.gather_src(g, e_src) + G.gather_dst(g, e_dst)
     return hw, F.leaky_relu(logits, cfg.negative_slope)    # (E, H)
 

@@ -20,6 +20,11 @@ three-operand einsum ``"nci,ncj,ijo->nco"`` is contracted in a fixed
 order: the outer product u ⊗ v → (n·C, i·j), then one product with the CG
 tensor as an (i·j, o) matrix. The sums equal the unchunked ones up to
 float order.
+
+Laid over a mesh (``param_axes``, ``graph.Partition``), each rank forms the
+A-basis of its own edges from the positions and the scalars all-gathered
+once a layer; the partial sums are reduce-scattered to the nodes' layout,
+and the B-basis loop runs over the rank's own rows.
 """
 from __future__ import annotations
 
@@ -74,6 +79,18 @@ def param_specs(cfg: MACEConfig) -> dict:
     return specs
 
 
+def param_axes(cfg: MACEConfig) -> dict:
+    """The logical axes of each parameter, the reference ``init``'s."""
+    L = cfg.l_max
+    layer = {"rad_w0": (None, None), "rad_w1": (None, "mlp"),
+             "b2_w": (None, "mlp"), "b3_w": (None, "mlp"),
+             **{f"msg_{l}": ("mlp", "mlp") for l in range(L + 1)},
+             **{f"res_{l}": ("mlp", "mlp") for l in range(L + 1)}}
+    return {"embed": ("embed_fsdp", "mlp"),
+            **{f"layer_{i}": dict(layer) for i in range(cfg.n_layers)},
+            "head0": ("mlp", "mlp"), "head1": ("mlp", None)}
+
+
 def init(cfg: MACEConfig, generator: torch.Generator, device=None) -> dict:
     """Random parameters on ``device`` (CUDA by default) with the
     reference's distribution; ``convert.mace_from_numpy`` carries the
@@ -83,14 +100,17 @@ def init(cfg: MACEConfig, generator: torch.Generator, device=None) -> dict:
 
 def _a_basis(lp, cfg: MACEConfig, g: G.Graph, scal, n: int):
     """A_i[l] = Σ_j R_l(r_ij) · Y_l(r̂_ij) ⊗ h_j → [(N, C, 2l+1)] per l,
-    EDGE_CHUNK edges at a time."""
+    EDGE_CHUNK edges (of the rank's own) at a time."""
     C, L = cfg.d_hidden, cfg.l_max
-    A = [scal.new_zeros((n + 1, C, e3.dim(l))) for l in range(L + 1)]
-    for _, gc in G.edge_chunks(g, EDGE_CHUNK):
+    part = G.Partition(g, n, positions=True)
+    rad0, rad1 = (part.weight(lp[k]) for k in ("rad_w0", "rad_w1"))
+    src = part.nodes(scal)
+    A = [src.new_zeros((n + 1, C, e3.dim(l))) for l in range(L + 1)]
+    for _, gc in part.chunks(EDGE_CHUNK):
         rbf, sh_edges = e3.edge_basis(gc, L, cfg.n_rbf, cfg.cutoff)
-        rw = (F.silu(rbf @ lp["rad_w0"]) @ lp["rad_w1"]).view(
+        rw = (F.silu(rbf @ rad0) @ rad1).view(
             rbf.shape[0], L + 1, C)                     # (E, L+1, C)
-        hj = G.gather_src(gc, scal)                     # (E, C)
+        hj = G.gather_src(gc, src)                      # (E, C)
         for l in range(L + 1):
             m = (rw[:, l] * hj)[:, :, None] * sh_edges[l][:, None, :]
             G.scatter_add_(A[l], gc, m)
@@ -98,8 +118,8 @@ def _a_basis(lp, cfg: MACEConfig, g: G.Graph, scal, n: int):
         del rbf, sh_edges, rw, hj
     norm = cfg.avg_neighbors**0.5
     if torch.is_grad_enabled():
-        return [a[:n] / norm for a in A]
-    return [a[:n].div_(norm) for a in A]     # one (N, C, 2l+1) buffer each
+        return [part.sum(a) / norm for a in A]
+    return [part.sum(a).div_(norm) for a in A]  # one (N, C, 2l+1) buffer each
 
 
 def _cg_product(u, v, cgt):
@@ -132,26 +152,31 @@ def _b_basis(lp, cfg: MACEConfig, A):
 
 def _layer(lp, cfg: MACEConfig, g: G.Graph, feats, n: int):
     """One MACE layer: the A-basis over the edges, then the B-basis,
-    messages and residuals NODE_CHUNK nodes at a time."""
-    A = _a_basis(lp, cfg, g, feats[0][:, :, 0], n)
-    new = {l: torch.empty_like(f) for l, f in feats.items()}
-    for lo in range(0, n, NODE_CHUNK):
-        hi = min(n, lo + NODE_CHUNK)
+    messages and residuals NODE_CHUNK nodes (of the rank's own rows) at a
+    time."""
+    part = G.Partition(g, n)
+    A = [part.rows(a) for a in _a_basis(lp, cfg, g, feats[0][:, :, 0], n)]
+    rows = {l: part.rows(f) for l, f in feats.items()}
+    lp = {k: part.row_weight(w) for k, w in lp.items()
+          if not k.startswith("rad_")}
+    new = {l: torch.empty_like(f) for l, f in rows.items()}
+    for lo in range(0, part.n_rows, NODE_CHUNK):
+        hi = min(part.n_rows, lo + NODE_CHUNK)
         B = _b_basis(lp, cfg, [a[lo:hi] for a in A])
         for l in range(cfg.l_max + 1):
             msg = torch.einsum("nci,cd->ndi", B[l], lp[f"msg_{l}"])
-            res = torch.einsum("nci,cd->ndi", feats[l][lo:hi], lp[f"res_{l}"])
+            res = torch.einsum("nci,cd->ndi", rows[l][lo:hi], lp[f"res_{l}"])
             new[l][lo:hi] = msg + res
         del B
-    return new
+    return {l: part.from_rows(t) for l, t in new.items()}
 
 
 def _embed(params, cfg, g: G.Graph):
     """The first layer's irrep dict: the embedded scalars, zeros for
     l ≥ 1."""
-    feats = {0: (g.node_feat @ params["embed"])[:, :, None]}
+    feats = {0: (g.node_feat @ G.whole(params["embed"]))[:, :, None]}
     for l in range(1, cfg.l_max + 1):
-        feats[l] = feats[0].new_zeros(feats[0].shape[:2] + (e3.dim(l),))
+        feats[l] = G.node_zeros(feats[0], feats[0].shape[1], e3.dim(l))
     return feats
 
 
@@ -179,5 +204,6 @@ def loss_fn(params, cfg: MACEConfig, g: G.Graph):
     """``graph.task_loss`` of the readout silu(E·W0)·W1 of the node
     energies."""
     _, node_e = forward(params, cfg, g)
-    out = F.silu(node_e @ params["head0"]) @ params["head1"]
+    out = F.silu(node_e @ G.whole(params["head0"])) @ G.whole(
+        params["head1"])
     return G.task_loss(out, g, cfg.task)

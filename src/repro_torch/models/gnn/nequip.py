@@ -18,6 +18,11 @@ radial weights and summed into each l_out. Messages are formed and
 scattered ``EDGE_CHUNK`` edges at a time: at ogbn-products scale the
 radial weights alone, (E, 15 paths, 32), would take 118.8 GB. A chunk of
 2**21 edges holds about 8 KB an edge at 32 channels, about 17 GB.
+
+Laid over a mesh (``param_axes``, ``graph.Partition``), each rank forms the
+messages of its own edges from the positions and each l-block
+all-gathered once a layer, and the partial sums are reduce-scattered to
+the nodes' layout.
 """
 from __future__ import annotations
 
@@ -66,6 +71,16 @@ def param_specs(cfg: NequIPConfig) -> dict:
     specs["head0"] = ((C, C), None)
     specs["head1"] = ((C, out_dim), None)
     return specs
+
+
+def param_axes(cfg: NequIPConfig) -> dict:
+    """The logical axes of each parameter, the reference ``init``'s."""
+    layer = {"rad_w0": (None, None), "rad_w1": (None, "mlp"),
+             **{f"self_{l}": ("mlp", "mlp") for l in range(cfg.l_max + 1)},
+             "gate_w": ("mlp", None)}
+    return {"embed": ("embed_fsdp", "mlp"),
+            **{f"layer_{i}": dict(layer) for i in range(cfg.n_layers)},
+            "head0": ("mlp", "mlp"), "head1": ("mlp", None)}
 
 
 def init(cfg: NequIPConfig, generator: torch.Generator,
@@ -134,20 +149,25 @@ def _messages(lp, cfg: NequIPConfig, gc: G.Graph, feats):
 
 def _interact(lp, cfg: NequIPConfig, g: G.Graph, feats, n: int):
     C = cfg.d_hidden
-    agg = {l: f.new_zeros((n + 1, f.shape[2], C)) for l, f in feats.items()}
-    for _, gc in G.edge_chunks(g, EDGE_CHUNK):
-        msgs = _messages(lp, cfg, gc, feats)
+    part = G.Partition(g, n, positions=True)
+    rad = {k: part.weight(lp[k]) for k in ("rad_w0", "rad_w1")}
+    src = {l: part.nodes(f) for l, f in feats.items()}
+    agg = {l: f.new_zeros((n + 1, f.shape[2], C)) for l, f in src.items()}
+    for _, gc in part.chunks(EDGE_CHUNK):
+        msgs = _messages(rad, cfg, gc, src)
         for l, m in msgs.items():
             G.scatter_add_(agg[l], gc, m)
         del msgs
     out = {}
     for l in range(cfg.l_max + 1):
         # The reference's einsum("nci,cd->ndi") with the channels last.
-        mixed = (agg.pop(l)[:n] / cfg.avg_neighbors**0.5) @ lp[f"self_{l}"]
+        mixed = (part.sum(agg.pop(l)) / cfg.avg_neighbors**0.5) @ G.whole(
+            lp[f"self_{l}"])
         out[l] = feats[l] + mixed.transpose(1, 2)
     # Gated nonlinearity: scalars → silu; higher l scaled by sigmoid gates.
     scal = out[0][:, :, 0]
-    gates = torch.sigmoid(scal @ lp["gate_w"]).view(n, cfg.l_max, C)
+    gates = torch.sigmoid(scal @ G.whole(lp["gate_w"])).view(n, cfg.l_max,
+                                                             C)
     new = {0: F.silu(scal)[:, :, None]}
     for l in range(1, cfg.l_max + 1):
         new[l] = out[l] * gates[:, l - 1][:, :, None]
@@ -157,9 +177,9 @@ def _interact(lp, cfg: NequIPConfig, g: G.Graph, feats, n: int):
 def _embed(params, cfg, g: G.Graph):
     """The first layer's irrep dict: the embedded scalars, zeros for
     l ≥ 1."""
-    feats = {0: (g.node_feat @ params["embed"])[:, :, None]}
+    feats = {0: (g.node_feat @ G.whole(params["embed"]))[:, :, None]}
     for l in range(1, cfg.l_max + 1):
-        feats[l] = feats[0].new_zeros(feats[0].shape[:2] + (e3.dim(l),))
+        feats[l] = G.node_zeros(feats[0], feats[0].shape[1], e3.dim(l))
     return feats
 
 
@@ -182,5 +202,5 @@ def apply(params, cfg: NequIPConfig, g: G.Graph):
 def loss_fn(params, cfg: NequIPConfig, g: G.Graph):
     """``graph.task_loss`` of the scalar readout silu(s·W0)·W1."""
     scal = forward(params, cfg, g)[0][:, :, 0]
-    out = F.silu(scal @ params["head0"]) @ params["head1"]
+    out = F.silu(scal @ G.whole(params["head0"])) @ G.whole(params["head1"])
     return G.task_loss(out, g, cfg.task)

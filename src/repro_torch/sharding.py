@@ -336,13 +336,14 @@ def distribute(model_or_tree, axes_tree, mesh):
     ``tree_shardings``. Each rank passes the same full values and keeps
     its own shard. A module's parameters are replaced in place by
     ``DTensor`` parameters (the same ``requires_grad``) and the module is
-    returned; a tree comes back as a new tree of DTensors."""
+    returned; a tree comes back as a new tree of DTensors (a None leaf,
+    such as a graph's absent field, stays None)."""
     rules = _state.rules if active() else None
     with use_rules(mesh, rules):
         if not isinstance(model_or_tree, nn.Module):
             return tree_map_axes(
-                lambda ax, t: _distribute_tensor(t, ax, mesh), axes_tree,
-                model_or_tree)
+                lambda ax, t: None if t is None else _distribute_tensor(
+                    t, ax, mesh), axes_tree, model_or_tree)
         axes = _flat_axes(axes_tree)
         for name, p in list(model_or_tree.named_parameters()):
             *path, leaf = name.split(".")

@@ -10,7 +10,10 @@ mid-write never corrupts the latest checkpoint. bfloat16 is stored as its
 packages read each other's checkpoints bit for bit.
 
 Restore is elastic: each leaf goes onto its template leaf's device and
-dtype, whatever wrote it. ``AsyncCheckpointer`` writes on a daemon thread
+dtype, whatever wrote it; with sharding rules installed
+(``repro_torch.sharding``), a leaf whose logical axes the manifest holds
+comes back laid over the installed mesh as ``sharding.distribute`` lays
+it (each rank its own shard of the same full values). ``AsyncCheckpointer`` writes on a daemon thread
 (a queue of 1: back-pressure instead of unbounded memory) from a host copy
 taken before ``save`` returns: the train step updates its tensors in
 place, so a copy taken later would race the next step.
@@ -26,6 +29,7 @@ import threading
 import numpy as np
 import torch
 
+from repro_torch import sharding
 from repro_torch.train import tree
 
 
@@ -104,10 +108,16 @@ def latest_step(ckpt_dir: str) -> int | None:
 def restore(ckpt_dir: str, step: int, template):
     """Restore into the structure of ``template``: each leaf on its template
     leaf's device and dtype, requiring gradients where the template leaf
-    does (elastic: the writer's device and package do not matter)."""
+    does (elastic: the writer's device and package do not matter). With
+    rules installed, a leaf that has axes in the manifest comes back a
+    ``DTensor`` on the installed mesh, placed as ``sharding.distribute``
+    places it: by its axes under the rules, an axis dropped where it does
+    not divide the leaf's dimension (the reference passes no shape, and
+    would refuse such a leaf)."""
     d = os.path.join(ckpt_dir, f"step_{step}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
+    axes = manifest.get("axes", {})
     out = []
     for name, leaf in tree.flatten(template):
         leaf = torch.as_tensor(leaf)
@@ -115,6 +125,9 @@ def restore(ckpt_dir: str, step: int, template):
         t = _from_numpy(np.load(os.path.join(d, meta["file"])),
                         meta["dtype"])
         t = t.to(device=leaf.device, dtype=leaf.dtype)
+        ax = axes.get(name)
+        if ax is not None and sharding.active():
+            t = sharding.distribute(t, tuple(ax), sharding.current_mesh())
         if leaf.requires_grad:
             t.requires_grad_(True)
         out.append(t)

@@ -1,34 +1,43 @@
 """The port's dry run (``repro_torch.configs.base``, ``configs.lm_common``'s
-``make_cell``, ``launch.analysis``, ``launch.dryrun``) against the JAX
-package's: every LM cell argument by argument (the dense archs', granite's
-and deepseek's), their bytes a card on the 16 × 16 mesh, the model flops
-and active parameters of every LM, the roofline's arithmetic, a fake (2, 2)
-run's flops per rank, ``--all``'s control flow and the skipped cells'
+and ``configs.gnn_common``'s ``make_cell``, ``launch.analysis``,
+``launch.dryrun``) against the JAX package's: every LM and GNN cell
+argument by argument (the dense archs', granite's and deepseek's; gat-cora's,
+EGNN's, NequIP's and MACE's on the four graph shapes), their bytes a card
+on the 16 × 16 mesh, the GNNs' parameter axes, the model flops and active
+parameters of every LM, the roofline's arithmetic, a fake (2, 2) run's
+flops per rank, ``--all``'s control flow and the skipped cells'
 reasons."""
+import dataclasses
 import json
 import math
 
 import jax
 import jax.numpy as jnp
 import pytest
+import torch
 
 from repro import compat
+from repro.configs import base as jbase
 from repro import sharding as jsharding
 from repro.configs import get_arch as jget_arch
 from repro.launch import analysis as janalysis
 from repro_torch import sharding
-from repro_torch.configs import get_arch, lm_common
+from repro_torch.configs import get_arch, gnn_common, lm_common
 from repro_torch.launch import analysis, dryrun
 from repro_torch.launch import mesh as mesh_lib
 
 DENSE = ("gemma2-2b", "starcoder2-3b", "gemma3-27b")
 MOE = ("granite-moe-3b-a800m", "deepseek-v3-671b")
 LMS = DENSE + MOE
+GNNS = ("gat-cora", "egnn", "nequip", "mace")
 SHAPES = tuple(lm_common.LM_SHAPES)
-# Every LM cell the dry run lays out: the dense archs' four shapes, the
-# MoE archs' three (their long_500k is in their SKIP_SHAPES).
+GNN_SHAPES = tuple(gnn_common.GNN_SHAPES)
+# Every cell the dry run lays out: the dense archs' four shapes, the MoE
+# archs' three (their long_500k is in their SKIP_SHAPES), and each GNN's
+# four graph shapes.
 CELLS = ([(a, s) for a in DENSE for s in SHAPES]
-         + [(a, s) for a in MOE for s in SHAPES if s != "long_500k"])
+         + [(a, s) for a in MOE for s in SHAPES if s != "long_500k"]
+         + [(a, s) for a in GNNS for s in GNN_SHAPES])
 
 
 def _unstack_params(tree, cfg):
@@ -69,16 +78,36 @@ def _decode_caches(jtree, cfg):
     return layers
 
 
+def _jax_graph_leaves(spec, axes):
+    """JAX's ``Graph`` of ShapeDtypeStructs and its axes → the port's dict
+    of (shape, dtype, axes) by field, None for an absent field."""
+    return {f.name: None if getattr(spec, f.name) is None else
+            _jax_leaves(getattr(spec, f.name), getattr(axes, f.name))
+            for f in dataclasses.fields(spec)}
+
+
+def _port_graph_leaves(graph, axes):
+    return {k: None if t is None else _port_leaves(t, axes[k])
+            for k, t in graph.items()}
+
+
 @pytest.mark.parametrize("arch,shape", CELLS)
 def test_make_cell_matches_jax(arch, shape):
     """Every argument's shape, dtype and axes, leaf for leaf, after the
     port's layout changes: the stacked layers as a list, the decode caches
-    one a layer, the decode step a Python int."""
+    one a layer, the decode step a Python int, the graph a dict of its
+    fields."""
     jcell = jget_arch(arch).make_cell(shape)
     cell = get_arch(arch).make_cell(shape)
     cfg = get_arch(arch).config()
     assert (cell.arch, cell.shape, cell.kind) == (jcell.arch, jcell.shape,
                                                   jcell.kind)
+    if arch in GNNS:
+        assert _port_leaves(cell.args[0], cell.arg_axes[0]) == \
+            _jax_leaves(jcell.args[0], jcell.arg_axes[0])
+        assert _port_graph_leaves(cell.args[1], cell.arg_axes[1]) == \
+            _jax_graph_leaves(jcell.args[1], jcell.arg_axes[1])
+        return
     want = [_jax_leaves(s, a) for s, a in zip(jcell.args, jcell.arg_axes)]
     got = [_port_leaves(t, a) for t, a in zip(cell.args, cell.arg_axes)
            if not isinstance(t, int)]
@@ -106,8 +135,10 @@ def _jax_card_bytes(jcell, mesh):
         for args, axes in zip(jcell.args, jcell.arg_axes):
             ax_leaves = jax.tree_util.tree_leaves(
                 axes, is_leaf=lambda x: isinstance(x, tuple) or x is None)
-            for a, s in zip(ax_leaves, jax.tree_util.tree_leaves(args),
-                            strict=True):
+            for a, s in zip(ax_leaves, jax.tree_util.tree_leaves(
+                    args, is_leaf=lambda x: x is None), strict=True):
+                if s is None:              # a graph's absent field
+                    continue
                 shape = list(s.shape)
                 if isinstance(a, tuple) and len(a) == len(shape):
                     spec = jsharding.spec(*a, shape=tuple(shape))
@@ -131,6 +162,24 @@ def test_card_argument_bytes_match_jax(arch, shape):
         mesh = mesh_lib.make_production_mesh()
         with sharding.use_rules(mesh):
             assert get_arch(arch).make_cell(shape).argument_bytes() == want
+
+
+@pytest.mark.parametrize("width", ["smoke", "full"])
+@pytest.mark.parametrize("arch", GNNS)
+def test_gnn_param_axes_match_jax_init(arch, width):
+    """Each GNN's ``param_axes`` is its reference ``init``'s axes tree, and
+    ``init``'s shapes and dtypes match leaf for leaf, at the smoke and the
+    published widths."""
+    mod, jmod = get_arch(arch), jget_arch(arch)
+    cfg = mod.smoke_config() if width == "smoke" else mod.config()
+    jcfg = jmod.smoke_config() if width == "smoke" else jmod.config()
+    shapes, axes = jbase.eval_shape_with_axes(
+        lambda k: jmod.model.init(k, jcfg), jax.random.PRNGKey(0))
+    got = mod.model.param_axes(cfg)
+    assert got == jax.tree_util.tree_map(
+        lambda a: a, axes, is_leaf=lambda x: isinstance(x, tuple))
+    params = mod.model.init(cfg, torch.Generator(), "meta")
+    assert _port_leaves(params, got) == _jax_leaves(shapes, axes)
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -198,12 +247,17 @@ def test_fake_run_flops_per_rank(monkeypatch):
 
 
 def _small_cells(monkeypatch):
-    """Every LM shape cut to a few tokens and the LMs to their smoke
-    configs, so ``--all`` runs its whole control flow in seconds."""
+    """Every LM shape cut to a few tokens, every graph shape to a few
+    nodes and edges, and the models to their smoke configs, so ``--all``
+    runs its whole control flow in seconds."""
     monkeypatch.setattr(lm_common, "LM_SHAPES", {
         name: dict(sh, seq=32, batch=16) for name, sh in
         lm_common.LM_SHAPES.items()})
-    for arch in LMS:
+    monkeypatch.setattr(gnn_common, "GNN_SHAPES", {
+        name: dict(sh, n_nodes=sh.get("n_graphs", 2) * 16,
+                   n_edges=sh.get("n_graphs", 2) * 48, d_feat=8)
+        for name, sh in gnn_common.GNN_SHAPES.items()})
+    for arch in LMS + GNNS:
         mod = get_arch(arch)
         small = mod.smoke_config()
         monkeypatch.setattr(mod, "config", lambda small=small: small)
@@ -221,6 +275,9 @@ def test_all_writes_ok_and_skipped(monkeypatch, tmp_path, capsys):
         if r["status"] == "ok":
             assert set(r) >= {"memory", "cost", "collectives",
                               "collective_counts", "roofline"}
+            # The reference gives a cell that is not an LM's no model
+            # flops.
+            assert (r["roofline"]["model_flops"] > 0) == (r["arch"] in LMS)
     assert {k for k, v in status.items() if v == "ok"} == set(CELLS)
     assert all(v == "skipped" for k, v in status.items() if k not in CELLS)
     assert len(status) == sum(len(get_arch(a).SHAPES) for a in
