@@ -34,11 +34,11 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    port on the CPU (zeros and the 0.5 gate equal, atol 4e-3 rtol 1e-5);
    the pipelined plan/execute path in both modes, every query's keys,
    scores and counters equal to the offline pass's, with the planner's
-   seconds under execution; the first 16 queries (ONLINE_QUERIES) as
+   seconds under execution; the first 8 queries (ONLINE_QUERIES) as
    Poisson arrivals through the ``MicroBatcher`` at 0.5x and 0.9x of the
-   offline specqp QPS (p50/p99 from submit to resolution), and all 16 at
+   offline specqp QPS (p50/p99 from submit to resolution), and all 8 at
    once drained by ``close()``, every future's result equal to the
-   offline pass's (the pipelined passes serve the same 16);
+   offline pass's (the pipelined passes serve the same 8);
 5. retrieval at the ``retrieval_cand`` shape of
    ``configs/two_tower_retrieval``: ``topk_score_pruned`` held against its
    plain version on a 1,048,576 x 256 norm-clustered corpus (Cauchy,
@@ -82,20 +82,21 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    time (CUDA-graph replay) beside the per-call time, its bound (live
    slots' features only), the plain version and ``torch.softmax`` +
    ``torch.bmm``; the graph made by
-   ``graph_synth.random_graph`` and 3 forwards through ``gat.apply`` timed
-   with the counters read around them (0 launches: the reference's GAT
-   never calls the kernel); then per layer the kernel driven over every
-   node on the layer's own logits and features in the padded-degree
-   layout, held against its plain version and the layer's segment-op
-   aggregation, and the layer's output against a float64 oracle at 4,096
-   sampled nodes;
+   ``graph_synth.random_graph`` and GNN_FORWARDS forwards through
+   ``gat.apply`` timed with the counters read around them (0 launches:
+   the reference's GAT never calls the kernel); then per layer the kernel
+   driven over every node on the layer's own logits and features in the
+   padded-degree layout, held against its plain version and the layer's
+   segment-op aggregation, and the layer's output against a float64
+   oracle at 4,096 sampled nodes;
 9. the sharded paths (``core/distributed.py``, ``launch/mesh.py``): the
    xkg workload with lists of up to 4 x 8192 items over 80,000 entities,
    hash-sharded by ``distributed.shard_workload`` into 4 partitions of
    about 8192 items (about 0.4 GB each), one a rank of a (2, 2) mesh of 4
    gloo ranks spawned on the one card (NCCL refuses two ranks on one
    device); each rank runs kg-specqp's ``serve_step`` on the 32 queries
-   in specqp and trinit modes, exact and then sketch, with the counters
+   in specqp and trinit modes, exact and then sketch specqp (trinit plans
+   nothing, so a sketch trinit step repeats the exact one), with the counters
    set to 0 just before each and read just after, then the step's plan,
    local rank join and merge apart, each timed. Checked: every rank's
    result equal; exact masks equal to the single-device plans over the
@@ -212,14 +213,18 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    self-loops) the card's gradients against the CPU's (EGNN's finite), 4
    ``TRAIN_CFG`` steps timed and ``smoke()`` on the card;
 15. the dry run (``launch/dryrun.py``, ``sharding.py``, the sharded MoE
-   ``models/moe.py`` ``_Layout``, the GNNs' ``graph.Partition``): (a) the
+   ``models/moe.py`` ``_Layout``, the GNNs' ``graph.Partition``, the KG
+   and retrieval kernels' custom ops, the executor's bounded trip, the
+   vocab-parallel bag): (a) the
    20 LM cells (gemma2-2b, starcoder2-3b, gemma3-27b, granite-moe-3b-a800m
    and deepseek-v3-671b x train_4k, prefill_32k, decode_32k, long_500k; the
    MoE archs' long_500k must come out skipped with their configs'
-   SKIP_SHAPES reasons) and the 16 GNN cells (gat-cora, egnn, nequip and
+   SKIP_SHAPES reasons), the 16 GNN cells (gat-cora, egnn, nequip and
    mace x full_graph_sm, minibatch_lg, ogb_products, molecule; one train
-   step each), every other cell ok, laid over the 16 x 16 production mesh of
-   a fake process group, fake CUDA tensors on this host, one process a
+   step each), kg-specqp's serve_batch and serve_trinit (one executor trip)
+   and the two-tower model's train_batch, serve_p99, serve_bulk and
+   retrieval_cand, every other cell ok, laid over the 16 x 16 production
+   mesh of a fake process group, fake CUDA tensors on this host, one process a
    cell, slowest first, in a thread that a whole run starts after phase 3
    (DRYRUN_JOBS_BESIDE processes at once, beside phases 4-14, at the
    lowest priority; they use the host's cores only) and ``--dryrun-only``
@@ -234,7 +239,11 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    DRYRUN_PEAK_BAND of the measured, and likewise each GNN's
    minibatch_lg cell (169,984 nodes, 168,960 edges, 602 features, at the
    published widths, not cut) beside one ``TRAIN_CFG`` step measured over
-   ``graph_synth.random_graph`` of that shape; (c) gemma2-2b, granite and
+   ``graph_synth.random_graph`` of that shape, and kg-specqp's serve_batch
+   at phase 4's store and queries, the two-tower serve_p99 and
+   retrieval_cand cells and train_batch at phase 10's cut beside their
+   runs in (c) (a measured peak there: the arguments plus what the call
+   allocated); (c) gemma2-2b, granite and
    deepseek's serving cut, each laid by ``sharding.distribute`` onto a
    (1, 1) mesh of a 1-rank NCCL process group, a prefill of 4 x 8192
    through the constrain calls, the attention's custom op and the sharded
@@ -245,7 +254,16 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    gradient leaf within 1e-5 of its largest |value|: the card's
    ``index_add_`` sums by atomics), and a train state saved after one step
    restored onto the mesh, every leaf bit-equal and placed as
-   ``sharding.distribute`` places it;
+   ``sharding.distribute`` places it; then kg-specqp's two cell functions
+   (no trip bound) on phase 4's store and queries, their keys, scores,
+   masks and four counters bit-equal to phase 9's NCCL serve step (n_wasted
+   0), their launches equal to it, each mode's trips printed; the two-tower
+   serve_p99 cell (the full-width model, a random 1,048,576-row corpus) and
+   retrieval_cand cell (phase 5's corpus) bit-equal to the unsharded
+   ``serve`` and ``retrieve``; at phase 10's cut the loss and gradients
+   through the vocab-parallel bag within 1e-5 of the unsharded, then the
+   train_batch cell's step; each with its launches equal to the unsharded
+   path's;
 16. print the kernel table as one JSON line (``launches``: each kernel's
    count on its own path, so 0 for ``neigh_softmax_agg`` on
    ``gat.apply``, phase 10's steps for ``embedding_bag_backward`` and
@@ -255,13 +273,15 @@ Phases, each of which fails loudly (non-zero exit, no result line):
    9's ranks; the two attention rows add phase 12's ``d64_*`` timings and
    ``granite_*`` launches and numbers and phase 13's ``d192_*`` and
    ``deepseek_*``, and ``flash_attention`` phase 15's
-   ``sharded_prefill_launches``), then the result line ``{"ok": true, "device":
-   {...}}`` last.
+   ``sharded_prefill_launches``; rows 1-4b add phase 15 (c)'s
+   ``sharded_cell_launches``), then the result line ``{"ok": true,
+   "device": {...}}`` last.
 
 It exits non-zero without CUDA and when ``src/repro_torch`` is not beside
 it. It imports nothing of JAX. ``--attention-only`` runs phases 1-2 and
 phase 7's ``flash_attention`` checks and timings, then stops without the
 result line; ``--kg-only`` runs phases 1-3 and stops the same way;
+``--kg-path-only`` runs phases 1-4 and stops the same way;
 ``--gather-only`` runs phases 1-2 and the checks and timings of
 ``embedding_bag`` (phase 6's, on one table of the model's shape) and of
 ``neigh_softmax_agg`` (phase 8's, with the NaN check), without the towers
@@ -311,7 +331,7 @@ LANES = 8
 N_QUERIES = 32
 # Phase 4's pipelined, online and drain passes serve the first this many
 # of the N_QUERIES queries.
-ONLINE_QUERIES = 16
+ONLINE_QUERIES = 8
 SEED = 0
 # two-tower serving: the serve_p99 batch, batches timed, corpus build chunk
 SERVE_BATCH = 512
@@ -336,7 +356,7 @@ ATTN_LOGIT_STD = 25.0
 # chunk of the kernel's drive over each layer's own data, and the
 # destination nodes the float64 oracle recomputes per layer
 GNN_SHAPE = "ogb_products"
-GNN_FORWARDS = 3
+GNN_FORWARDS = 2
 GNN_NODE_CHUNK = 65536
 GNN_ORACLE_NODES = 4096
 # neigh_softmax_agg and GAT checks: the reference's bar for the Pallas
@@ -934,7 +954,7 @@ def online_path(np, torch, dev, report, st) -> None:
 
     # --- pipelined plan/execute, both cardinality modes ---
     # The pipelined, online and drain passes serve the first
-    # ONLINE_QUERIES queries (the same checks, half the depth).
+    # ONLINE_QUERIES queries (the same checks, a quarter of the depth).
     qs = queries[:ONLINE_QUERIES]
     pipe = dataclasses.replace(bcfg, pipeline=True)
     for card, cfg, want in (("exact", exact_cfg, served["specqp"]),
@@ -2273,8 +2293,9 @@ SHARD_AXES = ("data", "model")
 SHARD_RANKS = 4
 SHARD_UNCAPPED = 4
 # The KG serve steps of the sharded phase: (cardinality mode, engine mode).
+# TriniT plans nothing: its sketch step would repeat its exact one.
 SHARD_STEPS = (("exact", "specqp"), ("exact", "trinit"),
-               ("sketch", "specqp"), ("sketch", "trinit"))
+               ("sketch", "specqp"))
 STEP_FIELDS = ("keys", "scores", "n_pulled", "n_answers", "n_iters",
                "n_wasted", "relax_mask")
 STORE_FIELDS = ("keys", "scores", "lengths", "sorted_keys", "stats",
@@ -2440,7 +2461,8 @@ def shard_path(np, torch, ops, dev, served=None):
     ranks sharing the card, the same serve step under NCCL at world size 1
     over phase 4's store, and sharded retrieval over phase 5's corpus.
     ``served``: phase 4's offline results, held against the NCCL run too.
-    Returns each kernel's launches on the sharded paths."""
+    Returns (each kernel's launches on the sharded paths, the NCCL runs by
+    mode: their merged results and launches)."""
     import tempfile
     from repro_torch.configs import kg_specqp
     from repro_torch.configs import two_tower_retrieval as tt
@@ -2636,7 +2658,6 @@ def shard_path(np, torch, ops, dev, served=None):
     t3 = time.perf_counter()
     one = meshlib.spawn(nccl_rank, (1, 1), SHARD_AXES, backend="nccl",
                         device="cuda")[0]
-    nccl_launches = {}
     for mode, run in one.items():
         m, b = run["merged"], run["batch"]
         same = (np.array_equal(m["keys"], b["keys"])
@@ -2657,7 +2678,6 @@ def shard_path(np, torch, ops, dev, served=None):
         if not (run["launches"]["rank_join_lookup"] > 0
                 and run["launches"]["merge_topk"] > 0):
             fail(f"NCCL world-1 {mode}: a KG kernel was never launched")
-        nccl_launches[mode] = run["launches"]
         print(f"NCCL world-1 {mode}: {N_QUERIES / run['wall']:.2f} QPS "
               f"({run['wall']:.3f} s a batch) | equal to run_query_batch"
               + (" and to phase 4's offline pass" if served is not None
@@ -2665,7 +2685,7 @@ def shard_path(np, torch, ops, dev, served=None):
               f" + {run['launches']['merge_topk']}")
     print(f"NCCL world-1 run took {time.perf_counter() - t3:.1f} s")
     print(f"sharded path launches (summed over ranks): {launches}")
-    return launches, nccl_launches
+    return launches, one
 
 
 # Phase 10: training. Two-tower at the published widths with two cuts
@@ -4992,8 +5012,9 @@ DRYRUN_JOBS = 6               # cells dry-run at once (one process each)
 # once, so that phase 15 need not wait for it. Its processes run at the
 # lowest priority (``nice`` DRYRUN_NICE): the host-bound card phases
 # beside them (phase 4's KG trips, phase 9's four gloo ranks) keep the
-# cores they need, and the dry run takes what is left.
-DRYRUN_JOBS_BESIDE = 3
+# cores they need, and the dry run takes what is left. Three at once took
+# 976.7 s for the 42 cells on a slow host, past the card's phases.
+DRYRUN_JOBS_BESIDE = 5
 DRYRUN_NICE = 19
 # The cells of phase 15 (a), slowest first: each must come out as listed
 # ("skipped" with its config's SKIP_SHAPES reason). The GNN cells take
@@ -5014,6 +5035,10 @@ DRYRUN_CELLS = ([("deepseek-v3-671b", "train_4k"),
                 + [(a, s) for a in ("egnn", "gat-cora")
                    for s in ("ogb_products", "minibatch_lg", "full_graph_sm",
                              "molecule")]
+                + [("two-tower-retrieval", s) for s in
+                   ("train_batch", "serve_bulk", "serve_p99",
+                    "retrieval_cand")]
+                + [("kg-specqp", s) for s in ("serve_batch", "serve_trinit")]
                 + [(a, "long_500k") for a in DRYRUN_MOE])
 DRYRUN_CELL_S = 900           # a cell's process is killed after this
 # Phase 15 (b)'s bar: predicted peak within [1/2, 2] x the measured one.
@@ -5385,7 +5410,8 @@ def dryrun_predicted(cuts) -> dict:
     return out
 
 
-def dryrun_sharded_prefill(np, torch, ops, dev, graphs=None) -> dict:
+def dryrun_sharded_prefill(np, torch, ops, dev, graphs=None,
+                           cells=None) -> dict:
     """Phase 15 (c): a 1-rank NCCL process group and (1, 1) mesh; gemma2-2b
     and granite-moe-3b-a800m at their published widths and deepseek's
     serving cut, each laid onto it by ``sharding.distribute`` and a prefill
@@ -5393,7 +5419,10 @@ def dryrun_sharded_prefill(np, torch, ops, dev, graphs=None) -> dict:
     custom op and the MoE's sharded dispatch (``moe._Layout``); logits and
     caches bit-equal to the unsharded model's, its ``flash_attention``
     launches one a layer. Then, with ``graphs``, the GNNs' sharded steps
-    and restores (``gnn_sharded_steps``). Returns {arch: launches}."""
+    and restores (``gnn_sharded_steps``); with ``cells`` (phase 4's
+    workload, the (b) predictions, phase 9's NCCL runs or None), the
+    kg-specqp and two-tower cells (``sharded_kg_cells``,
+    ``sharded_two_tower``). Returns {arch: launches}."""
     import socket
 
     import torch.distributed as dist
@@ -5464,29 +5493,425 @@ def dryrun_sharded_prefill(np, torch, ops, dev, graphs=None) -> dict:
                   f"launches; {time.perf_counter() - t0:.1f} s")
         if graphs is not None:
             gnn_sharded_steps(np, torch, dev, mesh, graphs)
+        if cells is not None:
+            wl, predicted, phase9 = cells
+            out["kg-specqp"] = sharded_kg_cells(np, torch, ops, dev, mesh,
+                                                wl, predicted, phase9)
+            out["two-tower-retrieval"] = sharded_two_tower(
+                np, torch, ops, dev, mesh, predicted)
     finally:
         dist.destroy_process_group()
     return out
 
 
-def dryrun_path(np, torch, ops, dev, cells=None) -> dict:
-    """Phase 15: the dry run (``launch/dryrun.py``). (a) The LM and GNN
-    cells on the 16 x 16 production mesh of H100s (the dense, granite's and
+# Phase 15 (b) and (c) for kg-specqp's and the two-tower model's cells. The
+# kg cells run phase 4's store and queries (their dry run is given that
+# geometry), the two-tower cells the full-width serving model, phase 5's
+# corpus and phase 10's training cut. A measured peak there is the
+# arguments' bytes plus what the call allocated beyond what was live before
+# it, so that what else is on the card does not count.
+KG_CELLS = {"specqp": "serve_batch", "trinit": "serve_trinit"}
+
+
+@contextlib.contextmanager
+def patched(obj, **values):
+    """``obj``'s attributes set to ``values`` while open."""
+    old = {k: getattr(obj, k) for k in values}
+    for k, v in values.items():
+        setattr(obj, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(obj, k, v)
+
+
+def train_cut(tt):
+    """Phase 10's training cut of the two-tower config and cells."""
+    cut = dataclasses.replace(tt.config(), user_vocab=TRAIN_VOCAB,
+                              item_vocab=TRAIN_VOCAB)
+    return cut, dict(config=lambda: cut,
+                     CELL_BATCH=dict(tt.CELL_BATCH, train_batch=TRAIN_BATCH))
+
+
+def new_cells_predicted(np, wl) -> dict:
+    """Phase 15 (b)'s predictions for kg-specqp's serve_batch at phase 4's
+    store and queries, and the two-tower serve_p99 and retrieval_cand cells
+    and train_batch at phase 10's cut: the dry run on a (1, 1) mesh of a
+    fake process group of one rank."""
+    from repro_torch.configs import kg_specqp
+    from repro_torch.configs import two_tower_retrieval as tt
+    from repro_torch.core import sketches
+    from repro_torch.launch import dryrun, mesh as mesh_lib
+
+    (Q, T), (P, L) = np.asarray(wl.queries).shape, wl.store.keys.shape
+    if sketches.adaptive_words(L) != wl.store.sketch.shape[-1]:
+        fail(f"phase 4's store has {wl.store.sketch.shape[-1]} sketch words "
+             f"a lane, its dry run {sketches.adaptive_words(L)}")
+    geometry = dict(N_PATTERNS=P, L_SHARD=L, N_RELAX=wl.relax.ids.shape[1],
+                    N_QUERIES=Q, T_MAX=T)
+    cells = [("kg-specqp serve_batch", kg_specqp, "serve_batch", geometry),
+             ("two-tower serve_p99", tt, "serve_p99", {}),
+             ("two-tower retrieval_cand", tt, "retrieval_cand", {}),
+             ("two-tower train_batch cut", tt, "train_batch",
+              train_cut(tt)[1])]
+    t0, out = time.perf_counter(), {}
+    with dryrun.fake_world(1):
+        mesh = mesh_lib.make_device_mesh((1, 1))
+        for name, mod, shape, values in cells:
+            with patched(mod, **values):
+                out[name] = dryrun.run_cell(
+                    mod.ARCH, shape, mesh,
+                    str(ROOT / "results" / "dryrun_torch_card_cuts"))
+            if out[name]["status"] != "ok":
+                fail(f"dry run of the {name} cell failed: "
+                     f"{out[name].get('traceback')}")
+    print(f"phase 15 (b): the (1, 1) kg-specqp and two-tower dry runs took "
+          f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def unit_mesh_args(args, axes, mesh) -> list:
+    """A cell's arguments laid on a (1, 1) mesh by their axes
+    (``on_unit_mesh`` of each)."""
+    return [on_unit_mesh(a, ax, mesh) for a, ax in zip(args, axes)]
+
+
+def on_unit_mesh(tree, axes, mesh):
+    """``tree`` laid on a (1, 1) mesh by ``axes``: each leaf a DTensor of
+    its placements whose one shard is the leaf itself, no copy
+    (``sharding.distribute`` copies: 41 GB of tables)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch import sharding
+
+    with sharding.use_rules(mesh):
+        return sharding.tree_map_axes(
+            lambda ax, t: DTensor.from_local(
+                t.detach(), mesh, sharding.sharding(*ax, shape=tuple(t.shape)),
+                run_check=False), axes, tree)
+
+
+def arg_bytes(args) -> int:
+    """Bytes of the storages under ``args`` (each counted once)."""
+    from torch.distributed.tensor import DTensor
+
+    seen, leaves = {}, []
+
+    def walk(x):
+        if isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+        elif hasattr(x, "untyped_storage"):
+            leaves.append(x.to_local() if isinstance(x, DTensor) else x)
+
+    walk(args)
+    for t in leaves:
+        st = t.untyped_storage()
+        seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def measured_call(torch, dev, fn, *args):
+    """(fn(*args), seconds, peak bytes), the card synchronised around the
+    call; the peak is the arguments' bytes plus what the call allocated
+    beyond what was live before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t,
+            torch.cuda.max_memory_allocated(dev) - base + arg_bytes(args))
+
+
+def peak_line(name: str, predicted: dict, secs: float, peak: int) -> None:
+    """Phase 15 (b)'s line of one cell: predicted peak against measured,
+    held to DRYRUN_PEAK_BAND, beside the roofline bound and the time."""
+    lo, hi = DRYRUN_PEAK_BAND
+    want = predicted["memory"]["peak_bytes"]
+    ratio = want / peak
+    rl = predicted["roofline"]
+    print(f"phase 15 (b) {name}: predicted peak {want / 1e9:.3f} GB "
+          f"(arguments {predicted['memory']['argument_bytes'] / 1e9:.3f}), "
+          f"measured {peak / 1e9:.3f} GB (ratio {ratio:.3f}); roofline bound "
+          f"{rl['compute_s']:.4f} / {rl['memory_s']:.4f} s (compute / memory: "
+          f"{rl['dominant']}), measured {secs:.4f} s")
+    if not lo <= ratio <= hi:
+        fail(f"phase 15 (b): the {name} cell's predicted peak is {ratio:.3f} "
+             f"x the measured one, outside {lo}-{hi}")
+
+
+def sharded_kg_cells(np, torch, ops, dev, mesh, wl, predicted,
+                     phase9=None) -> dict:
+    """Phase 15 (c) for kg-specqp, on the caller's 1-rank NCCL (1, 1) mesh:
+    each cell's function (``make_cell``'s, no trip bound) on phase 4's
+    store and queries laid on the mesh, its keys, scores, masks and the four
+    counters bit-equal to phase 9's NCCL serve step (``phase9``; without
+    it the same serve step run here over the mesh's group), n_wasted 0, and
+    its launches equal to that step's; the trips of each mode printed, and
+    serve_batch's peak held against its (1, 1) dry run. Returns each
+    mode's launches."""
+    from repro_torch import sharding
+    from repro_torch.configs import kg_specqp
+    from repro_torch.launch.mesh import Mesh
+
+    kernels = ("rank_join_lookup", "merge_topk")
+    queries = torch.as_tensor(np.asarray(wl.queries), dtype=torch.int32,
+                              device=dev)
+    if phase9 is None:
+        phase9 = {}
+        for mode in KG_CELLS:
+            step = kg_specqp.serve_step(Mesh.from_device_mesh(mesh, dev), mode)
+            ops.reset_launches()
+            res = step(wl.store, wl.relax, wl.store.stats, queries)
+            torch.cuda.synchronize()
+            phase9[mode] = dict(merged=on_host(res), launches=ops.launches())
+    data = ({f: getattr(wl.store, f)[None] for f in STORE_FIELDS},
+            {"ids": wl.relax.ids, "weights": wl.relax.weights},
+            wl.store.stats, queries)
+    out = {}
+    for mode, shape in KG_CELLS.items():
+        with sharding.use_rules(mesh):
+            cell = kg_specqp.make_cell(shape)
+        args = unit_mesh_args(data, cell.arg_axes, mesh)
+        ops.reset_launches()
+        res, secs, peak = measured_call(torch, dev, cell.fn, *args)
+        got = {k: ops.launches()[k] for k in kernels}
+        res = {f: res[f].cpu().numpy() for f in STEP_FIELDS}
+        want = phase9[mode]
+        if not all(np.array_equal(res[f], want["merged"][f])
+                   for f in STEP_FIELDS) or res["n_wasted"].any():
+            fail(f"phase 15 (c): the kg-specqp {shape} cell's function "
+                 "differs from phase 9's NCCL serve step")
+        if got != {k: want["launches"][k] for k in kernels}:
+            fail(f"phase 15 (c): the kg-specqp {shape} cell launched {got}, "
+                 f"phase 9's serve step {want['launches']}")
+        trips = int(res["n_iters"].max())
+        out[mode] = got
+        print(f"phase 15 (c): kg-specqp {shape} ({mode}) through its cell "
+              f"function on a (1, 1) NCCL mesh: keys, scores, masks and the "
+              f"four counters bit-equal to phase 9's NCCL serve step "
+              f"(n_wasted 0); {trips} trips in {secs:.3f} s "
+              f"({secs / trips * 1e3:.3f} ms a trip: the dry run counts one); "
+              f"launches {got}, equal to the serve step's")
+        if shape == "serve_batch":
+            peak_line("kg-specqp serve_batch", predicted[
+                "kg-specqp serve_batch"], secs, peak)
+    return out
+
+
+def released(torch, dev, label: str) -> None:
+    """Collect what the last part dropped, return the cache, and print what
+    is still allocated (a part that leaves its tensors behind shows)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 15 (c): {torch.cuda.memory_allocated(dev) / 1e9:.3f} GB "
+          f"allocated {label}")
+
+
+def sharded_two_tower(np, torch, ops, dev, mesh, predicted) -> dict:
+    """Phase 15 (c) for the two-tower cells, on the caller's 1-rank NCCL
+    (1, 1) mesh, each with its launches equal to the unsharded path's and
+    its peak held against its (1, 1) dry run: at phase 10's cut the loss
+    and gradients through the vocab-parallel bag within the sharding bar
+    (GNN_LOSS_RTOL, GNN_GRAD_TOL) of the unsharded, then the train_batch
+    cell's step; serve_p99's function (the full-width model, a random
+    corpus) and retrieval_cand's (phase 5's corpus) bit-equal to the
+    unsharded ``serve`` and ``retrieve``. The largest first: a part's
+    tensors are gone before the next starts. Returns the cells'
+    launches."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch import sharding
+    from repro_torch.configs import two_tower_retrieval as tt
+
+    def cell_of(shape, **values):
+        with sharding.use_rules(mesh), patched(tt, **values):
+            return tt.make_cell(shape)
+
+    def counted(fn, *args):
+        ops.reset_launches()
+        with implicit_replication():
+            out = measured_call(torch, dev, fn, *args)
+        return out, ops.launches()
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    released(torch, dev, "before the two-tower cells")
+    out = {"train_batch": two_tower_train(torch, dev, mesh, predicted,
+                                          cell_of, counted)}
+    released(torch, dev, "after the train_batch cell")
+    out["serve_p99"] = two_tower_serve(torch, dev, mesh, predicted, cell_of,
+                                       counted, gen)
+    released(torch, dev, "after the serve_p99 cell")
+    out["retrieval_cand"] = two_tower_retrieve(np, torch, dev, mesh,
+                                               predicted, cell_of, counted,
+                                               gen)
+    released(torch, dev, "after the retrieval_cand cell")
+    return out
+
+
+def two_tower_train(torch, dev, mesh, predicted, cell_of, counted):
+    """``sharded_two_tower``'s train_batch part at phase 10's cut."""
+    from functools import partial
+
+    from repro_torch.configs import two_tower_retrieval as tt
+    from repro_torch.examples import train_retrieval
+    from repro_torch.models import recsys
+    from repro_torch.train import loop, tree
+
+    cut, values = train_cut(tt)
+    bags = ("embedding_bag", "embedding_bag_backward")
+    model = recsys.init(cut, seed=SEED, device=dev)
+    params = recsys.param_tree(model)
+    batch = train_retrieval.make_batch(cut, TRAIN_BATCH, 0, dev)
+    loss_fn = partial(tt._loss, cfg=cut)
+    (want, _, _), want_l = counted(loop.value_and_grad, loss_fn, params,
+                                   batch)
+    # The unsharded gradients wait on the host (two 10 M x 256 tables'):
+    # the card holds the parameters and one set of gradients at a time.
+    want_loss = float(want[0])
+    want = [(name, w.cpu()) for name, w in tree.flatten(want[2])]
+    torch.cuda.empty_cache()
+    cell = cell_of("train_batch", **values)
+    dparams = on_unit_mesh(params, recsys.param_axes(cut), mesh)
+    for p in tree.leaves(dparams):
+        p.requires_grad_(True)
+    dbatch = on_unit_mesh(batch, cell.arg_axes[1], mesh)
+    (got, _, _), got_l = counted(loop.value_and_grad, loss_fn, dparams,
+                                 dbatch)
+    loss_gap = abs(float(got[0].to_local()) - want_loss) / abs(want_loss)
+    worst = 0.0
+    for (name, w), g in zip(want, tree.leaves(got[2]), strict=True):
+        w = w.to(dev)                  # then turned into |w - g| in place
+        lo, hi = torch.aminmax(w)
+        scale = max(-float(lo), float(hi))
+        gap = float(w.sub_(g.to_local()).abs_().max())
+        worst = max(worst, gap / scale if scale else gap)
+        if gap > GNN_GRAD_TOL * scale:
+            fail(f"phase 15 (c): the two-tower gradient {name} lies "
+                 f"{gap:.3e} from the unsharded, over {GNN_GRAD_TOL} x its "
+                 f"largest {scale:.3e}")
+    if not loss_gap <= GNN_LOSS_RTOL:
+        fail(f"phase 15 (c): the two-tower sharded loss lies {loss_gap:.3e} "
+             "(relative) from the unsharded")
+    if got_l != want_l:
+        fail(f"phase 15 (c): the sharded two-tower gradients launched "
+             f"{got_l}, the unsharded {want_l}")
+    print(f"phase 15 (c): the two-tower loss and gradients at phase 10's cut "
+          f"on a (1, 1) NCCL mesh (vocab-parallel bag, its backward on the "
+          f"local rows): loss {want_loss:.6f}, {loss_gap:.3e} "
+          f"(relative) from the unsharded; worst gradient leaf {worst:.3e} "
+          f"of its largest |value| (bar {GNN_GRAD_TOL}); launches "
+          f"{ {k: got_l[k] for k in bags} }, as unsharded")
+    del got, want, dparams, w, g
+    torch.cuda.empty_cache()
+    state = on_unit_mesh(loop.make_train_state(params, tt.TRAIN_CFG),
+                         cell.arg_axes[0], mesh)
+    for p in tree.leaves(state["params"]):
+        p.requires_grad_(True)
+    counted(cell.fn, state, dbatch)                  # warm-up
+    ((_, metrics), secs, peak), got_l = counted(cell.fn, state, dbatch)
+    launches = {k: got_l[k] for k in bags}
+    loss = metrics["loss"]
+    print(f"phase 15 (c): the train_batch cell's step at the cut: loss "
+          f"{float(getattr(loss, 'to_local', lambda: loss)()):.6f}, launches "
+          f"{launches}")
+    peak_line("two-tower train_batch cut",
+              predicted["two-tower train_batch cut"], secs, peak)
+    return launches
+
+
+def two_tower_serve(torch, dev, mesh, predicted, cell_of, counted, gen):
+    """``sharded_two_tower``'s serve_p99 part: the full-width model."""
+    from repro_torch.configs import two_tower_retrieval as tt
+    from repro_torch.examples import train_retrieval
+    from repro_torch.models import recsys
+
+    cfg = tt.config()
+    model = recsys.init(cfg, seed=SEED, device=dev)
+    corpus = torch.randn((tt.CORPUS, cfg.embed_dim), generator=gen,
+                         device=dev)
+    batch = train_retrieval.make_batch(cfg, tt.CELL_BATCH["serve_p99"], 0,
+                                       dev)
+    (want, _, _), want_l = counted(tt.serve, model, batch, corpus)
+    cell = cell_of("serve_p99")
+    args = unit_mesh_args((recsys.param_tree(model), batch, corpus),
+                          cell.arg_axes, mesh)
+    ((s, i), secs, peak), got_l = counted(cell.fn, *args)
+    if not (torch.equal(s.to_local(), want[0])
+            and torch.equal(i.to_local(), want[1])):
+        fail("phase 15 (c): the two-tower serve_p99 cell differs from the "
+             "unsharded serve")
+    if got_l != want_l:
+        fail(f"phase 15 (c): serve_p99 launched {got_l}, serve {want_l}")
+    print(f"phase 15 (c): the two-tower serve_p99 cell on a (1, 1) NCCL mesh "
+          f"(vocab-parallel bag, the corpus's blocks laid out as the "
+          f"reference's): top-{tt.TOPK} of {s.shape[0]} users bit-equal to "
+          f"the unsharded serve; {got_l['embedding_bag']} embedding_bag "
+          "launch, as unsharded")
+    peak_line("two-tower serve_p99", predicted["two-tower serve_p99"], secs,
+              peak)
+    return got_l["embedding_bag"]
+
+
+def two_tower_retrieve(np, torch, dev, mesh, predicted, cell_of, counted,
+                       gen):
+    """``sharded_two_tower``'s retrieval_cand part: phase 5's corpus."""
+    from repro_torch.configs import two_tower_retrieval as tt
+
+    cfg = tt.config()
+    cand = clustered_corpus(np, torch, dev, gen, cfg)
+    q = torch.randn((cfg.embed_dim,), generator=gen, device=dev)
+    (want, _, _), want_l = counted(tt.retrieve, q, cand, tt.TOPK, tt.TILE)
+    cell = cell_of("retrieval_cand")
+    args = unit_mesh_args((q, cand), cell.arg_axes, mesh)
+    (got, secs, peak), got_l = counted(cell.fn, *args)
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        fail("phase 15 (c): the retrieval_cand cell differs from the "
+             "unsharded retrieve")
+    if got_l != want_l:
+        fail(f"phase 15 (c): retrieval_cand launched {got_l}, retrieve "
+             f"{want_l}")
+    print(f"phase 15 (c): the retrieval_cand cell on a (1, 1) NCCL mesh: "
+          f"scores, ids and tiles scored ({int(got[2])}) bit-equal to the "
+          f"unsharded retrieve; {got_l['topk_score_pruned']} "
+          "topk_score_pruned launch, as unsharded")
+    peak_line("two-tower retrieval_cand",
+              predicted["two-tower retrieval_cand"], secs, peak)
+    return got_l["topk_score_pruned"]
+
+
+def dryrun_path(np, torch, ops, dev, cells=None, kg=None) -> dict:
+    """Phase 15: the dry run (``launch/dryrun.py``). (a) Every cell on the
+    16 x 16 production mesh of H100s (the dense LMs', granite's and
     deepseek's, their long_500k skipped; gat-cora's, EGNN's, NequIP's and
-    MACE's), fake CUDA tensors on this card's host, each cell's status,
-    argument and peak GB a card, flops, collective bytes and roofline terms
-    printed; (b) the dry run of phases 7's, 11's, 12's and 13's cuts and of
-    each GNN's minibatch_lg step on a (1, 1) mesh beside their measured
-    peaks and times, each peak held to DRYRUN_PEAK_BAND; (c) the sharded
-    prefills, the GNNs' sharded steps and the sharded restore on a 1-rank
-    NCCL mesh. ``cells``: (a) already started (a whole run starts it after
-    phase 3). Returns {"launches"}: gemma2-2b's in (c)."""
+    MACE's; kg-specqp's and the two-tower model's), fake CUDA tensors on
+    this card's host, each cell's status, argument and peak GB a card,
+    flops, collective bytes and roofline terms printed; (b) the dry run of
+    phases 7's, 11's, 12's and 13's cuts, of each GNN's minibatch_lg step,
+    of kg-specqp's serve_batch at phase 4's store and of the two-tower
+    serve_p99, retrieval_cand and (at phase 10's cut) train_batch cells on
+    a (1, 1) mesh beside their measured peaks and times, each peak held to
+    DRYRUN_PEAK_BAND; (c) the sharded prefills, the GNNs' sharded steps and
+    the sharded restore, the kg-specqp cells and the two-tower cells on a
+    1-rank NCCL mesh. ``cells``: (a) already started (a whole run starts it
+    after phase 3). ``kg``: (phase 4's workload, phase 9's NCCL runs), or
+    None to build the workload here and run the serve step alone. Returns
+    {"launches": gemma2-2b's in (c), "cells": the kg-specqp and two-tower
+    cells' launches in (c)}."""
     t0 = time.perf_counter()
     if cells is None:
         cells = DryrunCells(DRYRUN_CELLS, ROOT / "results" / "dryrun_torch")
         cells.start()
     try:
-        launches = dryrun_card(np, torch, ops, dev)
+        launches = dryrun_card(np, torch, ops, dev, kg)
         cells.join()
     finally:
         cells.stop()
@@ -5512,12 +5937,31 @@ def dryrun_path(np, torch, ops, dev, cells=None) -> dict:
           f"{time.perf_counter() - cells.t0:.1f} s, {cells.jobs} at a time, "
           "beside the card's work")
     print(f"phase 15 took {time.perf_counter() - t0:.1f} s")
-    return {"launches": launches["gemma2-2b"]}
+    return {"launches": launches["gemma2-2b"],
+            "cells": {a: launches[a] for a in ("kg-specqp",
+                                               "two-tower-retrieval")}}
 
 
-def dryrun_card(np, torch, ops, dev) -> dict:
-    """Phase 15 (b) and (c), the parts that use the card. Returns (c)'s
-    launches by arch."""
+def kg_workload(torch, dev):
+    """Phase 4's kg-specqp workload, built on the card."""
+    from repro_torch.configs import kg_specqp
+    from repro_torch.data import kg_synth
+
+    t0 = time.perf_counter()
+    wl = kg_synth.make_workload("xkg", list_len=kg_specqp.L_SHARD,
+                                n_queries=N_QUERIES,
+                                n_relax=kg_specqp.N_RELAX, seed=SEED,
+                                device=dev)
+    torch.cuda.synchronize()
+    print(f"phase 15: phase 4's workload built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return wl
+
+
+def dryrun_card(np, torch, ops, dev, kg=None) -> dict:
+    """Phase 15 (b) and (c), the parts that use the card (``kg`` as
+    ``dryrun_path`` takes it). Returns (c)'s launches by arch."""
+    wl, phase9 = kg if kg is not None else (kg_workload(torch, dev), None)
     t1 = time.perf_counter()
     cuts = dryrun_cuts()
     predicted = dryrun_predicted(cuts)
@@ -5537,13 +5981,15 @@ def dryrun_card(np, torch, ops, dev) -> dict:
         if not lo <= ratio <= hi:
             fail(f"phase 15 (b): the {name} cut's predicted peak is "
                  f"{ratio:.3f} x the measured one, outside {lo}-{hi}")
+    predicted_cells = new_cells_predicted(np, wl)
     t2 = time.perf_counter()
     graphs = gnn_step_graphs(torch)
     print(f"phase 15: the {GNN_STEP_SHAPE} graphs drawn on the host in "
           f"{time.perf_counter() - t2:.1f} s")
     dryrun_gnn_card(np, torch, dev, graphs)
     print(f"phase 15 (b) took {time.perf_counter() - t1:.1f} s")
-    return dryrun_sharded_prefill(np, torch, ops, dev, graphs)
+    return dryrun_sharded_prefill(np, torch, ops, dev, graphs,
+                                  (wl, predicted_cells, phase9))
 
 
 def main() -> None:
@@ -5678,7 +6124,8 @@ def main() -> None:
         # Phases 1-2 and phase 9 alone: the sharded paths.
         launches, nccl = shard_path(np, torch, ops, dev)
         print(json.dumps({"sharded_launches": launches,
-                          "nccl_world1_launches": nccl}))
+                          "nccl_world1_launches": {
+                              m: r["launches"] for m, r in nccl.items()}}))
         print(f"chip_smoke --shard-only took "
               f"{time.perf_counter() - T_START:.1f} s")
         return
@@ -5688,6 +6135,21 @@ def main() -> None:
         # Phases 1-3 alone: a quick run while the KG kernels change.
         print(json.dumps(list(rows.values())))
         print(f"chip_smoke --kg-only took "
+              f"{time.perf_counter() - T_START:.1f} s")
+        return
+    if "--kg-path-only" in sys.argv[1:]:
+        # Phases 1-4 alone: the KG kernels' checks and timings, then the KG
+        # path's passes, each timed (its host-bound trips show what each
+        # kernel call costs the host).
+        launches, report, state = main_path(np, torch, dev)
+        t4 = time.perf_counter()
+        online_path(np, torch, dev, report, state)
+        print(f"phase 4's sketch, pipelined and online passes took "
+              f"{time.perf_counter() - t4:.1f} s")
+        print(json.dumps({"launches": launches, "report": {
+            m: {k: v for k, v in r.items() if k != "plan_groups_s"}
+            for m, r in report.items()}}))
+        print(f"chip_smoke --kg-path-only took "
               f"{time.perf_counter() - T_START:.1f} s")
         return
     cells = DryrunCells(DRYRUN_CELLS, ROOT / "results" / "dryrun_torch",
@@ -5711,7 +6173,7 @@ def main() -> None:
         rows[row["name"]] = row
         torch.cuda.empty_cache()
         print(f"{path.__name__} done at {time.perf_counter() - t0:.1f} s")
-    sharded, _ = shard_path(np, torch, ops, dev, state["served"])
+    sharded, nccl = shard_path(np, torch, ops, dev, state["served"])
     print(f"shard_path done at {time.perf_counter() - t0:.1f} s")
     for name, n in sharded.items():
         rows[name]["sharded_launches"] = n
@@ -5741,8 +6203,16 @@ def main() -> None:
     e3gnn_path(np, torch, ops, dev, kept.pop("graph"), prof)
     print(f"e3gnn_path done at {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
-    dry = dryrun_path(np, torch, ops, dev, cells)
+    dry = dryrun_path(np, torch, ops, dev, cells, (state["wl"], nccl))
     rows["flash_attention"]["sharded_prefill_launches"] = dry["launches"]
+    kg, tt = dry["cells"]["kg-specqp"], dry["cells"]["two-tower-retrieval"]
+    for name in ("rank_join_lookup", "merge_topk"):
+        rows[name]["sharded_cell_launches"] = sum(m[name] for m in kg.values())
+    rows["topk_score_pruned"]["sharded_cell_launches"] = tt["retrieval_cand"]
+    rows["embedding_bag"]["sharded_cell_launches"] = (
+        tt["serve_p99"] + tt["train_batch"]["embedding_bag"])
+    rows["embedding_bag_backward"]["sharded_cell_launches"] = \
+        tt["train_batch"]["embedding_bag_backward"]
     print(f"dryrun_path done at {time.perf_counter() - t0:.1f} s")
     kernels = [rows[n] for n in ("rank_join_lookup", "merge_topk",
                                  "topk_score_pruned", "embedding_bag",

@@ -165,18 +165,19 @@ def _plan(store: TripleStore, relax: RelaxTable, global_stats: torch.Tensor,
 
 def _shard_body(store: TripleStore, relax: RelaxTable,
                 global_stats: torch.Tensor, pids: torch.Tensor,
-                cfg: EngineConfig, mode: str, mesh,
-                axes) -> EngineResult:
+                cfg: EngineConfig, mode: str, mesh, axes,
+                trips: int | None = None) -> EngineResult:
     """Plan globally, execute locally, merge: a (Q, T) batch on this rank's
     shard → the merged ``EngineResult``, equal on every rank, with a
-    leading (Q,) axis."""
+    leading (Q,) axis. ``trips``: the executor's bounded trip count
+    (``engine._execute_refill``), None to run every query to its end."""
     if mode not in engine.MODES:
         raise ValueError(mode)
     mask = _plan(store, relax, global_stats, pids, cfg, mode, mesh, axes)
     # The local rank join: the batch as one fixed-batch queue (one lane a
     # query) through the one executor.
     local = engine.run_query_batch_with_masks(store, relax, pids, mask, cfg,
-                                              device=mesh.device)
+                                              device=mesh.device, trips=trips)
     scores, keys = mesh.merge_top_k(local.scores, local.keys, cfg.k, axes)
     n_pulled, n_answers, n_iters = local.n_pulled, local.n_answers, \
         local.n_iters
@@ -218,20 +219,22 @@ def run_query_sharded(skg: ShardedKG, pattern_ids, cfg: EngineConfig,
 
 
 def make_batched_sharded_fn(cfg: EngineConfig, mode: str, mesh,
-                            shard_axes=None):
+                            shard_axes=None, trips: int | None = None):
     """Build fn(store, relax, gstats, queries (B, T)) → EngineResult batch.
 
     The production serve step: every rank runs the planner and executor
     on its KG partition for the whole query batch, then the per-axis
     gather/top-k tree merges results. ``store`` is this rank's shard on
     the mesh's device (``local_shard``); ``relax``, ``gstats`` and
-    ``queries`` are replicated.
+    ``queries`` are replicated. ``trips``: the executor's bounded trip
+    count (the dry run's 1), None to run every query to its end.
     """
     axes = _shard_axes(mesh, shard_axes)
 
     def fn(store: TripleStore, relax: RelaxTable, gstats, queries):
         relax, gstats, pids = _replicated(relax, gstats, queries,
                                           mesh.device)
-        return _shard_body(store, relax, gstats, pids, cfg, mode, mesh, axes)
+        return _shard_body(store, relax, gstats, pids, cfg, mode, mesh, axes,
+                           trips)
 
     return fn

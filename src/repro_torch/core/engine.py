@@ -185,9 +185,21 @@ def _step(streams: ops.MergedStreams, st: _LoopState, cfg: EngineConfig,
     return top_keys, top_scores, n_taken, cand_ok.sum(-1), done
 
 
+def _reset_where(st: _LoopState, mask: torch.Tensor,
+                 init: _LoopState) -> None:
+    """``_reset_lanes`` of the lanes where ``mask`` (Q,) holds, to
+    ``init``'s (``_init_state``'s) values, by selects: no value is read
+    back to the host."""
+    for f in dataclasses.fields(st):
+        x = getattr(st, f.name)
+        where = mask.view(-1, *(1,) * (x.dim() - 1))
+        setattr(st, f.name, torch.where(where, getattr(init, f.name), x))
+
+
 def _execute_refill(store: TripleStore, relax: RelaxTable,
                     queue_pids: torch.Tensor, queue_masks: torch.Tensor,
-                    cfg: EngineConfig, lanes: int) -> dict:
+                    cfg: EngineConfig, lanes: int,
+                    trips: int | None = None) -> dict:
     """The one executor: a continuous-refill lane loop.
 
     ``lanes`` lanes step in lockstep over an (M, T) queue. When a lane's
@@ -198,6 +210,15 @@ def _execute_refill(store: TripleStore, relax: RelaxTable,
     ``out_wasted`` counts the trips a lane sat idle after finishing,
     attributed to the last query it served. Output buffers have M + 1 rows:
     row M takes the writes of lanes with nothing to write and is dropped.
+
+    ``trips=None`` runs trips until every lane is done, reading one small
+    tensor back a trip. A number runs exactly that many trips and reads
+    nothing back (the dry run's fake shards hold no values): each trip
+    steps, emits, and refills every lane by selects, the streams of all
+    ``lanes`` lanes gathered (``admit``) whether a lane finished or not.
+    That is what the reference's traced ``while_loop`` costs a trip: its
+    body, and the costlier branch of its refill ``lax.cond``. Its results
+    equal the loop's where the count is the loop's own.
     """
     if lanes < 1:
         raise ValueError(f"lanes must be >= 1, got {lanes}")
@@ -230,8 +251,9 @@ def _execute_refill(store: TripleStore, relax: RelaxTable,
            for f in ("n_pulled", "n_answers", "n_iters", "n_wasted")})
     ones = torch.ones((Q,), dtype=torch.int64, device=dev)
 
-    trips, go = 0, M > 0
-    while go and trips < trips_cap:
+    def trip(next_idx):
+        """Step every lane, emit the lanes that finish, and return (the
+        queue index each lane would take, whether it refills)."""
         live = ~st.done
         top_keys, top_scores, n_taken, n_cand, done = _step(streams, st,
                                                             cfg, N)
@@ -259,7 +281,25 @@ def _execute_refill(store: TripleStore, relax: RelaxTable,
         # Admit: the i-th finished lane (in lane order) takes queue entry
         # next_idx + i while entries remain; later finishers go idle.
         cand = next_idx + finished.long().cumsum(0) - 1
-        refill = finished & (cand < M)
+        return cand, finished & (cand < M)
+
+    if trips is not None:
+        init = _init_state(Q, T, R1, N, cfg.k, dev)
+        for _ in range(trips):
+            cand, refill = trip(next_idx)
+            fresh = admit(cand.clamp(0, max(M - 1, 0)))
+            for name in ops.MergedStreams._fields:
+                cur = getattr(streams, name)
+                where = refill.view(-1, *(1,) * (cur.dim() - 1))
+                cur.copy_(torch.where(where, getattr(fresh, name), cur))
+            _reset_where(st, refill, init)
+            qidx = torch.where(refill, cand, qidx)
+            next_idx = next_idx + refill.sum()
+        return {name: t[:M] for name, t in out.items()}
+
+    n_trips, go = 0, M > 0
+    while go and n_trips < trips_cap:
+        cand, refill = trip(next_idx)
         any_live, n_refill = torch.stack(
             [(~st.done).any().long(), refill.sum()]).tolist()
         if n_refill:
@@ -271,7 +311,7 @@ def _execute_refill(store: TripleStore, relax: RelaxTable,
             _reset_lanes(st, idx)
             qidx[idx] = new_q
             next_idx += n_refill
-        trips += 1
+        n_trips += 1
         go = bool(any_live) or n_refill > 0
     return {name: t[:M] for name, t in out.items()}
 
@@ -289,17 +329,18 @@ def _as_pids(x, device) -> torch.Tensor:
 
 def execute_queue(store: TripleStore, relax: RelaxTable, queue_pids,
                   queue_masks, cfg: EngineConfig, lanes: int,
-                  device=None) -> EngineResult:
+                  device=None, trips: int | None = None) -> EngineResult:
     """Execute an (M, T) query queue under precomputed (M, T, R) plans.
 
-    The single funnel into ``_execute_refill``. Returns an ``EngineResult``
-    whose fields carry a leading (M,) axis in queue order.
+    The single funnel into ``_execute_refill`` (``trips``: its bounded
+    count, None to run until every query is done). Returns an
+    ``EngineResult`` whose fields carry a leading (M,) axis in queue order.
     """
     dev = resolve_device(device)
     check_on(dev, store.keys, relax.ids)
     pids = _as_pids(queue_pids, dev)
     masks = _as_tensor(queue_masks, dev).bool()
-    out = _execute_refill(store, relax, pids, masks, cfg, lanes)
+    out = _execute_refill(store, relax, pids, masks, cfg, lanes, trips)
     return EngineResult(
         keys=out["keys"], scores=out["scores"],
         n_pulled=out["n_pulled"].int(), n_answers=out["n_answers"].int(),
@@ -352,12 +393,12 @@ def plan_query_batch(store, relax, pattern_ids_batch, cfg: EngineConfig,
 
 
 def run_query_batch_with_masks(store, relax, pattern_ids_batch, masks,
-                               cfg: EngineConfig,
-                               device=None) -> EngineResult:
+                               cfg: EngineConfig, device=None,
+                               trips: int | None = None) -> EngineResult:
     """Fixed batch under precomputed plans: one lane per queue entry."""
     Q = len(pattern_ids_batch)
     return execute_queue(store, relax, pattern_ids_batch, masks, cfg,
-                         lanes=Q, device=device)
+                         lanes=Q, device=device, trips=trips)
 
 
 def run_query_batch(store, relax, pattern_ids_batch, cfg: EngineConfig,

@@ -1,25 +1,34 @@
 """CUDA wrappers of ``csrc/embedding_bag.cu``: the weighted embedding bag
-and its backward.
+and its backward, and the custom ops that join them.
 
 ``embedding_bag`` is the counterpart of
-``repro.kernels.embedding_bag.embedding_bag``. Where gradients are wanted
-it runs as a ``torch.autograd.Function`` whose backward is the hand-written
-``embedding_bag_backward`` kernel (the table's dense gradient: the live
-slots grouped by id with a stable radix sort, then each touched row
-summed in slot order and written once, bit-equal to the reference's; and
-the weights' gradient when asked for); the reference has no VJP for its
-Pallas kernel and differentiates its plain version instead.
-The plain versions are ``kernels.ref.embedding_bag`` and
-``kernels.ref.embedding_bag_backward``; ``kernels.ops`` chooses by device.
-These wrappers take CUDA tensors only.
+``repro.kernels.embedding_bag.embedding_bag``. ``bag_op``
+(``repro_torch::embedding_bag``) is the bag as a PyTorch operator, and
+``bag_backward_op`` (``repro_torch::embedding_bag_backward``) its
+gradients; the forward's autograd is the backward op. For CUDA tensors
+they launch the hand-written kernels: the forward, and the backward
+kernel (the table's dense gradient: the live slots grouped by id with a
+stable radix sort, then each touched row summed in slot order and written
+once, bit-equal to the reference's; and the weights' gradient when asked
+for). For CPU tensors they run the plain versions
+(``kernels.ref.embedding_bag``, ``kernels.ref.embedding_bag_backward``);
+under ``FakeTensorMode`` or on the meta device they give the output shapes
+only, without building or loading the library and without counting a
+launch. The reference has no VJP for its Pallas kernel and differentiates
+its plain version instead. A table split by rows over a mesh runs the op
+on each rank's rows (``models.recsys``), so the ops have no DTensor rule;
+their FLOP formulas count 2·B·S·D a pass. ``embedding_bag`` and
+``embedding_bag_backward`` take CUDA tensors only.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import ref as _ref
 from repro_torch.kernels._checks import check, check_cuda
 from repro_torch.kernels.ref import BAG_BINS, BAG_TILE
 
@@ -83,33 +92,13 @@ def _forward(table, ids, weights) -> torch.Tensor:
     return out
 
 
-class _Bag(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, table, ids, weights):
-        ctx.save_for_backward(table, ids, weights)
-        return _forward(table, ids, weights)
-
-    @staticmethod
-    def backward(ctx, dout):
-        table, ids, weights = ctx.saved_tensors
-        dout = dout.contiguous()
-        if dout.data_ptr() % 16:
-            dout = dout.clone()
-        dtable, dweights = embedding_bag_backward(
-            dout, ids, weights, table,
-            table_grad=ctx.needs_input_grad[0],
-            weights_grad=ctx.needs_input_grad[2])
-        return dtable, None, dweights
-
-
 def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
                   weights: torch.Tensor) -> torch.Tensor:
-    """(V, D) f32, (B, S) i32, (B, S) f32 → (B, D) f32, on the card;
-    differentiable in ``table`` and ``weights``."""
-    if torch.is_grad_enabled() and (table.requires_grad
-                                    or weights.requires_grad):
-        return _Bag.apply(table, ids, weights)
-    return _forward(table, ids, weights)
+    """(V, D) f32, (B, S) i32, (B, S) f32 → (B, D) f32, on the card
+    (CUDA tensors only): ``bag_op``, differentiable in ``table`` and
+    ``weights`` through the backward kernel."""
+    check_cuda(table, ids, weights)
+    return bag_op(table, ids, weights)
 
 
 embedding_bag.launches = 0
@@ -167,3 +156,90 @@ def embedding_bag_backward(dout: torch.Tensor, ids: torch.Tensor,
 
 
 embedding_bag_backward.launches = 0
+
+
+@torch.library.custom_op("repro_torch::embedding_bag", mutates_args=(),
+                         device_types="cpu")
+def bag_op(table: torch.Tensor, ids: torch.Tensor,
+           weights: torch.Tensor) -> torch.Tensor:
+    """(V, D) f32, (B, S) i32, (B, S) f32 → (B, D) f32; CPU tensors: the
+    plain version."""
+    return _ref.embedding_bag(table, ids, weights)
+
+
+@bag_op.register_kernel("cuda")
+def _bag_cuda(table, ids, weights):
+    return _forward(table, ids, weights)
+
+
+@bag_op.register_fake
+def _bag_fake(table, ids, weights):
+    return table.new_empty((ids.shape[0], table.shape[1]))
+
+
+@torch.library.custom_op("repro_torch::embedding_bag_backward",
+                         mutates_args=(), device_types="cpu")
+def bag_backward_op(dout: torch.Tensor, ids: torch.Tensor,
+                    weights: torch.Tensor, table: torch.Tensor,
+                    table_grad: bool,
+                    weights_grad: bool) -> list[torch.Tensor]:
+    """The gradients asked for, in this order: dtable (V, D) where
+    ``table_grad``, dweights (B, S) where ``weights_grad``; CPU tensors:
+    the plain version."""
+    grads = _ref.embedding_bag_backward(dout, ids, weights, table,
+                                        table_grad=table_grad,
+                                        weights_grad=weights_grad)
+    return [g for g in grads if g is not None]
+
+
+@bag_backward_op.register_kernel("cuda")
+def _bag_backward_cuda(dout, ids, weights, table, table_grad, weights_grad):
+    if dout.data_ptr() % 16:
+        dout = dout.clone()
+    grads = embedding_bag_backward(dout, ids, weights, table,
+                                   table_grad=table_grad,
+                                   weights_grad=weights_grad)
+    return [g for g in grads if g is not None]
+
+
+@bag_backward_op.register_fake
+def _bag_backward_fake(dout, ids, weights, table, table_grad, weights_grad):
+    return ([table.new_empty(table.shape)] if table_grad else []) + (
+        [weights.new_empty(weights.shape)] if weights_grad else [])
+
+
+def _bag_setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _bag_backward(ctx, dout):
+    table, ids, weights = ctx.saved_tensors
+    table_grad, weights_grad = ctx.needs_input_grad[0], ctx.needs_input_grad[2]
+    if not (table_grad or weights_grad):
+        return None, None, None
+    grads = iter(bag_backward_op(dout.contiguous(), ids, weights, table,
+                                 table_grad, weights_grad))
+    return (next(grads) if table_grad else None, None,
+            next(grads) if weights_grad else None)
+
+
+bag_op.register_autograd(_bag_backward, setup_context=_bag_setup_context)
+
+
+@register_flop_formula(torch.ops.repro_torch.embedding_bag)
+def _bag_flops(table_shape, ids_shape, weights_shape, out_shape=None,
+               **kwargs) -> int:
+    """2·B·S·D: a multiply and an add a slot and dimension."""
+    b, s = ids_shape
+    return 2 * b * s * table_shape[1]
+
+
+@register_flop_formula(torch.ops.repro_torch.embedding_bag_backward)
+def _bag_backward_flops(dout_shape, ids_shape, weights_shape, table_shape,
+                        table_grad, weights_grad, out_shape=None,
+                        **kwargs) -> int:
+    """2·B·S·D for the table's gradient (a weighted row a slot added into
+    its id's row) and as much again for the weights' (a dot product a
+    slot)."""
+    b, s = ids_shape
+    return 2 * b * s * table_shape[1] * (int(table_grad) + int(weights_grad))

@@ -1,9 +1,16 @@
-"""CUDA wrapper of ``csrc/merge_topk.cu``: the batched merged-stream pull.
+"""CUDA wrapper of ``csrc/merge_topk.cu``: the batched merged-stream pull,
+and the custom op around it.
 
 Counterpart of ``repro.kernels.merge_topk.merge_topk`` (which sorts with
 ``repro.kernels.sortnet.bitonic_topk_desc``); the plain version is
-``kernels.ref.merge_topk`` and ``kernels.ops`` chooses between them by
-device. This wrapper takes CUDA tensors only.
+``kernels.ref.merge_topk``. ``merge_topk`` takes CUDA tensors only.
+``merge_op`` (``repro_torch::merge_topk``) is the pull as a PyTorch
+operator, which ``kernels.ops`` calls on any device: this kernel for CUDA
+tensors, the plain version for CPU ones, the output shapes only under
+``FakeTensorMode`` or on the meta device, without building or loading the
+library and without counting a launch. Like ``rank_join``'s op it runs
+only on a rank's local shards and has no DTensor rule, and its work is
+compares, so it has no FLOP formula (``LocalCost`` counts its bytes).
 """
 from __future__ import annotations
 
@@ -12,6 +19,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import ref as _ref
 from repro_torch.kernels._checks import check, check_cuda
 
 _P = ctypes.c_void_p
@@ -74,3 +82,25 @@ def merge_topk(window_keys: torch.Tensor, window_scores: torch.Tensor,
 
 
 merge_topk.launches = 0
+
+
+@torch.library.custom_op("repro_torch::merge_topk", mutates_args=(),
+                         device_types="cpu")
+def merge_op(window_keys: torch.Tensor, window_scores: torch.Tensor,
+             block: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(G, R, W) i32, (G, R, W) f32 → (keys (G, block) i32, scores (G,
+    block) f32, flat_idx (G, block) i32); CPU tensors: the plain version."""
+    return _ref.merge_topk(window_keys, window_scores, block)
+
+
+@merge_op.register_kernel("cuda")
+def _merge_cuda(window_keys, window_scores, block):
+    return merge_topk(window_keys, window_scores, block)
+
+
+@merge_op.register_fake
+def _merge_fake(window_keys, window_scores, block):
+    shape = (window_keys.shape[0], block)
+    return (window_keys.new_empty(shape),
+            window_keys.new_empty(shape, dtype=torch.float32),
+            window_keys.new_empty(shape))

@@ -4,6 +4,12 @@ A CPU tensor goes to the plain version (``kernels.ref``); a CUDA tensor goes
 to the hand-written CUDA kernel, or the call raises. ``impl="ref"`` forces
 the plain version on any device: it exists for ``chip_smoke.py`` and the
 tests, which hold the kernels against it; the engine never passes it.
+
+Every kernel but ``neigh_softmax_agg`` is reached through its custom op
+(``repro_torch::<name>``), whose CPU impl is the plain version and whose
+CUDA impl the kernel's launch; on the meta device or under
+``FakeTensorMode`` (the dry run's fake shards) the op gives its outputs'
+shapes and runs neither.
 """
 from __future__ import annotations
 
@@ -28,10 +34,14 @@ KERNELS = {"rank_join_lookup": _rank_join.rank_join_lookup,
            "neigh_softmax_agg": _neigh_agg.neigh_softmax_agg}
 
 
-def _plain(t: torch.Tensor, impl: str) -> bool:
+def _ref_impl(impl: str) -> bool:
     if impl not in ("auto", "ref"):
         raise ValueError(f"impl must be 'auto' or 'ref', got {impl!r}")
-    if impl == "ref" or t.device.type == "cpu":
+    return impl == "ref"
+
+
+def _plain(t: torch.Tensor, impl: str) -> bool:
+    if _ref_impl(impl) or t.device.type == "cpu":
         return True
     if t.device.type != "cuda":
         raise ValueError(f"no kernel for tensors on {t.device}")
@@ -40,52 +50,58 @@ def _plain(t: torch.Tensor, impl: str) -> bool:
 
 def rank_join_lookup(seen_keys, seen_scores, probe_keys, seen_cnt,
                      impl: str = "auto"):
-    """Batched probe: (G, N), (G, N), (G, B), (G,) → (G, B) scores, found."""
-    if _plain(seen_keys, impl):
+    """Batched probe: (G, N), (G, N), (G, B), (G,) → (G, B) scores, found;
+    through ``repro_torch::rank_join_lookup``."""
+    if _ref_impl(impl):
         return _ref.rank_join_lookup(seen_keys, seen_scores, probe_keys,
                                      seen_cnt)
-    return _rank_join.rank_join_lookup(seen_keys, seen_scores, probe_keys,
-                                       seen_cnt)
+    return _rank_join.lookup_op(seen_keys, seen_scores, probe_keys, seen_cnt)
 
 
 def merge_topk(window_keys, window_scores, block: int, impl: str = "auto"):
-    """Batched pull: (G, R, W) windows → (G, block) keys, scores, flat_idx."""
-    if _plain(window_keys, impl):
+    """Batched pull: (G, R, W) windows → (G, block) keys, scores, flat_idx;
+    through ``repro_torch::merge_topk``."""
+    if _ref_impl(impl):
         return _ref.merge_topk(window_keys, window_scores, block)
-    return _merge_topk.merge_topk(window_keys, window_scores, block)
+    return _merge_topk.merge_op(window_keys, window_scores, block)
 
 
 def topk_score_pruned(query, cands, block_bounds, k: int, tile: int = 512,
                       impl: str = "auto"):
     """Speculative top-k: (D,), (N, D), (N/tile,) → (k,) scores, (k,) idx,
-    () n_tiles_scored."""
-    if _plain(cands, impl):
+    () n_tiles_scored; through ``repro_torch::topk_score_pruned``."""
+    if _ref_impl(impl):
         return _ref.topk_score_pruned(query, cands, block_bounds, k, tile)
-    return _topk_score.topk_score_pruned(query, cands, block_bounds, k, tile)
+    return _topk_score.pruned_op(query, cands, block_bounds, k, tile)
 
 
 block_bounds_cauchy = _topk_score.block_bounds_cauchy
 
 
 def embedding_bag(table, ids, weights, impl: str = "auto"):
-    """Weighted bag: (V, D), (B, S), (B, S) → (B, D). Differentiable: on
-    the card through the backward kernel, on the CPU by autograd through
-    the plain version."""
-    if _plain(table, impl):
+    """Weighted bag: (V, D), (B, S), (B, S) → (B, D); through
+    ``repro_torch::embedding_bag``, differentiable through
+    ``repro_torch::embedding_bag_backward`` (on the card the backward
+    kernel, on the CPU its plain version)."""
+    if _ref_impl(impl):
         return _ref.embedding_bag(table, ids, weights)
-    return _embedding_bag.embedding_bag(table, ids, weights)
+    return _embedding_bag.bag_op(table, ids, weights)
 
 
 def embedding_bag_backward(dout, ids, weights, table, *,
                            table_grad: bool = True,
                            weights_grad: bool = False, impl: str = "auto"):
     """The bag's gradients from dout (B, D) → (dtable (V, D) or None,
-    dweights (B, S) or None)."""
-    kw = dict(table_grad=table_grad, weights_grad=weights_grad)
-    if _plain(dout, impl):
-        return _ref.embedding_bag_backward(dout, ids, weights, table, **kw)
-    return _embedding_bag.embedding_bag_backward(dout, ids, weights, table,
-                                                 **kw)
+    dweights (B, S) or None); through
+    ``repro_torch::embedding_bag_backward``."""
+    if _ref_impl(impl):
+        return _ref.embedding_bag_backward(dout, ids, weights, table,
+                                           table_grad=table_grad,
+                                           weights_grad=weights_grad)
+    grads = iter(_embedding_bag.bag_backward_op(dout, ids, weights, table,
+                                                table_grad, weights_grad))
+    return (next(grads) if table_grad else None,
+            next(grads) if weights_grad else None)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None,
@@ -99,9 +115,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     backward kernel, on the CPU its plain twin). ``impl="ref"`` is the
     plain version on any device."""
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
-    if impl not in ("auto", "ref"):
-        raise ValueError(f"impl must be 'auto' or 'ref', got {impl!r}")
-    if impl == "ref":
+    if _ref_impl(impl):
         return _ref.flash_attention(q, k, v, **kw)
     return _flash_attention.attention(q, k, v, **kw)
 

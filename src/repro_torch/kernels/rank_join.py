@@ -1,8 +1,17 @@
-"""CUDA wrapper of ``csrc/rank_join.cu``: the batched rank-join probe.
+"""CUDA wrapper of ``csrc/rank_join.cu``: the batched rank-join probe, and
+the custom op around it.
 
 Counterpart of ``repro.kernels.rank_join.rank_join_lookup``; the plain
-version is ``kernels.ref.rank_join_lookup`` and ``kernels.ops`` chooses
-between them by device. This wrapper takes CUDA tensors only.
+version is ``kernels.ref.rank_join_lookup``. ``rank_join_lookup`` takes
+CUDA tensors only. ``lookup_op`` (``repro_torch::rank_join_lookup``) is
+the probe as a PyTorch operator, which ``kernels.ops`` calls on any
+device: this kernel for CUDA tensors, the plain version for CPU ones, the
+output shapes only under ``FakeTensorMode`` or on the meta device (the
+dry run's fake shards), without building or loading the library and
+without counting a launch. It runs only on a rank's local shards (the
+KG engine's body), so it has no DTensor rule; its work is compares, not
+float arithmetic, so it has no FLOP formula (the dry run's ``LocalCost``
+still counts its bytes).
 """
 from __future__ import annotations
 
@@ -11,6 +20,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import ref as _ref
 from repro_torch.kernels._checks import check, check_cuda
 
 _P = ctypes.c_void_p
@@ -68,3 +78,25 @@ def rank_join_lookup(seen_keys: torch.Tensor, seen_scores: torch.Tensor,
 
 
 rank_join_lookup.launches = 0
+
+
+@torch.library.custom_op("repro_torch::rank_join_lookup", mutates_args=(),
+                         device_types="cpu")
+def lookup_op(seen_keys: torch.Tensor, seen_scores: torch.Tensor,
+              probe_keys: torch.Tensor,
+              seen_cnt: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(G, N) i32, (G, N) f32, (G, B) i32, (G,) i32 → (scores (G, B) f32,
+    found (G, B) bool); CPU tensors: the plain version."""
+    return _ref.rank_join_lookup(seen_keys, seen_scores, probe_keys,
+                                 seen_cnt)
+
+
+@lookup_op.register_kernel("cuda")
+def _lookup_cuda(seen_keys, seen_scores, probe_keys, seen_cnt):
+    return rank_join_lookup(seen_keys, seen_scores, probe_keys, seen_cnt)
+
+
+@lookup_op.register_fake
+def _lookup_fake(seen_keys, seen_scores, probe_keys, seen_cnt):
+    return (probe_keys.new_empty(probe_keys.shape, dtype=torch.float32),
+            probe_keys.new_empty(probe_keys.shape, dtype=torch.bool))

@@ -1,8 +1,15 @@
-"""CUDA wrapper of ``csrc/topk_score.cu``: Spec-QP speculative retrieval.
+"""CUDA wrapper of ``csrc/topk_score.cu``: Spec-QP speculative retrieval,
+and the custom op around it.
 
 Counterpart of ``repro.kernels.topk_score.topk_score_pruned``; the plain
-version is ``kernels.ref.topk_score_pruned`` and ``kernels.ops`` chooses
-between them by device. This wrapper takes CUDA tensors only.
+version is ``kernels.ref.topk_score_pruned``. ``topk_score_pruned`` takes
+CUDA tensors only. ``pruned_op`` (``repro_torch::topk_score_pruned``) is
+the retrieval as a PyTorch operator, which ``kernels.ops`` calls on any
+device: this kernel for CUDA tensors, the plain version for CPU ones, the
+output shapes only under ``FakeTensorMode`` or on the meta device, without
+building or loading the library and without counting a launch. It runs on
+a rank's own block of the corpus (``two_tower_retrieval.retrieve``), so it
+has no DTensor rule; its FLOP formula counts every tile.
 ``block_bounds_cauchy`` is plain PyTorch on any device, as the reference's
 is plain jnp.
 """
@@ -11,8 +18,10 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import ref as _ref
 from repro_torch.kernels._checks import check, check_cuda
 
 _P = ctypes.c_void_p
@@ -113,6 +122,37 @@ def topk_score_pruned(query: torch.Tensor, cands: torch.Tensor,
 
 topk_score_pruned.launches = 0
 topk_score_pruned.last_tiles_read = None
+
+
+@torch.library.custom_op("repro_torch::topk_score_pruned", mutates_args=(),
+                         device_types="cpu")
+def pruned_op(query: torch.Tensor, cands: torch.Tensor,
+              block_bounds: torch.Tensor, k: int,
+              tile: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(D,) f32, (N, D) f32, (N/tile,) f32 → (scores (k,) f32, idx (k,)
+    i32, n_tiles_scored () i32); CPU tensors: the plain version."""
+    return _ref.topk_score_pruned(query, cands, block_bounds, k, tile)
+
+
+@pruned_op.register_kernel("cuda")
+def _pruned_cuda(query, cands, block_bounds, k, tile):
+    return topk_score_pruned(query, cands, block_bounds, k, tile)
+
+
+@pruned_op.register_fake
+def _pruned_fake(query, cands, block_bounds, k, tile):
+    return (cands.new_empty((k,)), cands.new_empty((k,), dtype=torch.int32),
+            cands.new_empty((), dtype=torch.int32))
+
+
+@register_flop_formula(torch.ops.repro_torch.topk_score_pruned)
+def _pruned_flops(query_shape, cands_shape, bounds_shape, k, tile,
+                  out_shape=None, **kwargs) -> int:
+    """2·N·D: a multiply and an add a candidate and dimension, for every
+    tile. Which tiles the bounds prune depends on the data, which the shapes
+    do not show, so this counts the most the call can do."""
+    n, d = cands_shape
+    return 2 * n * d
 
 
 def block_bounds_cauchy(query: torch.Tensor, cands: torch.Tensor,

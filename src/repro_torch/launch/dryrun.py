@@ -28,8 +28,7 @@ and meta tensors elsewhere; both take the kernels' path (the custom ops'
 fake impls), not the plain twins'. One JSON per cell is written to
 ``results/dryrun_torch/<arch>__<shape>__<mesh>.json`` with the
 reference's keys. A cell in its architecture's ``SKIP_SHAPES`` is written
-``skipped`` with the configuration's reason, as the reference writes it;
-so is a cell outside the ported slices.
+``skipped`` with the configuration's reason, as the reference writes it.
 A cell that raises is written ``error``, and the run then exits non-zero.
 
 Usage:
@@ -59,15 +58,6 @@ from repro_torch.launch import analysis
 from repro_torch.launch import mesh as mesh_lib
 
 OUT_DIR = "results/dryrun_torch"
-# The architectures whose cells this port lays out; the others wait for
-# their slices (ROADMAP.md, Queue 1, item 3).
-PORTED = ("gemma2-2b", "starcoder2-3b", "gemma3-27b",
-          "granite-moe-3b-a800m", "deepseek-v3-671b",
-          "gat-cora", "egnn", "nequip", "mace")
-LATER = {
-    "two-tower-retrieval": "the two-tower slice",
-    "kg-specqp": "the kg-specqp slice",
-}
 
 _KINDS = (("all_gather", "all-gather"), ("allgather", "all-gather"),
           ("all_reduce", "all-reduce"), ("allreduce", "all-reduce"),
@@ -75,6 +65,13 @@ _KINDS = (("all_gather", "all-gather"), ("allgather", "all-gather"),
           ("alltoall", "all-to-all"), ("all_to_all", "all-to-all"),
           ("broadcast", "collective-permute"),
           ("permute", "collective-permute"))
+
+
+# Namespaces whose ops move no data of their own: ``prim.device`` reads a
+# tensor's metadata; ``_c10d_functional``'s waits and autograd wrappers
+# return their operand (its collectives are ``_kind``'s and
+# ``CollectiveLog``'s).
+_NO_DATA = ("prim", "_c10d_functional")
 
 
 def _kind(func) -> str | None:
@@ -191,16 +188,23 @@ class LocalCost(TorchDispatchMode):
     ``flops``: ``torch.utils.flop_counter``'s formula of each op that has
     one (matmuls, the attention's custom ops); ``bytes``: each op's tensor
     operands and outputs, read and written once (view and collective ops
-    excluded); ``peak_bytes``: the most bytes of storage alive at once,
+    excluded, and ops that read no data: ``prim.device`` and the
+    functional collectives' waits and wrappers); ``peak_bytes``: the most
+    bytes of storage alive at once,
     counting the storages passed to ``track`` and those the counted ops
     create, each until it is freed. Only ops on the fake shards count:
     DTensor's own shape propagation runs on global shapes, under a fake
     mode of its own or on meta tensors, and is not the program
     (``MemTracker`` was tried and counted some of it: 134 GB logits
-    chunks in a two-layer gemma2-2b step)."""
+    chunks in a two-layer gemma2-2b step). With ``real`` the ops on real
+    tensors count too: a real run of a cell, to hold a fake one's flops
+    against (its bytes also count ops among the tensors a fake run makes
+    on the meta device without a fake mode, e.g. an ``arange``, which the
+    fake run leaves out)."""
 
-    def __init__(self):
+    def __init__(self, real: bool = False):
         super().__init__()
+        self.real = real
         self.flops = 0
         self.bytes = 0
         self.flops_by_op: Counter = Counter()
@@ -232,9 +236,17 @@ class LocalCost(TorchDispatchMode):
         self._fake = active_fake_mode()
         return super().__enter__()
 
+    def _counts(self, t) -> bool:
+        """Whether ``t`` is a shard the program runs on: a fake tensor, or
+        with ``real`` any tensor holding values (not meta)."""
+        from torch._subclasses.fake_tensor import FakeTensor
+        if isinstance(t, FakeTensor):
+            return True
+        return (self.real and isinstance(t, torch.Tensor)
+                and t.device.type != "meta")
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch._guards import active_fake_mode
-        from torch._subclasses.fake_tensor import FakeTensor
         from torch.utils import _pytree as pytree
         from torch.utils.flop_counter import flop_registry
         if _is_dtensor(types):
@@ -242,7 +254,7 @@ class LocalCost(TorchDispatchMode):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         if active_fake_mode() is not self._fake or not any(
-                isinstance(t, FakeTensor) for t in pytree.tree_leaves(
+                self._counts(t) for t in pytree.tree_leaves(
                     (args, kwargs, out))):
             return out
         formula = flop_registry.get(func._overloadpacket)
@@ -250,12 +262,12 @@ class LocalCost(TorchDispatchMode):
             n = int(formula(*args, **kwargs, out_val=out))
             self.flops += n
             self.flops_by_op[str(func._overloadpacket)] += n
-        if not func.is_view and _kind(func) is None:
+        if not (func.is_view or _kind(func) or func.namespace in _NO_DATA):
             self.bytes += (sum(_nbytes(a) for a in args)
                            + sum(_nbytes(v) for v in kwargs.values())
                            + _nbytes(out))
         for t in (out if isinstance(out, (list, tuple)) else (out,)):
-            if isinstance(t, FakeTensor):
+            if self._counts(t):
                 self._add(t)
         return out
 
@@ -326,12 +338,6 @@ def run_cell(arch: str, shape: str, mesh, out_dir: str = OUT_DIR) -> dict:
               "mesh": _mesh_name(tuple(mesh.shape))}
     if shape in getattr(mod, "SKIP_SHAPES", {}):
         result.update(status="skipped", reason=mod.SKIP_SHAPES[shape])
-        _write(out_dir, result)
-        return result
-    if arch not in PORTED:
-        result.update(status="skipped", reason="not ported yet: "
-                      f"{LATER.get(arch, 'a later slice')} (ROADMAP.md, "
-                      "Queue 1, item 3)")
         _write(out_dir, result)
         return result
     n_chips = math.prod(mesh.shape)

@@ -8,7 +8,10 @@ order in which ``jax.lax.axis_index`` flattens them) and one process
 subgroup per axis, the line of ranks along that axis through this rank.
 Its collectives are the ``jax.lax`` ones over one axis: ``psum``,
 ``pmax`` and ``all_gather``, and ``merge_top_k``, the gather + top-k tree
-that merges the ranks' top-k buffers.
+that merges the ranks' top-k buffers. They are the functional
+collectives (``_c10d_functional``: an output of their own, the group by
+name), so that they also run on the fake shards of the dry run, whose
+``CollectiveLog`` reads their bytes and their group.
 
 The backend is always the caller's: ``"nccl"`` where each rank has a card
 of its own, ``"gloo"`` for ranks on the CPU or for ranks that share one
@@ -19,7 +22,10 @@ buffer's device: the planner's cardinalities, the (Q, k) result buffers
 and the counters, a few KiB a batch.
 
 ``spawn`` starts one process per mesh position, each with its mesh, and
-returns what each rank's function returned.
+returns what each rank's function returned. ``Mesh.from_device_mesh``
+gives the same view of an existing ``DeviceMesh`` (one group a dimension,
+already built), on any backend, the dry run's ``fake`` one included: the
+mesh of a cell whose function is a ``shard_map`` body in the reference.
 
 ``make_device_mesh`` and ``make_production_mesh`` build a
 ``torch.distributed`` ``DeviceMesh`` instead, the mesh of the models'
@@ -42,6 +48,7 @@ import torch.multiprocessing as mp
 from repro_torch.core.types import resolve_device
 
 BACKENDS = ("nccl", "gloo")
+_C10D = torch.ops._c10d_functional
 # A collective that waits longer than this fails its rank.
 COLLECTIVE_TIMEOUT_S = 600
 
@@ -86,6 +93,24 @@ class Mesh:
                 if self.rank in ranks:
                     self._groups[name] = group
 
+    @classmethod
+    def from_device_mesh(cls, device_mesh, device=None) -> "Mesh":
+        """This rank's view of ``device_mesh``: its dimension names, shape
+        and coordinates, and ``device_mesh.get_group(i)`` as dimension i's
+        group (no new subgroup is built). The backend is the groups' own;
+        ``device`` is where the collectives' results land (the mesh's
+        device type by default)."""
+        self = cls.__new__(cls)
+        self.shape = tuple(int(n) for n in device_mesh.shape)
+        self.axis_names = tuple(device_mesh.mesh_dim_names)
+        self.coords = tuple(device_mesh.get_coordinate())
+        self._groups = {name: device_mesh.get_group(i)
+                        for i, name in enumerate(self.axis_names)}
+        self.backend = dist.get_backend(self._groups[self.axis_names[0]])
+        self.device = torch.device(device or device_mesh.device_type)
+        self.rank = dist.get_rank()
+        return self
+
     def axis_size(self, name: str) -> int:
         return self.shape[self.axis_names.index(name)]
 
@@ -106,25 +131,25 @@ class Mesh:
         buf = x.detach().reshape(-1).clone()
         return buf.cpu() if self.backend == "gloo" else buf
 
-    def _all_reduce(self, x: torch.Tensor, axis: str, op) -> torch.Tensor:
-        buf = self._staged(x)
-        dist.all_reduce(buf, op=op, group=self._groups[axis])
-        return buf.to(x.device).view(x.shape)
+    def _all_reduce(self, x: torch.Tensor, axis: str, op: str) -> torch.Tensor:
+        out = _C10D.all_reduce(self._staged(x), op,
+                               self._groups[axis].group_name)
+        return _C10D.wait_tensor(out).to(x.device).view(x.shape)
 
     def psum(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """Sum of ``x`` over the ranks along ``axis``."""
-        return self._all_reduce(x, axis, dist.ReduceOp.SUM)
+        return self._all_reduce(x, axis, "sum")
 
     def pmax(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """Maximum of ``x`` over the ranks along ``axis``."""
-        return self._all_reduce(x, axis, dist.ReduceOp.MAX)
+        return self._all_reduce(x, axis, "max")
 
     def all_gather(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """(n, *x.shape): every rank's ``x`` along ``axis``, in axis order."""
-        buf = self._staged(x)
-        out = [torch.empty_like(buf) for _ in range(self.axis_size(axis))]
-        dist.all_gather(out, buf, group=self._groups[axis])
-        return torch.stack(out).to(x.device).view(-1, *x.shape)
+        group = self._groups[axis]
+        out = _C10D.all_gather_into_tensor(self._staged(x), group.size(),
+                                           group.group_name)
+        return _C10D.wait_tensor(out).to(x.device).view(-1, *x.shape)
 
     def merge_top_k(self, scores: torch.Tensor, payload: torch.Tensor,
                     k: int, axes=None):

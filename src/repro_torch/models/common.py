@@ -15,6 +15,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
 from torch.utils import checkpoint as ckpt
 
 from repro_torch import sharding
@@ -181,7 +182,9 @@ def top_k(x: torch.Tensor, k: int):
     vals, perm = torch.sort(vals[..., :k].gather(-1, perm), dim=-1,
                             descending=True, stable=True)
     idx = idx.gather(-1, perm)
-    if edge is not None and bool(edge.any()):
+    # Fake tensors (the dry run's shards) hold no values to test: the
+    # repair, which runs on tied rows only, is left out of their count.
+    if edge is not None and not is_fake(x) and bool(edge.any()):
         rows = edge.nonzero(as_tuple=True)
         top_k.full_sorts += len(rows[0])
         v, i = torch.sort(x[rows], dim=-1, descending=True, stable=True)

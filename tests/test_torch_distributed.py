@@ -8,6 +8,10 @@ keys, plan masks and the counters n_pulled, n_answers, n_iters and
 n_wasted exactly, scores within rtol 1e-5 (the engine's bar), and the
 sharded retrieval's indices and tiles scored exactly, scores within rtol
 1e-6. ``shard_workload``'s arrays must be bit-equal to the reference's.
+kg-specqp's dry-run cell function (``make_cell``'s, run to the end on the
+stores laid over a (2, 2) ``DeviceMesh`` as DTensors, its ``Mesh`` built
+from that mesh) is held to the reference's ``make_batched_sharded_fn``
+the same way.
 """
 import os
 import pathlib
@@ -128,6 +132,36 @@ def _np(res):
     return {f: getattr(res, f).cpu().numpy() for f in FIELDS}
 
 
+STORE_FIELDS = ("keys", "scores", "lengths", "sorted_keys", "stats",
+                "sketch")
+CELL_SHAPES = {"specqp": "serve_batch", "trinit": "serve_trinit"}
+
+
+def kg_cells(skg, relax, queries):
+    """kg-specqp's cell functions on a (2, 2) ``DeviceMesh`` over this
+    rank's process group: the stacked stores, relax, global stats and
+    queries laid out by the cells' axes, each cell run to its end (no trip
+    bound). Returns {"cell/<mode>/<field>": array}."""
+    from repro_torch import sharding
+    from repro_torch.configs import kg_specqp
+    from repro_torch.launch import mesh as mesh_lib
+
+    dmesh = mesh_lib.make_device_mesh(MESH, AXES, device_type="cpu")
+    data = ({f: getattr(skg.stores, f) for f in STORE_FIELDS},
+            {"ids": relax.ids, "weights": relax.weights}, skg.global_stats,
+            torch.as_tensor(np.asarray(queries), dtype=torch.int32))
+    out = {}
+    with sharding.use_rules(dmesh):
+        for mode, shape in CELL_SHAPES.items():
+            cell = kg_specqp.make_cell(shape)
+            args = [sharding.distribute(a, ax, dmesh)
+                    for a, ax in zip(data, cell.arg_axes)]
+            res = cell.fn(*args)
+            for f in FIELDS:
+                out[f"cell/{mode}/{f}"] = res[f].numpy()
+    return out
+
+
 def port_rank(mesh):
     """Everything the port computes on one rank of the (2, 2) mesh."""
     from repro_torch.configs import kg_specqp, two_tower_retrieval as tt
@@ -162,6 +196,7 @@ def port_rank(mesh):
         EngineConfig(**CAPPED), "trinit", mesh))
     for mode in ("specqp", "trinit"):
         batched(f"serve_step/{mode}", kg_specqp.serve_step(mesh, mode))
+    out.update(kg_cells(skg, wl.relax, wl.queries))
 
     rows = N // 4
     lo = mesh.flat_index() * rows
@@ -252,6 +287,24 @@ def test_capped_rings_and_serve_step_match_jax(both, name):
     settings against the reference's ``make_cell`` function."""
     jax_out, port = both
     _check(jax_out, port[0], name)
+
+
+@pytest.mark.parametrize("mode", list(CELL_SHAPES))
+def test_kg_cell_matches_jax(both, mode):
+    """kg-specqp's cell function on the DeviceMesh-built ``Mesh`` against
+    the reference's ``make_cell`` function (``make_batched_sharded_fn`` at
+    the engine settings): keys, masks and the four counters exact (n_wasted
+    0), scores within rtol 1e-5, on every rank."""
+    jax_out, port = both
+    for rank in port:
+        for f in FIELDS:
+            want, got = jax_out[f"serve_step/{mode}/{f}"], \
+                rank[f"cell/{mode}/{f}"]
+            if f == "scores":
+                np.testing.assert_allclose(got, want, rtol=1e-5, err_msg=f)
+            else:
+                np.testing.assert_array_equal(got, want, err_msg=f)
+        assert not rank[f"cell/{mode}/n_wasted"].any()
 
 
 @pytest.mark.parametrize("case", RETRIEVAL_CASES)

@@ -1,12 +1,14 @@
-"""The port's dry run (``repro_torch.configs.base``, ``configs.lm_common``'s
-and ``configs.gnn_common``'s ``make_cell``, ``launch.analysis``,
-``launch.dryrun``) against the JAX package's: every LM and GNN cell
-argument by argument (the dense archs', granite's and deepseek's; gat-cora's,
-EGNN's, NequIP's and MACE's on the four graph shapes), their bytes a card
-on the 16 × 16 mesh, the GNNs' parameter axes, the model flops and active
+"""The port's dry run (``repro_torch.configs.base``, ``configs.lm_common``'s,
+``configs.gnn_common``'s, ``configs.kg_specqp``'s and
+``configs.two_tower_retrieval``'s ``make_cell``, ``launch.analysis``,
+``launch.dryrun``) against the JAX package's: every cell argument by
+argument (the dense archs', granite's and deepseek's; gat-cora's, EGNN's,
+NequIP's and MACE's on the four graph shapes; kg-specqp's two and the
+two-tower model's four), their bytes a card on the 16 × 16 mesh, the GNNs'
+and the two-tower model's parameter axes, the model flops and active
 parameters of every LM, the roofline's arithmetic, a fake (2, 2) run's
-flops per rank, ``--all``'s control flow and the skipped cells'
-reasons."""
+flops per rank, ``--all``'s control flow (every cell laid out, none left
+"not ported") and the skipped cells' reasons."""
 import dataclasses
 import json
 import math
@@ -22,7 +24,8 @@ from repro import sharding as jsharding
 from repro.configs import get_arch as jget_arch
 from repro.launch import analysis as janalysis
 from repro_torch import sharding
-from repro_torch.configs import get_arch, gnn_common, lm_common
+from repro_torch.configs import get_arch, gnn_common, kg_specqp, lm_common
+from repro_torch.configs import two_tower_retrieval
 from repro_torch.launch import analysis, dryrun
 from repro_torch.launch import mesh as mesh_lib
 
@@ -30,14 +33,18 @@ DENSE = ("gemma2-2b", "starcoder2-3b", "gemma3-27b")
 MOE = ("granite-moe-3b-a800m", "deepseek-v3-671b")
 LMS = DENSE + MOE
 GNNS = ("gat-cora", "egnn", "nequip", "mace")
+KG, TWO_TOWER = "kg-specqp", "two-tower-retrieval"
 SHAPES = tuple(lm_common.LM_SHAPES)
 GNN_SHAPES = tuple(gnn_common.GNN_SHAPES)
 # Every cell the dry run lays out: the dense archs' four shapes, the MoE
-# archs' three (their long_500k is in their SKIP_SHAPES), and each GNN's
-# four graph shapes.
+# archs' three (their long_500k is in their SKIP_SHAPES), each GNN's four
+# graph shapes, kg-specqp's two and the two-tower model's four.
 CELLS = ([(a, s) for a in DENSE for s in SHAPES]
          + [(a, s) for a in MOE for s in SHAPES if s != "long_500k"]
-         + [(a, s) for a in GNNS for s in GNN_SHAPES])
+         + [(a, s) for a in GNNS for s in GNN_SHAPES]
+         + [(KG, s) for s in kg_specqp.SHAPES]
+         + [(TWO_TOWER, s) for s in two_tower_retrieval.SHAPES])
+PROD_MESH = ((16, 16), ("data", "model"))
 
 
 def _unstack_params(tree, cfg):
@@ -91,17 +98,61 @@ def _port_graph_leaves(graph, axes):
             for k, t in graph.items()}
 
 
+def _jax_cell(arch, shape):
+    """JAX's cell; kg-specqp's needs a mesh installed (its store has one
+    shard a device): the 16 × 16 production mesh's abstract twin."""
+    if arch != KG:
+        return jget_arch(arch).make_cell(shape)
+    with jsharding.use_rules(compat.abstract_mesh(*PROD_MESH)):
+        return jget_arch(arch).make_cell(shape)
+
+
+def _port_cell(arch, shape):
+    """The port's cell, kg-specqp's on the fake 16 × 16 production mesh
+    (the rules installed while it is built)."""
+    if arch != KG:
+        return get_arch(arch).make_cell(shape)
+    with dryrun.fake_world(256):
+        with sharding.use_rules(mesh_lib.make_production_mesh()):
+            return get_arch(arch).make_cell(shape)
+
+
+def _jax_fields(obj, axes):
+    """A JAX dataclass of specs (TripleStore, RelaxTable) and its axes →
+    the port's dict of (shape, dtype, axes) by field; the sketch's uint32
+    words are the port's int32 view of them."""
+    out = {}
+    for f in dataclasses.fields(obj):
+        shape, dtype, ax = _jax_leaves(getattr(obj, f.name),
+                                       getattr(axes, f.name))
+        out[f.name] = (shape, "int32" if dtype == "uint32" else dtype, ax)
+    return out
+
+
 @pytest.mark.parametrize("arch,shape", CELLS)
 def test_make_cell_matches_jax(arch, shape):
     """Every argument's shape, dtype and axes, leaf for leaf, after the
     port's layout changes: the stacked layers as a list, the decode caches
-    one a layer, the decode step a Python int, the graph a dict of its
-    fields."""
-    jcell = jget_arch(arch).make_cell(shape)
-    cell = get_arch(arch).make_cell(shape)
+    one a layer, the decode step a Python int, the graph and kg-specqp's
+    store and relaxations dicts of their fields."""
+    jcell = _jax_cell(arch, shape)
+    cell = _port_cell(arch, shape)
     cfg = get_arch(arch).config()
     assert (cell.arch, cell.shape, cell.kind) == (jcell.arch, jcell.shape,
                                                   jcell.kind)
+    if arch == KG:
+        want = [_jax_fields(jcell.args[i], jcell.arg_axes[i])
+                for i in (0, 1)] + [
+            _jax_leaves(jcell.args[i], jcell.arg_axes[i]) for i in (2, 3)]
+        assert [_port_leaves(t, a) for t, a in zip(cell.args,
+                                                   cell.arg_axes)] == want
+        assert cell.static_kwargs == {"trips": kg_specqp.CELL_TRIPS}
+        return
+    if arch == TWO_TOWER:
+        assert [_port_leaves(t, a) for t, a in zip(cell.args,
+                                                   cell.arg_axes)] == \
+            [_jax_leaves(s, a) for s, a in zip(jcell.args, jcell.arg_axes)]
+        return
     if arch in GNNS:
         assert _port_leaves(cell.args[0], cell.arg_axes[0]) == \
             _jax_leaves(jcell.args[0], jcell.arg_axes[0])
@@ -153,9 +204,8 @@ def _jax_card_bytes(jcell, mesh):
 
 @pytest.mark.parametrize("arch,shape", CELLS)
 def test_card_argument_bytes_match_jax(arch, shape):
-    jcell = jget_arch(arch).make_cell(shape)
-    want = _jax_card_bytes(jcell, compat.abstract_mesh((16, 16),
-                                                       ("data", "model")))
+    jcell = _jax_cell(arch, shape)
+    want = _jax_card_bytes(jcell, compat.abstract_mesh(*PROD_MESH))
     if jcell.kind == "decode":
         want -= 4                  # JAX's step is an array, the port's an int
     with dryrun.fake_world(256):
@@ -246,6 +296,26 @@ def test_fake_run_flops_per_rank(monkeypatch):
     assert m["memory"]["peak_bytes"] >= m["memory"]["argument_bytes"] > 0
 
 
+def test_ops_that_read_no_data_count_no_bytes():
+    """``LocalCost`` counts each op's operands and outputs once, and nothing
+    for an op that moves no data: ``prim.device`` (it reads a tensor's
+    metadata; counted, it was most of every cell's bytes) and a
+    functional collective's wait."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    mode = FakeTensorMode()
+    x = mode.from_tensor(torch.empty((256, 1024)))
+    cost = dryrun.LocalCost()
+    with mode:
+        cost.__enter__()
+        try:
+            torch.ops.prim.device.default(x)
+            torch.ops._c10d_functional.wait_tensor.default(x)
+            x + 1
+        finally:
+            cost.__exit__(None, None, None)
+    assert cost.bytes == 2 * x.numel() * 4        # x read, x + 1 written
+
+
 def _small_cells(monkeypatch):
     """Every LM shape cut to a few tokens, every graph shape to a few
     nodes and edges, and the models to their smoke configs, so ``--all``
@@ -257,10 +327,31 @@ def _small_cells(monkeypatch):
         name: dict(sh, n_nodes=sh.get("n_graphs", 2) * 16,
                    n_edges=sh.get("n_graphs", 2) * 48, d_feat=8)
         for name, sh in gnn_common.GNN_SHAPES.items()})
-    for arch in LMS + GNNS:
+    for arch in LMS + GNNS + (TWO_TOWER,):
         mod = get_arch(arch)
         small = mod.smoke_config()
         monkeypatch.setattr(mod, "config", lambda small=small: small)
+    for name, value in (("N_PATTERNS", 64), ("L_SHARD", 256),
+                        ("N_QUERIES", 8)):
+        monkeypatch.setattr(kg_specqp, name, value)
+    for name, value in (("CELL_BATCH", {"train_batch": 64, "serve_p99": 32,
+                                        "serve_bulk": 128}),
+                        ("CORPUS", 8192), ("N_CAND_PAD", 65536),
+                        ("TILE", 256)):
+        monkeypatch.setattr(two_tower_retrieval, name, value)
+
+
+def test_two_tower_param_axes_match_jax_init():
+    """``recsys.param_axes`` is the reference ``init``'s axes tree, and
+    ``init``'s shapes and dtypes match leaf for leaf (published widths)."""
+    mod, jmod = get_arch(TWO_TOWER), jget_arch(TWO_TOWER)
+    shapes, axes = jbase.eval_shape_with_axes(
+        lambda k: jmod.model.init(k, jmod.config()), jax.random.PRNGKey(0))
+    got = mod.model.param_axes(mod.config())
+    assert got == axes
+    params = mod.model.param_tree(mod.model.init(mod.config(),
+                                                 device="meta"))
+    assert _port_leaves(params, got) == _jax_leaves(shapes, axes)
 
 
 def test_all_writes_ok_and_skipped(monkeypatch, tmp_path, capsys):
@@ -279,7 +370,10 @@ def test_all_writes_ok_and_skipped(monkeypatch, tmp_path, capsys):
             # flops.
             assert (r["roofline"]["model_flops"] > 0) == (r["arch"] in LMS)
     assert {k for k, v in status.items() if v == "ok"} == set(CELLS)
-    assert all(v == "skipped" for k, v in status.items() if k not in CELLS)
+    assert len(CELLS) == 40
+    assert {k for k, v in status.items() if v == "skipped"} == {
+        (a, "long_500k") for a in MOE}
+    assert not any("not ported" in line for line in lines)
     assert len(status) == sum(len(get_arch(a).SHAPES) for a in
                               dryrun.all_archs())
     assert len(lines) == len(status)
